@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`gea_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+1. print the card's name and power limit, and the torch and CUDA versions;
+2. build the CUDA kernels from `gea_torch/csrc/` (nvcc, sm_90a);
+3. for each kernel, at the shapes of the flagship serving path, in fp32 and
+   bf16: compare the kernel with its plain PyTorch version within a stated
+   tolerance, and time both (CUDA events, warm-up, median of 20 launches)
+   beside the least time the card could take (bytes or operations);
+4. build flagship-width G and D from seeded random params in `gea`'s tree
+   layout and run `ServingModel.sample_filtered(64, oversample=4,
+   batch_size=64)` in bf16 with the launch counters zeroed just before and
+   read just after; check the outputs, the launch counts, and an fp32
+   render with kernels against the same render with plain versions;
+5. print one JSON line of per-kernel results, the card's name and power
+   limit, and last `{"ok": true, "device": {...}}`.
+
+Without CUDA the script exits 1 before printing any result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from gea_torch import FLAGSHIP, ops
+from gea_torch.config import generator_plan
+from gea_torch.interop import (
+    discriminator_from_jax_params,
+    generator_from_jax_params,
+    init_discriminator_params,
+    init_generator_params,
+)
+from gea_torch.ops import build
+from gea_torch.serve import ServingModel
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor cores; fp32 CUDA cores
+COUNT, OVERSAMPLE, BATCH = 64, 4, 64
+REPS, WARMUP = 20, 3
+SPIN_CYCLES = 4_000_000  # about 2 ms at the H100's clock: longer than any call's enqueue
+RENDER_SPIN_CYCLES = 60_000_000  # about 30 ms: longer than a whole render's enqueue
+
+# Tolerance |kernel - plain| <= atol + rtol * |plain|, per dtype. fp32: the
+# two differ only in the order of fp32 sums. bf16: a different sum order can
+# flip a rounding to bf16 (one step is 2^-8 relative); a flipped hidden or
+# seed-map value moves the output by about one more such step.
+TOL = {
+    "fused_tprelu": {torch.float32: (1e-6, 1e-6), torch.bfloat16: (1e-5, 8e-3)},
+    "lis_residual_mlp": {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)},
+    "fused_seed": {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)},
+}
+SOURCES = {
+    "fused_tprelu": ("triton", "gea_torch/ops/tprelu.py", "gea/ops/pallas/tprelu.py:50"),
+    "lis_residual_mlp": ("cuda", "gea_torch/csrc/lis.cu", "gea/ops/pallas/lis.py:89"),
+    "fused_seed": ("cuda", "gea_torch/csrc/seed.cu", "gea/ops/pallas/seed.py:129"),
+}
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def time_ms(fn, spin_cycles: int = SPIN_CYCLES) -> float:
+    """Median of REPS single-call device times, CUDA events, after WARMUP
+    calls. Before each call the stream is held busy by a spin kernel while
+    the host enqueues the call, so the events time the device's work and
+    not the host's launch overhead."""
+    for _ in range(WARMUP):
+        fn()
+    pairs = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def bound(nbytes: float, nops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def randn(shape, gen, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=gen) * scale).to("cuda", dtype)
+
+
+# ------------------------------------------------------------- kernel cases
+
+
+def cases(cfg):
+    """(kernel name, label, launches per render, make(dtype) -> (args, nbytes, nops))."""
+    s0, d = generator_plan(cfg.image_size)
+    n, code = cfg.n_stages * BATCH, cfg.code_size
+    nf, cap = cfg.num_features, cfg.max_features
+    hidden = code * cfg.lis_hidden_mult
+    c0 = min(nf * 2 ** (d - 1), cap)
+    c1 = min(nf * 2 ** (d - 2), cap)
+    gen = torch.Generator().manual_seed(0)
+    out = []
+
+    def tprelu_case(m, c):
+        def make(dt):
+            e = torch.tensor([], dtype=dt).element_size()
+            args = (randn((m, c), gen, 1.0, dt), torch.rand(c, generator=gen).cuda() * 0.5,
+                    randn(c, gen, 0.1))
+            return args, 2 * m * c * e + 2 * c * e, 6 * m * c
+        return make
+
+    for i in range(1, d):  # G: up{i}_act on the S*B stacked batch
+        side, ci = s0 * 2**i, min(nf * 2 ** (d - 1 - i), cap)
+        out.append(("fused_tprelu", f"G up{i}_act ({n * side * side}, {ci})", 1,
+                    tprelu_case(n * side * side, ci)))
+    for i in range(1, d):  # D: down{i}_act on the final stage
+        side, ci = cfg.image_size // 2 ** (i + 1), min(nf * 2**i, cap)
+        out.append(("fused_tprelu", f"D down{i}_act ({BATCH * side * side}, {ci})", 1,
+                    tprelu_case(BATCH * side * side, ci)))
+
+    def lis_make(dt):
+        e = torch.tensor([], dtype=dt).element_size()
+        args = (randn((BATCH, code), gen, 1.0, dt), randn((code, hidden), gen, code**-0.5, dt),
+                randn(hidden, gen, 0.1), torch.rand(hidden, generator=gen).cuda() * 0.5,
+                randn(hidden, gen, 0.1), randn((hidden, code), gen, hidden**-0.5, dt),
+                randn(code, gen, 0.1))
+        nbytes = e * (2 * BATCH * code + 2 * code * hidden) + 4 * (3 * hidden + code)
+        return args, nbytes, 4 * BATCH * code * hidden
+
+    out.append(("lis_residual_mlp", f"LIS link ({BATCH}, {code}) x ({code}, {hidden})",
+                cfg.r_iterations, lis_make))
+
+    def seed_make(dt):
+        e = torch.tensor([], dtype=dt).element_size()
+        p = s0 * s0 * c0
+        args = (randn((n, code), gen, 1.0, dt), randn((code, p), gen, code**-0.5, dt),
+                randn(p, gen, 0.1), torch.rand(c0, generator=gen).cuda() * 0.5,
+                randn(c0, gen, 0.1), randn((4, 4, c0, c1), gen, (16 * c0) ** -0.5, dt),
+                randn(c1, gen, 0.1), s0)
+        nbytes = (e * (n * code + code * p + 16 * c0 * c1 + n * (2 * s0) ** 2 * c1)
+                  + 4 * (p + 2 * c0 + c1))
+        nops = 2 * n * code * p + 2 * n * (2 * s0) ** 2 * 4 * c0 * c1
+        return args, nbytes, nops
+
+    out.append(("fused_seed", f"seed ({n}, {code}) -> ({n}, {2 * s0}, {2 * s0}, {c1})",
+                1, seed_make))
+    return out
+
+
+PLAIN = {
+    "fused_tprelu": ops.fused_tprelu_plain,
+    "lis_residual_mlp": ops.lis_residual_mlp_plain,
+    "fused_seed": ops.fused_seed_plain,
+}
+KERNEL = {
+    "fused_tprelu": ops.fused_tprelu,
+    "lis_residual_mlp": ops.lis_residual_mlp,
+    "fused_seed": ops.fused_seed,
+}
+
+
+def check_kernels(cfg) -> dict:
+    results = {}
+    for name, label, per_render, make in cases(cfg):
+        row = results.setdefault(name, {
+            "name": name, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_parts": {"bytes": 0.0, "operations": 0.0},
+            "max_abs_err": 0.0, "max_abs_err_fp32": 0.0, "shapes": [],
+        })
+        for dt in (torch.float32, torch.bfloat16):
+            args, nbytes, nops = make(dt)
+            got = KERNEL[name](*args)
+            want = PLAIN[name](*args)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {label}: {got.shape}/{got.dtype} vs "
+                                     f"{want.shape}/{want.dtype}")
+            err = (got.float() - want.float()).abs()
+            atol, rtol = TOL[name][dt]
+            excess = (err - (atol + rtol * want.float().abs())).max().item()
+            max_err = err.max().item()
+            if not torch.isfinite(got).all() or excess > 0:
+                raise AssertionError(
+                    f"{name} {label} {dt}: max |err| {max_err:.3e} beyond "
+                    f"atol {atol} + rtol {rtol}")
+            k_ms = time_ms(lambda: KERNEL[name](*args))
+            p_ms = time_ms(lambda: PLAIN[name](*args))
+            b_ms, b_by = bound(nbytes, nops, dt)
+            print(f"[kernel] {name:16s} {label:44s} {str(dt)[6:]:8s} max|err| "
+                  f"{max_err:.3e} (atol {atol}, rtol {rtol})  kernel {k_ms:.4f} ms  "
+                  f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  x{per_render}/render",
+                  flush=True)
+            if dt == torch.float32:
+                row["max_abs_err_fp32"] = max(row["max_abs_err_fp32"], max_err)
+                continue
+            # bf16 is the main path's dtype: its times make the line.
+            row["max_abs_err"] = max(row["max_abs_err"], max_err)
+            row["ms"] += per_render * k_ms
+            row["plain_ms"] += per_render * p_ms
+            row["bound_ms"] += per_render * b_ms
+            row["bound_parts"][b_by] += per_render * b_ms
+            row["shapes"].append({"shape": label, "per_render": per_render,
+                                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms})
+            del args
+    for row in results.values():
+        row["bound_by"] = max(row["bound_parts"], key=row["bound_parts"].get)
+        del row["bound_parts"]
+    return results
+
+
+# ------------------------------------------------------------- serving path
+
+
+def serving(cfg, kernel_rows: dict) -> dict:
+    g_params = init_generator_params(cfg, seed=0)
+    d_params = init_discriminator_params(cfg, seed=1)
+    model = ServingModel(generator_from_jax_params(g_params, cfg),
+                         discriminator_from_jax_params(d_params, cfg))
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = model.sample_filtered(COUNT, seed=0, oversample=OVERSAMPLE, batch_size=BATCH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    renders = COUNT * OVERSAMPLE // BATCH
+    n_act = 2 * (generator_plan(cfg.image_size)[1] - 1)
+    want = {"fused_tprelu": n_act * renders, "lis_residual_mlp": cfg.r_iterations * renders,
+            "fused_seed": renders}
+    print(f"[serve] launch counts over {renders} renders: {counts} (want {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    for name, n in counts.items():
+        kernel_rows[name]["launches"] = n
+
+    s = cfg.image_size
+    expect = {"images": ((COUNT, s, s, 3), np.uint8),
+              "stages": ((cfg.r_iterations + 1, COUNT, s, s, 3), np.uint8),
+              "scores": ((COUNT,), np.float32)}
+    for k, (shape, dt) in expect.items():
+        if best[k].shape != shape or best[k].dtype != dt:
+            raise AssertionError(f"{k}: {best[k].shape} {best[k].dtype}, want {shape} {dt}")
+    sc = best["scores"]
+    if not (np.isfinite(sc).all() and (sc >= 0).all() and (sc <= 1).all()):
+        raise AssertionError(f"scores outside [0, 1]: {sc}")
+    if not (np.diff(sc) <= 0).all():
+        raise AssertionError("scores are not sorted by descending score")
+    if np.array_equal(best["images"].min(), best["images"].max()):
+        raise AssertionError("every pixel of every image is the same")
+    print(f"[serve] sample_filtered ok: images {best['images'].shape}, scores "
+          f"[{sc.min():.6f}, {sc.max():.6f}], first call {first_s:.3f} s", flush=True)
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.sample_filtered(COUNT, seed=1, oversample=OVERSAMPLE, batch_size=BATCH)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+
+    # Device time of one render + score of a batch, kernels vs plain versions.
+    z = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (BATCH, cfg.code_size)).astype(np.float32)).cuda()
+    plain = ServingModel(
+        generator_from_jax_params(g_params, cfg, use_kernels=False),
+        discriminator_from_jax_params(d_params, cfg, use_kernels=False))
+
+    def render_fn(m):
+        def run():
+            imgs, _ = m.generator.render(z)
+            return m.discriminator(imgs[-1])
+        return run
+
+    with torch.inference_mode():
+        render_ms = time_ms(render_fn(model), RENDER_SPIN_CYCLES)
+        render_plain_ms = time_ms(render_fn(plain), RENDER_SPIN_CYCLES)
+        bf16_k, _ = model.generator.render(z)
+        bf16_p, _ = plain.generator.render(z)
+        bf16_diff = (bf16_k - bf16_p).abs().max().item()
+
+    result = {
+        "sample_filtered_s": wall,
+        "candidates_per_s": COUNT * OVERSAMPLE / wall,
+        "delivered_per_s": COUNT / wall,
+        "render_score_ms": render_ms,
+        "render_score_plain_ms": render_plain_ms,
+        "rendered_images_per_s_device": cfg.n_stages * BATCH / render_ms * 1e3,
+        "bf16_render_kernel_vs_plain_max_abs": bf16_diff,
+    }
+    print(f"[serve] sample_filtered({COUNT}, oversample={OVERSAMPLE}, batch_size={BATCH}) "
+          f"median of 3: {wall:.4f} s = {result['candidates_per_s']:.1f} candidates/s, "
+          f"{result['delivered_per_s']:.1f} delivered/s", flush=True)
+    print(f"[serve] one render+score of {BATCH} codes ({cfg.n_stages * BATCH} images): "
+          f"kernels {render_ms:.3f} ms, plain versions {render_plain_ms:.3f} ms; bf16 "
+          f"render kernel-vs-plain max |diff| {bf16_diff:.3e} (information only)", flush=True)
+    del model, plain
+    return result
+
+
+def fp32_agreement(cfg) -> dict:
+    """The same fp32 render + score with kernels and with plain versions."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    g_params = init_generator_params(cfg32, seed=0)
+    d_params = init_discriminator_params(cfg32, seed=1)
+    z = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (BATCH, cfg.code_size)).astype(np.float32)).cuda()
+    outs = []
+    with torch.inference_mode():
+        for use_kernels in (True, False):
+            g = generator_from_jax_params(g_params, cfg32, use_kernels=use_kernels)
+            d = discriminator_from_jax_params(d_params, cfg32, use_kernels=use_kernels)
+            imgs, zs = g.render(z)
+            outs.append((imgs, zs, torch.sigmoid(d(imgs[-1]))))
+            del g, d
+    (ik, zk, sk), (ip, zp, sp) = outs
+    errs = {
+        "images": (ik - ip).abs().max().item(),
+        "zs": (zk - zp).abs().max().item(),
+        "scores": (sk - sp).abs().max().item(),
+    }
+    # fp32 sums in another order through 4 conv layers: ~1e-6 relative per
+    # layer; 2e-4 is a wide margin over that and far below one uint8 level.
+    tol = {"images": 2e-4, "zs": 1e-4, "scores": 1e-5}
+    print(f"[fp32] render with kernels vs plain versions: max |diff| {errs} (tol {tol})",
+          flush=True)
+    for k in errs:
+        if not errs[k] <= tol[k]:
+            raise AssertionError(f"fp32 {k} differ by {errs[k]:.3e} > {tol[k]}")
+    if not torch.isfinite(ik).all():
+        raise AssertionError("non-finite fp32 images")
+    return errs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    smi = nvidia_smi()
+    print(f"[device] {smi}", flush=True)
+    print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    print(f"[build] {', '.join(str(p.name) for p in paths.values())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "error")):
+                print(f"[build] {name}: {line.strip()}", flush=True)
+
+    cfg = FLAGSHIP
+    rows = check_kernels(cfg)
+    serve = serving(cfg, rows)
+    fp32 = fp32_agreement(cfg)
+
+    kernels = []
+    for name, row in rows.items():
+        route, source, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": route, "source": source, "replaces": replaces,
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
+            "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "per": "bf16, one scored render (all its launches)",
+            "shapes": row["shapes"],
+        })
+    print(json.dumps({"serving": serve, "fp32_agreement": fp32,
+                      "seconds": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of `gea` for NVIDIA Hopper (H100).
+
+The JAX package `gea/` stays the reference; this package imports nothing of
+it (nor JAX). The slice ported so far is the serving path: the G-LIS
+generator renders every LIS stage, the discriminator scores the final stage
+and the top-k by score is kept (`gea_torch.serve.ServingModel`). Its three
+TPU kernels are hand-written Hopper kernels in `gea_torch.ops`.
+
+Entry points run on CUDA unless the caller passes `device="cpu"`; on the CPU
+every kernel runs its plain PyTorch version.
+"""
+
+from gea_torch.config import FLAGSHIP, ModelConfig  # noqa: F401

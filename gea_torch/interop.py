@@ -1,0 +1,194 @@
+"""`gea`'s flax param trees (as numpy arrays) -> the port's modules.
+
+A copy of the key mapping of `gea/interop/torch_port.py`
+(`generator_to_torch_state`, `discriminator_to_torch_state`), kept here so
+the port imports nothing of `gea`:
+
+| gea (flax)                        | port                                 |
+|-----------------------------------|--------------------------------------|
+| Dense kernel (in, out)            | weight_v / weight (out, in)          |
+| Conv kernel HWIO (kh, kw, in, out)| weight_v / weight (out, in, kh, kw)  |
+| ConvT kernel HWIO                 | weight_v / weight (in, out, kh, kw)  |
+| scale (out,)                      | weight_g, 1 on every non-output axis |
+| TPReLU slope / translation        | a / b                                |
+
+`init_generator_params` / `init_discriminator_params` make seeded random
+trees in the same layout (lecun-normal variance, scale 1, slope 0.25,
+translation 0, zero biases), for runs that need no trained weights.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from gea_torch.config import ModelConfig, generator_plan
+from gea_torch.models import Discriminator, GeneratorLIS
+
+Params = Dict[str, Any]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _wn(norm: str) -> bool:
+    if norm == "batch":
+        raise NotImplementedError("norm=batch is not ported yet")
+    return norm == "weight"
+
+
+def _weighted(out: OrderedDict, prefix: str, kernel: torch.Tensor, p: Params,
+              wn: bool, out_dim: int) -> None:
+    if wn:
+        g_shape = [1] * kernel.dim()
+        g_shape[out_dim] = kernel.shape[out_dim]
+        out[prefix + ".weight_v"] = kernel.contiguous()
+        out[prefix + ".weight_g"] = _t(p["scale"]).view(g_shape)
+    else:
+        out[prefix + ".weight"] = kernel.contiguous()
+    out[prefix + ".bias"] = _t(p["bias"])
+
+
+def _dense(out, prefix, p, wn):
+    _weighted(out, prefix, _t(p["kernel"]).T, p, wn, 0)  # (in,out) -> (out,in)
+
+
+def _conv(out, prefix, p, wn):
+    _weighted(out, prefix, _t(p["kernel"]).permute(3, 2, 0, 1), p, wn, 0)  # HWIO -> OIHW
+
+
+def _convt(out, prefix, p, wn):
+    _weighted(out, prefix, _t(p["kernel"]).permute(2, 3, 0, 1), p, wn, 1)  # HWIO -> IOHW
+
+
+def _tprelu(out, prefix, p):
+    out[prefix + ".a"] = _t(p["slope"])
+    out[prefix + ".b"] = _t(p["translation"])
+
+
+def generator_state_from_jax_params(params: Params, cfg: ModelConfig) -> OrderedDict:
+    """GeneratorLIS flax params -> the port's generator state_dict."""
+    wn = _wn(cfg.norm)
+    out: OrderedDict = OrderedDict()
+    for i in range(cfg.r_iterations):
+        p = params[f"lis{i}"]
+        for fc in ("fc1", "fc2"):
+            sub = {"kernel": p[f"{fc}_kernel"], "bias": p[f"{fc}_bias"]}
+            if wn:
+                sub["scale"] = p[f"{fc}_scale"]
+            _dense(out, f"lis.{i}.{fc}", sub, wn)
+        if wn:
+            _tprelu(out, f"lis.{i}.act", p)
+    core = params["core"]
+    _dense(out, "project", core["project"], wn)
+    if wn:
+        _tprelu(out, "project_act", core["project_act"]["TPReLU_0"])
+    _, d = generator_plan(cfg.image_size)
+    for i in range(1, d):
+        _convt(out, f"ups.{i - 1}.conv", core[f"up{i}"], wn)
+        if wn:
+            _tprelu(out, f"ups.{i - 1}.act", core[f"up{i}_act"]["TPReLU_0"])
+    _convt(out, "to_rgb", core["to_rgb"], wn)
+    return out
+
+
+def discriminator_state_from_jax_params(params: Params, cfg: ModelConfig) -> OrderedDict:
+    """Discriminator flax params -> the port's discriminator state_dict."""
+    wn = _wn(cfg.norm)
+    out: OrderedDict = OrderedDict()
+    _, d = generator_plan(cfg.image_size)
+    trunk = params["trunk"]
+    for i in range(d):
+        _conv(out, f"trunk.downs.{i}.conv", trunk[f"down{i}"], wn)
+        if i > 0 and wn:
+            _tprelu(out, f"trunk.downs.{i}.act", trunk[f"down{i}_act"]["TPReLU_0"])
+    _dense(out, "head", params["head"], wn)
+    return out
+
+
+def generator_from_jax_params(params: Params, cfg: ModelConfig, device="cuda",
+                              use_kernels: bool = True) -> GeneratorLIS:
+    g = GeneratorLIS(cfg, device=device, use_kernels=use_kernels)
+    g.load_state_dict(generator_state_from_jax_params(params, cfg), strict=True)
+    return g.eval()
+
+
+def discriminator_from_jax_params(params: Params, cfg: ModelConfig, device="cuda",
+                                  use_kernels: bool = True) -> Discriminator:
+    d = Discriminator(cfg, device=device, use_kernels=use_kernels)
+    d.load_state_dict(discriminator_state_from_jax_params(params, cfg), strict=True)
+    return d.eval()
+
+
+# ------------------------------------------------- seeded random param trees
+
+
+def _layer(rng: np.random.Generator, shape, fan_in: int, wn: bool) -> Params:
+    out = shape[-1]
+    p = {
+        "kernel": (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32),
+        "bias": np.zeros(out, np.float32),
+    }
+    if wn:
+        p["scale"] = np.ones(out, np.float32)
+    return p
+
+
+def _act(ch: int) -> Params:
+    return {"TPReLU_0": {"slope": np.full(ch, 0.25, np.float32),
+                        "translation": np.zeros(ch, np.float32)}}
+
+
+def init_generator_params(cfg: ModelConfig, seed: int = 0) -> Params:
+    wn = _wn(cfg.norm)
+    rng = np.random.default_rng(seed)
+    s0, d = generator_plan(cfg.image_size)
+    nf, cap, code = cfg.num_features, cfg.max_features, cfg.code_size
+    hidden = code * cfg.lis_hidden_mult
+    params: Params = {}
+    for i in range(cfg.r_iterations):
+        fc1 = _layer(rng, (code, hidden), code, wn)
+        fc2 = _layer(rng, (hidden, code), hidden, wn)
+        p = {"fc1_kernel": fc1["kernel"], "fc1_bias": fc1["bias"],
+             "fc2_kernel": fc2["kernel"], "fc2_bias": fc2["bias"]}
+        if wn:
+            p.update(fc1_scale=fc1["scale"], fc2_scale=fc2["scale"],
+                     **_act(hidden)["TPReLU_0"])
+        params[f"lis{i}"] = p
+    c0 = min(nf * 2 ** (d - 1), cap)
+    core: Params = {"project": _layer(rng, (code, s0 * s0 * c0), code, wn)}
+    if wn:
+        core["project_act"] = _act(c0)
+    ch = c0
+    for i in range(1, d):
+        ci = min(nf * 2 ** (d - 1 - i), cap)
+        cin = ch + (cfg.spatial_code if i == 2 else 0)
+        core[f"up{i}"] = _layer(rng, (4, 4, cin, ci), 16 * cin, wn)
+        if wn:
+            core[f"up{i}_act"] = _act(ci)
+        ch = ci
+    rgb_in = ch + (cfg.spatial_code if d == 2 else 0)
+    core["to_rgb"] = _layer(rng, (4, 4, rgb_in, 3), 16 * rgb_in, wn)
+    params["core"] = core
+    return params
+
+
+def init_discriminator_params(cfg: ModelConfig, seed: int = 0) -> Params:
+    wn = _wn(cfg.norm)
+    rng = np.random.default_rng(seed)
+    s0, d = generator_plan(cfg.image_size)
+    nf, cap = cfg.num_features, cfg.max_features
+    trunk: Params = {}
+    ch = 3
+    for i in range(d):
+        ci = min(nf * 2**i, cap)
+        trunk[f"down{i}"] = _layer(rng, (4, 4, ch, ci), 16 * ch, wn)
+        if i > 0 and wn:
+            trunk[f"down{i}_act"] = _act(ci)
+        ch = ci
+    head = _layer(rng, (ch * s0 * s0, 1), ch * s0 * s0, wn)
+    return {"trunk": trunk, "head": head}

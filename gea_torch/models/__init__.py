@@ -1,0 +1,6 @@
+from gea_torch.models.discriminator import Discriminator, DiscriminatorTrunk  # noqa: F401
+from gea_torch.models.generator import (  # noqa: F401
+    GeneratorCore,
+    GeneratorLIS,
+    LISModule,
+)

@@ -1,0 +1,101 @@
+"""The generator's seed segment, `project -> TPReLU -> ConvTranspose(4, 2, 1)`,
+as one CUDA kernel (`gea_torch/csrc/seed.cu`).
+
+Replaces `gea/ops/pallas/seed.py::fused_seed`, with the same arguments and
+layouts: z (N, code); wp (code, s0*s0*c0) whose output reshapes to
+(s0, s0, c0) channels fastest; bp (s0*s0*c0,); slope, trans (c0,); wc
+(4, 4, c0, c1) HWIO, not flipped; bc (c1,). The output is NHWC
+(N, 2*s0, 2*s0, c1) in z's dtype. Products accumulate in fp32, the TPReLU
+runs in fp32 and its result is cast to z's dtype before the transposed conv.
+
+On a CPU tensor `fused_seed` runs the plain version; on a CUDA tensor it
+launches the kernel (and counts the launch in `fused_seed.launches`) or
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from gea_torch.ops import build
+
+_CODES = 2  # codes per block; must match kCodes in csrc/seed.cu
+_SMEM_LIMIT = 232448
+
+
+def fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
+    dt = z.dtype
+    c0 = wc.shape[2]
+    h = z.float() @ wp.float() + bp.float()
+    s = h.view(z.shape[0], s0, s0, c0) - trans.float()
+    h = (s.clamp_min(0) + slope.float() * s.clamp_max(0) + trans.float()).to(dt)
+    y = F.conv_transpose2d(
+        h.float().permute(0, 3, 1, 2),
+        wc.float().permute(2, 3, 0, 1),  # HWIO -> (in, out, kh, kw)
+        bc.float(),
+        stride=2,
+        padding=1,
+    )
+    return y.permute(0, 2, 3, 1).to(dt).contiguous()
+
+
+def seed_smem_bytes(code: int, s0: int, c0: int, dtype: torch.dtype) -> int:
+    item = torch.tensor([], dtype=dtype).element_size()
+    return 4 * _CODES * code + item * _CODES * (s0 + 2) ** 2 * c0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("seed")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gea_seed_forward.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
+    lib.gea_seed_forward.restype = ctypes.c_int
+    return lib
+
+
+def fused_seed(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
+    if z.device.type == "cpu":
+        return fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0)
+    build.check_cuda_inputs("fused_seed", z, wp, bp, slope, trans, wc, bc)
+    dt = z.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_seed: unsupported dtype {dt}")
+    batch, code = z.shape
+    c0, c1 = wc.shape[2], wc.shape[3]
+    if wp.shape != (code, s0 * s0 * c0) or wc.shape != (4, 4, c0, c1):
+        raise ValueError(
+            f"fused_seed: wp {tuple(wp.shape)} / wc {tuple(wc.shape)} do not "
+            f"fit z {tuple(z.shape)} at s0={s0}"
+        )
+    if not 4 <= s0 <= 7 or c0 % 4 or code % 4:
+        raise ValueError(
+            f"fused_seed: the kernel takes 4 <= s0 <= 7 and code, c0 divisible "
+            f"by 4; got s0={s0}, code={code}, c0={c0}"
+        )
+    if seed_smem_bytes(code, s0, c0, dt) > _SMEM_LIMIT:
+        raise ValueError(f"fused_seed: the seed map of c0={c0} does not fit shared memory")
+    out = torch.empty((batch, 2 * s0, 2 * s0, c1), dtype=dt, device=z.device)
+    if batch == 0:
+        return out
+    z = z.contiguous()
+    wp = wp.to(dt).contiguous()
+    wf = wc.flip((0, 1)).to(dt).contiguous()
+    f32 = [v.float().contiguous() for v in (bp, slope, trans, bc)]
+    lib = _lib()
+    with torch.cuda.device(z.device):
+        rc = lib.gea_seed_forward(
+            z.data_ptr(), wp.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
+            f32[2].data_ptr(), wf.data_ptr(), f32[3].data_ptr(), out.data_ptr(),
+            batch, code, s0, c0, c1, int(dt == torch.bfloat16),
+            torch.cuda.current_stream(z.device).cuda_stream,
+        )
+    build.check(lib, rc, "fused_seed")
+    fused_seed.launches += 1
+    return out
+
+
+fused_seed.launches = 0

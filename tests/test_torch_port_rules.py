@@ -1,0 +1,78 @@
+"""Rules of the PyTorch port: it imports nothing of JAX or of `gea`, it
+imports on a host without CUDA, and its entry points never fall back to the
+CPU on their own."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "gea")
+
+
+def _port_files():
+    return sorted((ROOT / "gea_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax_or_gea(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_without_cuda_builds_nothing():
+    """`import gea_torch` (and every module) works on a CPU-only host, starts
+    no build and imports no triton."""
+    code = (
+        "import sys, gea_torch, gea_torch.serve, gea_torch.interop, gea_torch.ops;"
+        "from gea_torch.ops import build;"
+        "assert build._LIBS == {} and not build.BUILD_DIR.joinpath('x').exists();"
+        "assert 'triton' not in sys.modules and 'jax' not in sys.modules;"
+        "assert not any(m == 'gea' or m.startswith('gea.') for m in sys.modules)"
+    )
+    env = {"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+def test_serving_model_on_default_device_needs_cuda(monkeypatch):
+    from gea_torch import ModelConfig
+    from gea_torch.interop import generator_from_jax_params, init_generator_params
+
+    cfg = ModelConfig(image_size=32, code_size=16, r_iterations=1,
+                      num_features=8, max_features=32, dtype="float32")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generator_from_jax_params(init_generator_params(cfg), cfg)
+    # Asked for explicitly, the CPU works.
+    from gea_torch.serve import ServingModel
+
+    g = generator_from_jax_params(init_generator_params(cfg), cfg, device="cpu")
+    out = ServingModel(g)(np.zeros((1, 16), np.float32))
+    assert out["images"].shape == (1, 32, 32, 3)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without CUDA the smoke script exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the script runs for real there")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
