@@ -10,13 +10,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
 3. for each kernel, at the shapes of the flagship serving path, in fp32 and
    bf16: compare the kernel with its plain PyTorch version within a stated
    tolerance, and time both (CUDA events, warm-up, median of 20 launches)
-   beside the least time the card could take (bytes or operations);
-4. build flagship-width G and D from seeded random params in `gea`'s tree
+   beside the least time the card could take (bytes or operations), the
+   device time of an empty kernel launch (the floor of any launch) and, for
+   the seed, the bf16 library composite (cuBLAS GEMM, TPReLU, cuDNN
+   transposed conv; a yardstick the port never calls);
+4. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
+   ragged batch, at s0 = 4 and 7, with c1 and code that are not multiples
+   of the tiles; the LIS link at a batch that is not a multiple of its row
+   tile and at widths below one tile;
+5. build flagship-width G and D from seeded random params in `gea`'s tree
    layout and run `ServingModel.sample_filtered(64, oversample=4,
    batch_size=64)` in bf16 with the launch counters zeroed just before and
    read just after; check the outputs, the launch counts, and an fp32
-   render with kernels against the same render with plain versions;
-5. print one JSON line of per-kernel results, the card's name and power
+   render with kernels against the same render with plain versions; with
+   torch.profiler, the device's busy share of a call and the device time of
+   one render + score by kernel;
+6. print one JSON line of per-kernel results, the card's name and power
    limit, and last `{"ok": true, "device": {...}}`.
 
 Without CUDA the script exits 1 before printing any result.
@@ -96,6 +105,47 @@ def time_ms(fn, spin_cycles: int = SPIN_CYCLES) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def empty_launch_ms() -> float:
+    """Device time of one launch of a kernel that does nothing (a spin of 0
+    cycles) under `time_ms`: the floor under any kernel's time."""
+    return time_ms(lambda: torch.cuda._sleep(0))
+
+
+def device_profile(fn) -> tuple:
+    """torch.profiler over one call of `fn`: (device ms summed over kernels
+    and copies, [(name, ms, count)] by descending time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            rows.append((e.key, e.self_device_time_total / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+# Kernel names by what they do, for the render + score breakdown; the
+# first rule that matches wins.
+CATEGORIES = (
+    ("port kernels", ("seed_tap_gemm", "seed_kernel_f32", "lis_kernel", "tprelu_kernel")),
+    ("library convs (cuDNN)", ("xmma", "cudnn", "cutlass", "nhwc", "implicit_gemm")),
+    ("library matmuls (cuBLAS)", ("gemm", "gemv")),
+    ("eager elementwise and reductions", ("at::native",)),
+    ("copies", ("Memcpy", "Memset")),
+)
+
+
+def by_category(rows) -> dict:
+    out = {}
+    for name, ms, _ in rows:
+        cat = next((c for c, keys in CATEGORIES if any(k in name for k in keys)), "other")
+        out[cat] = out.get(cat, 0.0) + ms
+    return out
+
+
 def bound(nbytes: float, nops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS[dtype] * 1e3
@@ -166,6 +216,20 @@ def cases(cfg):
     return out
 
 
+def seed_composite(z, wp, bp, slope, trans, wc_iohw, bc, s0):
+    """The seed segment as library calls in z's dtype: cuBLAS GEMM with bias,
+    TPReLU in eager ops, cuDNN transposed conv on a channels-last map. The
+    weight is given in the library's (in, out, kh, kw) layout, prepared once
+    outside the timed call."""
+    h = torch.addmm(bp.to(z.dtype), z, wp).view(z.shape[0], s0, s0, -1)
+    a, t = slope.to(z.dtype), trans.to(z.dtype)
+    s = h - t
+    h = s.clamp_min(0) + a * s.clamp_max(0) + t
+    y = torch.nn.functional.conv_transpose2d(
+        h.permute(0, 3, 1, 2), wc_iohw, bc.to(z.dtype), stride=2, padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
 PLAIN = {
     "fused_tprelu": ops.fused_tprelu_plain,
     "lis_residual_mlp": ops.lis_residual_mlp_plain,
@@ -178,37 +242,53 @@ KERNEL = {
 }
 
 
+def compare(name, label, dt, got, want) -> float:
+    """Hold a kernel's output against its plain version within TOL; return
+    the largest |difference|."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name} {label}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    err = (got.float() - want.float()).abs()
+    atol, rtol = TOL[name][dt]
+    excess = (err - (atol + rtol * want.float().abs())).max().item()
+    max_err = err.max().item()
+    if not torch.isfinite(got).all() or excess > 0:
+        raise AssertionError(
+            f"{name} {label} {dt}: max |err| {max_err:.3e} beyond atol {atol} + rtol {rtol}")
+    return max_err
+
+
 def check_kernels(cfg) -> dict:
+    floor_ms = empty_launch_ms()
+    print(f"[floor] empty kernel launch {floor_ms:.4f} ms (device time under the same "
+          f"harness)", flush=True)
     results = {}
     for name, label, per_render, make in cases(cfg):
         row = results.setdefault(name, {
             "name": name, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bound_parts": {"bytes": 0.0, "operations": 0.0},
             "max_abs_err": 0.0, "max_abs_err_fp32": 0.0, "shapes": [],
+            "composite_ms": None, "empty_launch_ms": floor_ms,
         })
         for dt in (torch.float32, torch.bfloat16):
             args, nbytes, nops = make(dt)
-            got = KERNEL[name](*args)
-            want = PLAIN[name](*args)
-            torch.cuda.synchronize()
-            if got.shape != want.shape or got.dtype != want.dtype:
-                raise AssertionError(f"{name} {label}: {got.shape}/{got.dtype} vs "
-                                     f"{want.shape}/{want.dtype}")
-            err = (got.float() - want.float()).abs()
+            max_err = compare(name, label, dt, KERNEL[name](*args), PLAIN[name](*args))
             atol, rtol = TOL[name][dt]
-            excess = (err - (atol + rtol * want.float().abs())).max().item()
-            max_err = err.max().item()
-            if not torch.isfinite(got).all() or excess > 0:
-                raise AssertionError(
-                    f"{name} {label} {dt}: max |err| {max_err:.3e} beyond "
-                    f"atol {atol} + rtol {rtol}")
             k_ms = time_ms(lambda: KERNEL[name](*args))
             p_ms = time_ms(lambda: PLAIN[name](*args))
             b_ms, b_by = bound(nbytes, nops, dt)
+            extra = ""
+            c_ms = None
+            if name == "fused_seed" and dt == torch.bfloat16:
+                lib_args = list(args)
+                lib_args[5] = args[5].permute(2, 3, 0, 1).contiguous()
+                c_ms = time_ms(lambda: seed_composite(*lib_args))
+                extra = f"  composite {c_ms:.4f} ms"
             print(f"[kernel] {name:16s} {label:44s} {str(dt)[6:]:8s} max|err| "
                   f"{max_err:.3e} (atol {atol}, rtol {rtol})  kernel {k_ms:.4f} ms  "
-                  f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  x{per_render}/render",
-                  flush=True)
+                  f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  empty launch "
+                  f"{floor_ms:.4f} ms{extra}  x{per_render}/render", flush=True)
             if dt == torch.float32:
                 row["max_abs_err_fp32"] = max(row["max_abs_err_fp32"], max_err)
                 continue
@@ -218,6 +298,8 @@ def check_kernels(cfg) -> dict:
             row["plain_ms"] += per_render * p_ms
             row["bound_ms"] += per_render * b_ms
             row["bound_parts"][b_by] += per_render * b_ms
+            if c_ms is not None:
+                row["composite_ms"] = (row["composite_ms"] or 0.0) + per_render * c_ms
             row["shapes"].append({"shape": label, "per_render": per_render,
                                   "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms})
             del args
@@ -225,6 +307,42 @@ def check_kernels(cfg) -> dict:
         row["bound_by"] = max(row["bound_parts"], key=row["bound_parts"].get)
         del row["bound_parts"]
     return results
+
+
+def check_edges() -> dict:
+    """Shapes the flagship never reaches, which exercise the kernels' masks:
+    a ragged batch, the smallest and largest s0, widths that are not tile
+    multiples. Each kernel against its plain version at the stated TOL."""
+    gen = torch.Generator().manual_seed(1)
+    errs = {}
+    seed_shapes = [  # (batch, code, s0, c0, c1)
+        (33, 256, 4, 256, 96),
+        (33, 40, 7, 256, 96),
+        (7, 256, 5, 512, 256),
+    ]
+    lis_shapes = [(30, 256, 256), (30, 40, 48), (1, 256, 512)]  # (batch, code, hidden)
+    for dt in (torch.float32, torch.bfloat16):
+        for batch, code, s0, c0, c1 in seed_shapes:
+            p = s0 * s0 * c0
+            args = (randn((batch, code), gen, 1.0, dt), randn((code, p), gen, code**-0.5, dt),
+                    randn(p, gen, 0.1), torch.rand(c0, generator=gen).cuda() * 0.5,
+                    randn(c0, gen, 0.1), randn((4, 4, c0, c1), gen, (16 * c0) ** -0.5, dt),
+                    randn(c1, gen, 0.1), s0)
+            label = f"seed batch {batch} code {code} s0 {s0} c0 {c0} c1 {c1}"
+            errs[f"{label} {str(dt)[6:]}"] = compare(
+                "fused_seed", label, dt, ops.fused_seed(*args), ops.fused_seed_plain(*args))
+        for batch, code, hidden in lis_shapes:
+            args = (randn((batch, code), gen, 1.0, dt), randn((code, hidden), gen, code**-0.5, dt),
+                    randn(hidden, gen, 0.1), torch.rand(hidden, generator=gen).cuda() * 0.5,
+                    randn(hidden, gen, 0.1), randn((hidden, code), gen, hidden**-0.5, dt),
+                    randn(code, gen, 0.1))
+            label = f"LIS batch {batch} code {code} hidden {hidden}"
+            errs[f"{label} {str(dt)[6:]}"] = compare(
+                "lis_residual_mlp", label, dt, ops.lis_residual_mlp(*args),
+                ops.lis_residual_mlp_plain(*args))
+    for k, v in errs.items():
+        print(f"[edge] {k:52s} max|err| {v:.3e}", flush=True)
+    return errs
 
 
 # ------------------------------------------------------------- serving path
@@ -293,7 +411,11 @@ def serving(cfg, kernel_rows: dict) -> dict:
             return m.discriminator(imgs[-1])
         return run
 
+    # Device busy share of one call, and where one render + score spends it.
+    busy_ms, _ = device_profile(
+        lambda: model.sample_filtered(COUNT, seed=1, oversample=OVERSAMPLE, batch_size=BATCH))
     with torch.inference_mode():
+        render_profiled_ms, top = device_profile(render_fn(model))
         render_ms = time_ms(render_fn(model), RENDER_SPIN_CYCLES)
         render_plain_ms = time_ms(render_fn(plain), RENDER_SPIN_CYCLES)
         bf16_k, _ = model.generator.render(z)
@@ -308,10 +430,24 @@ def serving(cfg, kernel_rows: dict) -> dict:
         "render_score_plain_ms": render_plain_ms,
         "rendered_images_per_s_device": cfg.n_stages * BATCH / render_ms * 1e3,
         "bf16_render_kernel_vs_plain_max_abs": bf16_diff,
+        "sample_filtered_device_busy_ms": busy_ms,
+        "sample_filtered_device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+        "render_score_profiled_ms": render_profiled_ms,
+        "render_score_by_category": by_category(top),
+        "render_score_by_kernel": [{"name": n[:90], "ms": t, "count": c} for n, t, c in top[:14]],
     }
     print(f"[serve] sample_filtered({COUNT}, oversample={OVERSAMPLE}, batch_size={BATCH}) "
           f"median of 3: {wall:.4f} s = {result['candidates_per_s']:.1f} candidates/s, "
           f"{result['delivered_per_s']:.1f} delivered/s", flush=True)
+    print(f"[serve] sample_filtered device busy {busy_ms:.3f} ms of {wall * 1e3:.3f} ms wall: "
+          f"idle share {result['sample_filtered_device_idle_share']:.3f} (torch.profiler)",
+          flush=True)
+    print(f"[serve] one render+score under torch.profiler: {render_profiled_ms:.4f} ms of device "
+          f"time in {sum(c for _, _, c in top)} kernels and copies; the largest:", flush=True)
+    for n, t, c in top[:14]:
+        print(f"[serve] render+score by kernel: {t:8.4f} ms x{c:<3d} {n[:90]}", flush=True)
+    for cat, t in sorted(result["render_score_by_category"].items(), key=lambda kv: -kv[1]):
+        print(f"[serve] render+score by category: {t:8.4f} ms {cat}", flush=True)
     print(f"[serve] one render+score of {BATCH} codes ({cfg.n_stages * BATCH} images): "
           f"kernels {render_ms:.3f} ms, plain versions {render_plain_ms:.3f} ms; bf16 "
           f"render kernel-vs-plain max |diff| {bf16_diff:.3e} (information only)", flush=True)
@@ -378,6 +514,7 @@ def main() -> int:
 
     cfg = FLAGSHIP
     rows = check_kernels(cfg)
+    edges = check_edges()
     serve = serving(cfg, rows)
     fp32 = fp32_agreement(cfg)
 
@@ -390,10 +527,12 @@ def main() -> int:
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
             "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "per": "bf16, one scored render (all its launches)",
+            "library_ms": None, "composite_ms": row["composite_ms"],
+            "empty_launch_ms": row["empty_launch_ms"],
+            "per": "bf16, one scored render (all its launches)",
             "shapes": row["shapes"],
         })
-    print(json.dumps({"serving": serve, "fp32_agreement": fp32,
+    print(json.dumps({"serving": serve, "fp32_agreement": fp32, "edges": edges,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

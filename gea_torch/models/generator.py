@@ -47,13 +47,15 @@ class LISModule(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         dt = z.dtype
         op = lis_residual_mlp if self.use_kernels else lis_residual_mlp_plain
+        # Weights reach the kernels row-major: the cast to the compute dtype
+        # writes them so, and the kernel wrappers copy nothing.
         return op(
             z,
-            self.fc1.normalized_weight().t().to(dt),
+            self.fc1.normalized_weight().t().to(dt, memory_format=torch.contiguous_format),
             self.fc1.bias,
             self.act.a,
             self.act.b,
-            self.fc2.normalized_weight().t().to(dt),
+            self.fc2.normalized_weight().t().to(dt, memory_format=torch.contiguous_format),
             self.fc2.bias,
         )
 
@@ -102,11 +104,11 @@ class GeneratorCore(nn.Module):
         dt = z.dtype
         return op(
             z,
-            self.project.normalized_weight().t().to(dt),
+            self.project.normalized_weight().t().to(dt, memory_format=torch.contiguous_format),
             self.project.bias,
             self.project_act.a,
             self.project_act.b,
-            up1.hwio_weight().to(dt),
+            up1.hwio_weight().to(dt, memory_format=torch.contiguous_format),
             up1.bias,
             self.s0,
         )

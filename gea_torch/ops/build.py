@@ -2,10 +2,12 @@
 
 Each source under `gea_torch/csrc/` is compiled by `nvcc` into its own
 shared library with a plain C interface, for `sm_90a` (Hopper), into
-`build/gea_torch_kernels/` at the root of the checkout. Nothing is built at
+`build/gea_torch_kernels/` at the root of the checkout; the sources share
+the headers `csrc/*.cuh`. Nothing is built at
 import: the first call of `load(name)` (or `build_all()`) builds, with one
 `nvcc` process per source, all started together. A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
+carries a hash of its source, the headers and the flags, so an edited
+source or header is rebuilt.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check(lib, rc, what)` turns a non-zero code into a RuntimeError.
@@ -31,6 +33,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+SMEM_LIMIT = 232448  # shared memory a block may use on Hopper
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -51,7 +55,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -102,6 +107,12 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.gea_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it if its data does not start on a 16-byte
+    boundary: the kernels copy operands in 16-byte pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_cuda_inputs(what: str, *tensors) -> None:

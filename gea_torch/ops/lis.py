@@ -6,6 +6,13 @@ same rounding: both products accumulate in fp32, the TPReLU runs in fp32,
 the hidden row is cast to z's dtype before the second product, and that
 product (plus b2) is cast to z's dtype before the residual add.
 
+The link is bound by launch latency (0.1 us of bytes at the flagship shape).
+The bf16 kernel runs on the tensor cores (mma.sync) as thread block
+clusters of 8 blocks that share a tile of 16 rows: each block computes an
+eighth of the hidden columns and of the output columns, and the blocks
+exchange their hidden slices through distributed shared memory, so no SM
+reads a weight whole. The fp32 kernel stays on the CUDA cores.
+
 On a CPU tensor `lis_residual_mlp` runs the plain version; on a CUDA tensor
 it launches the kernel (and counts the launch in
 `lis_residual_mlp.launches`) or raises.
@@ -20,7 +27,6 @@ import torch
 
 from gea_torch.ops import build
 
-_ROWS = 4  # rows of z per block; must match kRows in csrc/lis.cu
 
 
 def lis_residual_mlp_plain(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
@@ -39,6 +45,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.gea_lis_forward.argtypes = [p] * 8 + [i, i, i, i, p]
     lib.gea_lis_forward.restype = ctypes.c_int
+    lib.gea_lis_smem_bytes.argtypes = [i, i, i]
+    lib.gea_lis_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -56,22 +64,27 @@ def lis_residual_mlp(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
             f"lis_residual_mlp: w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} "
             f"do not fit z {tuple(z.shape)}"
         )
-    smem = 4 * _ROWS * (code + hidden)
-    if smem > 232448:
+    bf16 = dt == torch.bfloat16
+    if bf16 and (code % 8 or hidden % 16):
+        raise ValueError(
+            f"lis_residual_mlp: the bf16 kernel takes code divisible by 8 and "
+            f"hidden by 16; got code={code}, hidden={hidden}"
+        )
+    lib = _lib()
+    if lib.gea_lis_smem_bytes(code, hidden, int(bf16)) > build.SMEM_LIMIT:
         raise ValueError(f"lis_residual_mlp: code+hidden={code + hidden} too wide")
-    z = z.contiguous()
+    z = build.aligned16(z.contiguous())
     out = torch.empty_like(z)
     if batch == 0:
         return out
-    w1 = w1.to(dt).contiguous()
-    w2 = w2.to(dt).contiguous()
-    f32 = [v.float().contiguous() for v in (b1, slope, trans, b2)]
-    lib = _lib()
+    # The kernel copies every operand in 16-byte pieces.
+    w1, w2 = (build.aligned16(w.to(dt).contiguous()) for w in (w1, w2))
+    f32 = [build.aligned16(v.float().contiguous()) for v in (b1, slope, trans, b2)]
     with torch.cuda.device(z.device):
         rc = lib.gea_lis_forward(
             z.data_ptr(), w1.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
             f32[2].data_ptr(), w2.data_ptr(), f32[3].data_ptr(), out.data_ptr(),
-            batch, code, hidden, int(dt == torch.bfloat16),
+            batch, code, hidden, int(bf16),
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     build.check(lib, rc, "lis_residual_mlp")

@@ -1,5 +1,5 @@
 """The generator's seed segment, `project -> TPReLU -> ConvTranspose(4, 2, 1)`,
-as one CUDA kernel (`gea_torch/csrc/seed.cu`).
+as CUDA kernels (`gea_torch/csrc/seed.cu`).
 
 Replaces `gea/ops/pallas/seed.py::fused_seed`, with the same arguments and
 layouts: z (N, code); wp (code, s0*s0*c0) whose output reshapes to
@@ -8,9 +8,17 @@ layouts: z (N, code); wp (code, s0*s0*c0) whose output reshapes to
 (N, 2*s0, 2*s0, c1) in z's dtype. Products accumulate in fp32, the TPReLU
 runs in fp32 and its result is cast to z's dtype before the transposed conv.
 
+In bf16 a call is two launches of one tensor-core kernel (wgmma fed by
+TMA): the projection, whose epilogue applies bias and TPReLU and writes the
+seed map (N, s0, s0, c0) into a scratch buffer allocated here, then the
+transposed conv, one output parity per block, whose blocks hold whole
+images so that the map is read once for all four taps and Wc is read at the
+flipped taps in place. Bound: operations, 28.8 us at the flagship shape on
+the H100's bf16 tensor cores. In fp32 a call is one launch on the CUDA
+cores. Either way it counts as one launch in `fused_seed.launches`.
+
 On a CPU tensor `fused_seed` runs the plain version; on a CUDA tensor it
-launches the kernel (and counts the launch in `fused_seed.launches`) or
-raises.
+launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -23,8 +31,7 @@ import torch.nn.functional as F
 
 from gea_torch.ops import build
 
-_CODES = 2  # codes per block; must match kCodes in csrc/seed.cu
-_SMEM_LIMIT = 232448
+_CODES_F32 = 2  # codes per block of the fp32 kernel; kCodes in csrc/seed.cu
 
 
 def fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
@@ -43,16 +50,11 @@ def fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(dt).contiguous()
 
 
-def seed_smem_bytes(code: int, s0: int, c0: int, dtype: torch.dtype) -> int:
-    item = torch.tensor([], dtype=dtype).element_size()
-    return 4 * _CODES * code + item * _CODES * (s0 + 2) ** 2 * c0
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("seed")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gea_seed_forward.argtypes = [p] * 8 + [i, i, i, i, i, i, p]
+    lib.gea_seed_forward.argtypes = [p] * 9 + [i, i, i, i, i, i, p]
     lib.gea_seed_forward.restype = ctypes.c_int
     return lib
 
@@ -71,26 +73,34 @@ def fused_seed(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
             f"fused_seed: wp {tuple(wp.shape)} / wc {tuple(wc.shape)} do not "
             f"fit z {tuple(z.shape)} at s0={s0}"
         )
-    if not 4 <= s0 <= 7 or c0 % 4 or code % 4:
+    bf16 = dt == torch.bfloat16
+    if not 4 <= s0 <= 7:
+        raise ValueError(f"fused_seed: the kernel takes 4 <= s0 <= 7; got s0={s0}")
+    if bf16 and (code % 8 or c0 % 8 or c1 % 8):
         raise ValueError(
-            f"fused_seed: the kernel takes 4 <= s0 <= 7 and code, c0 divisible "
-            f"by 4; got s0={s0}, code={code}, c0={c0}"
+            f"fused_seed: the bf16 kernel takes code, c0, c1 divisible by 8; got "
+            f"code={code}, c0={c0}, c1={c1}"
         )
-    if seed_smem_bytes(code, s0, c0, dt) > _SMEM_LIMIT:
-        raise ValueError(f"fused_seed: the seed map of c0={c0} does not fit shared memory")
+    if not bf16 and (code % 4 or c0 % 4):
+        raise ValueError(
+            f"fused_seed: the fp32 kernel takes code, c0 divisible by 4; got "
+            f"code={code}, c0={c0}"
+        )
+    if not bf16 and 4 * _CODES_F32 * (code + (s0 + 2) ** 2 * c0) > build.SMEM_LIMIT:
+        raise ValueError(f"fused_seed: the fp32 seed map of c0={c0} does not fit shared memory")
     out = torch.empty((batch, 2 * s0, 2 * s0, c1), dtype=dt, device=z.device)
     if batch == 0:
         return out
-    z = z.contiguous()
-    wp = wp.to(dt).contiguous()
-    wf = wc.flip((0, 1)).to(dt).contiguous()
+    # The bf16 kernel's tensor maps need 16-byte aligned bases.
+    z, wp, wc = (build.aligned16(t.to(dt).contiguous()) for t in (z, wp, wc))
     f32 = [v.float().contiguous() for v in (bp, slope, trans, bc)]
+    seed_map = torch.empty((batch, s0, s0, c0) if bf16 else (0,), dtype=dt, device=z.device)
     lib = _lib()
     with torch.cuda.device(z.device):
         rc = lib.gea_seed_forward(
             z.data_ptr(), wp.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
-            f32[2].data_ptr(), wf.data_ptr(), f32[3].data_ptr(), out.data_ptr(),
-            batch, code, s0, c0, c1, int(dt == torch.bfloat16),
+            f32[2].data_ptr(), wc.data_ptr(), f32[3].data_ptr(), seed_map.data_ptr(),
+            out.data_ptr(), batch, code, s0, c0, c1, int(bf16),
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     build.check(lib, rc, "fused_seed")
