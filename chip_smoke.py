@@ -7,32 +7,51 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. print the card's name and power limit, and the torch and CUDA versions;
 2. build the CUDA kernels from `gea_torch/csrc/` (nvcc, sm_90a);
-3. for each kernel, at the shapes of the flagship serving path, in fp32 and
-   bf16: compare the kernel with its plain PyTorch version within a stated
-   tolerance, and time both (CUDA events, warm-up, median of 20 launches)
-   beside the least time the card could take (bytes or operations), the
-   device time of an empty kernel launch (the floor of any launch) and, for
-   the seed, the bf16 library composite (cuBLAS GEMM, TPReLU, cuDNN
-   transposed conv; a yardstick the port never calls);
-4. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
+3. for each kernel, at the shapes of the flagship serving path and of the
+   flagship train step, in fp32 and bf16: compare the kernel with its plain
+   PyTorch version within a stated tolerance, and time both (CUDA events,
+   warm-up, median of 20 launches) beside the least time the card could
+   take (bytes or operations), the device time of an empty kernel launch
+   (the floor of any launch) and, for the seed, the bf16 library composite
+   (cuBLAS GEMM, TPReLU, cuDNN transposed conv; a yardstick the port never
+   calls);
+4. at the train step's shapes, in fp32 and bf16: each kernel's
+   `torch.autograd.Function` (kernel forward, eager backward) against
+   autograd through its plain version, gradients of every input within a
+   stated tolerance, and the device time of each backward;
+5. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
    ragged batch, at s0 = 4 and 7, with c1 and code that are not multiples
    of the tiles; the LIS link at a batch that is not a multiple of its row
    tile and at widths below one tile;
-5. build flagship-width G and D from seeded random params in `gea`'s tree
+6. build flagship-width G and D from seeded random params in `gea`'s tree
    layout and run `ServingModel.sample_filtered(64, oversample=4,
    batch_size=64)` in bf16 with the launch counters zeroed just before and
    read just after; check the outputs, the launch counts, and an fp32
    render with kernels against the same render with plain versions; with
    torch.profiler, the device's busy share of a call and the device time of
    one render + score by kernel;
-6. print one JSON line of per-kernel results, the card's name and power
-   limit, and last `{"ok": true, "device": {...}}`.
+7. the main path, the G-LIS train step (`gea_torch.train`) at flagship
+   width in bf16 with batch 64 and BCE: 2 warm-up steps, of which the first
+   checks that every parameter of G and D got a finite, non-zero gradient
+   and that one step launches seed 1, LIS 3 and TPReLU 9 times; then 10
+   steps timed on the host clock with the launch counters zeroed just
+   before and read just after; every parameter moved; the device time of
+   one step (CUDA events behind a spin; whether the spin covered the
+   step's enqueue is checked and printed), the device's idle share and a
+   torch.profiler breakdown of one step by category, with the eager
+   backward of each port kernel and Adam on their own; then 2 fp32 steps
+   with kernels against 2 with plain versions (metrics, step 1's
+   gradients, parameters), beside a second run of the plain versions;
+8. print one JSON line of the serving results, one of the training
+   results, one of per-kernel results (per train step), the card's name
+   and power limit, and last `{"ok": true, "device": {...}}`.
 
 Without CUDA the script exits 1 before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -44,7 +63,7 @@ import numpy as np
 import torch
 
 from gea_torch import FLAGSHIP, ops
-from gea_torch.config import generator_plan
+from gea_torch.config import TrainGLISConfig, generator_plan
 from gea_torch.interop import (
     discriminator_from_jax_params,
     generator_from_jax_params,
@@ -53,6 +72,7 @@ from gea_torch.interop import (
 )
 from gea_torch.ops import build
 from gea_torch.serve import ServingModel
+from gea_torch.train import build_glis_train_step, create_glis_state
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -61,6 +81,7 @@ COUNT, OVERSAMPLE, BATCH = 64, 4, 64
 REPS, WARMUP = 20, 3
 SPIN_CYCLES = 4_000_000  # about 2 ms at the H100's clock: longer than any call's enqueue
 RENDER_SPIN_CYCLES = 60_000_000  # about 30 ms: longer than a whole render's enqueue
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 
 # Tolerance |kernel - plain| <= atol + rtol * |plain|, per dtype. fp32: the
 # two differ only in the order of fp32 sums. bf16: a different sum order can
@@ -76,6 +97,18 @@ SOURCES = {
     "lis_residual_mlp": ("cuda", "gea_torch/csrc/lis.cu", "gea/ops/pallas/lis.py:89"),
     "fused_seed": ("cuda", "gea_torch/csrc/seed.cu", "gea/ops/pallas/seed.py:129"),
 }
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """PyTorch's default for cuDNN (TF32 allowed in fp32 convolutions),
+    under which the train step is timed; elsewhere the script turns TF32
+    off so that fp32 comparisons hold fp32 arithmetic."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def nvidia_smi() -> str:
@@ -138,10 +171,14 @@ CATEGORIES = (
 )
 
 
+def kernel_category(name: str) -> str:
+    return next((c for c, keys in CATEGORIES if any(k in name for k in keys)), "other")
+
+
 def by_category(rows) -> dict:
     out = {}
     for name, ms, _ in rows:
-        cat = next((c for c, keys in CATEGORIES if any(k in name for k in keys)), "other")
+        cat = kernel_category(name)
         out[cat] = out.get(cat, 0.0) + ms
     return out
 
@@ -160,9 +197,13 @@ def randn(shape, gen, scale=1.0, dtype=torch.float32):
 
 
 def cases(cfg):
-    """(kernel name, label, launches per render, make(dtype) -> (args, nbytes, nops))."""
+    """(kernel name, label, launches per scored render, launches per train
+    step, make(dtype) -> (args, nbytes, nops)). A train step renders S*B
+    fakes once, runs D over B real + S*B fakes (the D step) and over the S*B
+    fakes (the G step); a scored render scores B final images."""
     s0, d = generator_plan(cfg.image_size)
-    n, code = cfg.n_stages * BATCH, cfg.code_size
+    stages = cfg.n_stages
+    n, code = stages * BATCH, cfg.code_size
     nf, cap = cfg.num_features, cfg.max_features
     hidden = code * cfg.lis_hidden_mult
     c0 = min(nf * 2 ** (d - 1), cap)
@@ -178,14 +219,24 @@ def cases(cfg):
             return args, 2 * m * c * e + 2 * c * e, 6 * m * c
         return make
 
+    acts = {}  # (rows, channels) -> [labels, per render, per step]
+
+    def act(label, images, side, ch, per_render, per_step):
+        row = acts.setdefault((images * side * side, ch), [[], 0, 0])
+        row[0].append(label)
+        row[1] += per_render
+        row[2] += per_step
+
     for i in range(1, d):  # G: up{i}_act on the S*B stacked batch
-        side, ci = s0 * 2**i, min(nf * 2 ** (d - 1 - i), cap)
-        out.append(("fused_tprelu", f"G up{i}_act ({n * side * side}, {ci})", 1,
-                    tprelu_case(n * side * side, ci)))
-    for i in range(1, d):  # D: down{i}_act on the final stage
+        act(f"G up{i}_act", n, s0 * 2**i, min(nf * 2 ** (d - 1 - i), cap), 1, 1)
+    for i in range(1, d):  # D: down{i}_act
         side, ci = cfg.image_size // 2 ** (i + 1), min(nf * 2**i, cap)
-        out.append(("fused_tprelu", f"D down{i}_act ({BATCH * side * side}, {ci})", 1,
-                    tprelu_case(BATCH * side * side, ci)))
+        act(f"D down{i}_act (score)", BATCH, side, ci, 1, 0)
+        act(f"D down{i}_act (D step)", (1 + stages) * BATCH, side, ci, 0, 1)
+        act(f"D down{i}_act (G step)", n, side, ci, 0, 1)
+    for (m, c), (labels, per_render, per_step) in acts.items():
+        out.append(("fused_tprelu", f"{', '.join(labels)} ({m}, {c})", per_render, per_step,
+                    tprelu_case(m, c)))
 
     def lis_make(dt):
         e = torch.tensor([], dtype=dt).element_size()
@@ -197,7 +248,7 @@ def cases(cfg):
         return args, nbytes, 4 * BATCH * code * hidden
 
     out.append(("lis_residual_mlp", f"LIS link ({BATCH}, {code}) x ({code}, {hidden})",
-                cfg.r_iterations, lis_make))
+                cfg.r_iterations, cfg.r_iterations, lis_make))
 
     def seed_make(dt):
         e = torch.tensor([], dtype=dt).element_size()
@@ -212,7 +263,7 @@ def cases(cfg):
         return args, nbytes, nops
 
     out.append(("fused_seed", f"seed ({n}, {code}) -> ({n}, {2 * s0}, {2 * s0}, {c1})",
-                1, seed_make))
+                1, 1, seed_make))
     return out
 
 
@@ -264,10 +315,11 @@ def check_kernels(cfg) -> dict:
     print(f"[floor] empty kernel launch {floor_ms:.4f} ms (device time under the same "
           f"harness)", flush=True)
     results = {}
-    for name, label, per_render, make in cases(cfg):
+    for name, label, per_render, per_step, make in cases(cfg):
         row = results.setdefault(name, {
             "name": name, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "bound_parts": {"bytes": 0.0, "operations": 0.0},
+            "render_ms": 0.0, "render_plain_ms": 0.0, "render_bound_ms": 0.0,
             "max_abs_err": 0.0, "max_abs_err_fp32": 0.0, "shapes": [],
             "composite_ms": None, "empty_launch_ms": floor_ms,
         })
@@ -288,19 +340,23 @@ def check_kernels(cfg) -> dict:
             print(f"[kernel] {name:16s} {label:44s} {str(dt)[6:]:8s} max|err| "
                   f"{max_err:.3e} (atol {atol}, rtol {rtol})  kernel {k_ms:.4f} ms  "
                   f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  empty launch "
-                  f"{floor_ms:.4f} ms{extra}  x{per_render}/render", flush=True)
+                  f"{floor_ms:.4f} ms{extra}  x{per_render}/render x{per_step}/step", flush=True)
             if dt == torch.float32:
                 row["max_abs_err_fp32"] = max(row["max_abs_err_fp32"], max_err)
                 continue
-            # bf16 is the main path's dtype: its times make the line.
+            # bf16 is the main path's dtype: its times per train step make
+            # the line; the times per scored render stay beside them.
             row["max_abs_err"] = max(row["max_abs_err"], max_err)
-            row["ms"] += per_render * k_ms
-            row["plain_ms"] += per_render * p_ms
-            row["bound_ms"] += per_render * b_ms
-            row["bound_parts"][b_by] += per_render * b_ms
+            row["ms"] += per_step * k_ms
+            row["plain_ms"] += per_step * p_ms
+            row["bound_ms"] += per_step * b_ms
+            row["bound_parts"][b_by] += per_step * b_ms
+            row["render_ms"] += per_render * k_ms
+            row["render_plain_ms"] += per_render * p_ms
+            row["render_bound_ms"] += per_render * b_ms
             if c_ms is not None:
-                row["composite_ms"] = (row["composite_ms"] or 0.0) + per_render * c_ms
-            row["shapes"].append({"shape": label, "per_render": per_render,
+                row["composite_ms"] = (row["composite_ms"] or 0.0) + per_step * c_ms
+            row["shapes"].append({"shape": label, "per_render": per_render, "per_step": per_step,
                                   "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms})
             del args
     for row in results.values():
@@ -345,6 +401,66 @@ def check_edges() -> dict:
     return errs
 
 
+# ------------------------------------------------------- kernel gradients
+
+# Tolerance on max |Function grad - plain grad| / max |plain grad|, per input
+# and dtype. fp32: the same arithmetic in another order. bf16: autograd
+# through the plain version rounds intermediate gradients to bf16 where the
+# explicit backwards keep fp32 (the TPReLU's per-channel sums, LIS's hidden
+# gradient), a few steps of 2^-8 relative.
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def check_grads(cfg, kernel_rows: dict) -> dict:
+    """Each kernel's Function (kernel forward, eager backward) against
+    autograd through its plain version at the train step's shapes, for one
+    random cotangent; the device time of each Function's backward in bf16,
+    summed per train step into the kernel's row, under the train step's
+    TF32 settings."""
+    gen = torch.Generator().manual_seed(2)
+    errs = {}
+    for name, label, _, per_step, make in cases(cfg):
+        if per_step == 0:
+            continue
+        row = kernel_rows[name]
+        row.setdefault("backward_ms", 0.0)
+        for dt in (torch.float32, torch.bfloat16):
+            args, _, _ = make(dt)
+            grads, backward, cot = [], None, None
+            for fn in (KERNEL[name], PLAIN[name]):
+                leaves = [a.detach().clone().requires_grad_(True) if torch.is_tensor(a) else a
+                          for a in args]
+                out = fn(*leaves)
+                if cot is None:
+                    cot = (torch.randn(out.shape, generator=gen) * 0.1).to("cuda", out.dtype)
+                inputs = [t for t in leaves if torch.is_tensor(t)]
+                grads.append(torch.autograd.grad(out, inputs, cot, retain_graph=True))
+                if backward is None:  # the Function's, timed below
+                    backward = lambda out=out, inputs=inputs: torch.autograd.grad(  # noqa: E731
+                        out, inputs, cot, retain_graph=True)
+            torch.cuda.synchronize()
+            rel = 0.0
+            for i, (gk, gp) in enumerate(zip(*grads)):
+                if gk.dtype != gp.dtype or not torch.isfinite(gk).all():
+                    raise AssertionError(f"{name} {label} {dt} grad {i}: {gk.dtype} vs {gp.dtype}")
+                scale = gp.float().abs().max().item()
+                rel = max(rel, (gk.float() - gp.float()).abs().max().item() / max(scale, 1e-30))
+            if not rel <= GRAD_TOL[dt]:
+                raise AssertionError(f"{name} {label} {dt}: gradients differ by {rel:.3e} of "
+                                     f"their max > {GRAD_TOL[dt]}")
+            extra = ""
+            if dt == torch.bfloat16:
+                with cudnn_tf32():  # as the train step is timed
+                    bwd_ms = time_ms(backward)
+                row["backward_ms"] += per_step * bwd_ms
+                extra = f"  backward {bwd_ms:.4f} ms x{per_step}/step"
+            errs[f"{name} {label} {str(dt)[6:]}"] = rel
+            print(f"[grad] {name:16s} {label:60s} {str(dt)[6:]:8s} max|err|/max|grad| "
+                  f"{rel:.3e} (tol {GRAD_TOL[dt]}){extra}", flush=True)
+            del args, grads, backward
+    return errs
+
+
 # ------------------------------------------------------------- serving path
 
 
@@ -370,7 +486,7 @@ def serving(cfg, kernel_rows: dict) -> dict:
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     for name, n in counts.items():
-        kernel_rows[name]["launches"] = n
+        kernel_rows[name]["launches_serving"] = n
 
     s = cfg.image_size
     expect = {"images": ((COUNT, s, s, 3), np.uint8),
@@ -489,6 +605,293 @@ def fp32_agreement(cfg) -> dict:
     return errs
 
 
+# --------------------------------------------------------------- train step
+
+# Device kernels under these autograd nodes are the eager backward of a port
+# kernel's Function.
+PORT_BACKWARD = {"FusedTPReLUBackward": "fused_tprelu",
+                 "LISResidualMLPBackward": "lis_residual_mlp",
+                 "FusedSeedBackward": "fused_seed"}
+BACKWARD_CAT, OPTIMIZER_CAT = "eager backward of port kernels", "optimizer (Adam)"
+
+
+def step_profile(fn) -> dict:
+    """torch.profiler (CPU and CUDA) over one call of `fn`: the device time
+    of its kernels and copies by category and by kernel. A kernel launched
+    under the autograd node of a port kernel's backward, or under Adam's
+    step, counts in those categories instead of the one its name gives;
+    one launched under any autograd node counts as backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    by_kernel = {}
+    for e in events:
+        # Ranges of record_function (Adam's step is one) also show on the
+        # device's timeline; they are spans, not work.
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            ms, count = by_kernel.get(e.name, (0.0, 0))
+            by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    rows = sorted(((n, ms, c) for n, (ms, c) in by_kernel.items()), key=lambda r: -r[1])
+    cats = by_category(rows)
+    backward = dict.fromkeys(PORT_BACKWARD.values(), 0.0)
+    backward_ms = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        names, parent = [], e
+        while parent is not None:
+            names.append(parent.name)
+            parent = parent.cpu_parent
+        port = next((k for key, k in PORT_BACKWARD.items() if any(key in n for n in names)), None)
+        optim = any(n.startswith("Optimizer.step") for n in names)
+        in_backward = any(n.startswith("autograd::engine::evaluate_function") for n in names)
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            backward_ms += ms if in_backward else 0.0
+            if port is None and not optim:
+                continue
+            cats[kernel_category(k.name)] -= ms
+            cat = BACKWARD_CAT if port is not None else OPTIMIZER_CAT
+            cats[cat] = cats.get(cat, 0.0) + ms
+            if port is not None:
+                backward[port] += ms
+    return {"device_ms": sum(r[1] for r in rows), "backward_device_ms": backward_ms,
+            "launches": sum(r[2] for r in rows), "by_category": cats,
+            "port_backward_ms": backward, "by_kernel": rows}
+
+
+def cycles_per_ms() -> float:
+    """The spin kernel's clock, from CUDA events around one long spin."""
+    cycles = 50_000_000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def step_device_ms(fn, host_ms: float, reps: int = 5) -> dict:
+    """Device time of one call of `fn` (CUDA events), with the stream held
+    by a spin for about 3x the call's host time while the host enqueues
+    it, so the events time the device's work and not the enqueue. Checked:
+    the host must finish enqueueing before the spin ends. When the call
+    enqueues more launches than the launch queue holds, the host blocks in
+    the spin and enqueues the rest while the device works, and the span
+    may hold waits on the host: it is then an upper bound of the device
+    time, and the profiler's busy time a lower one."""
+    cycles = int(3 * host_ms * cycles_per_ms())
+    spans, covered = [], []
+    for _ in range(reps):
+        spin0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+        covered.append((enqueue_ms, spin0.elapsed_time(start)))
+    return {"ms": statistics.median(spans), "spans_ms": spans,
+            "enqueue_vs_spin_ms": covered,
+            "covered": all(enq < spin for enq, spin in covered)}
+
+
+def train_config(cfg, **kw) -> TrainGLISConfig:
+    return TrainGLISConfig(**{**dataclasses.asdict(cfg), "batch_size": BATCH,
+                              "gan_loss": "bce", **kw})
+
+
+def real_batch(cfg) -> torch.Tensor:
+    """The real batch every `gea` probe times against (benchmarks/common.py)."""
+    s = cfg.image_size
+    return torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (BATCH, s, s, 3)).astype(np.float32)).cuda()
+
+
+def named_params(state) -> dict:
+    return {f"{tag}.{n}": p for tag, m in (("G", state.generator), ("D", state.discriminator))
+            for n, p in m.named_parameters()}
+
+
+def training(cfg, kernel_rows: dict, smi: str) -> dict:
+    """The main path: flagship bf16 train steps through the kernels, timed
+    with PyTorch's default TF32 settings (cuDNN may use TF32 for the fp32
+    convolutions of the seed's backward; fp32 matmuls stay fp32)."""
+    with cudnn_tf32():
+        return _training(cfg, kernel_rows, smi)
+
+
+def _training(cfg, kernel_rows: dict, smi: str) -> dict:
+    tcfg = train_config(cfg)
+    state = create_glis_state(tcfg, init_generator_params(cfg, 0), init_discriminator_params(cfg, 1))
+    step = build_glis_train_step(tcfg)
+    real = real_batch(cfg)
+    params = named_params(state)
+    before = {n: p.detach().clone() for n, p in params.items()}
+    _, d = generator_plan(cfg.image_size)
+    per_step = {"fused_tprelu": 3 * (d - 1), "lis_residual_mlp": cfg.r_iterations,
+                "fused_seed": 1}
+
+    # Warm-up step 1: launches per step, and a gradient for every parameter.
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(state, real)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"[train] step 1 launches {counts} (want {per_step}), {first_s:.3f} s", flush=True)
+    if counts != per_step:
+        raise AssertionError(f"launches per train step {counts} != {per_step}")
+    norms = {n: p.grad.float().norm().item() if p.grad is not None else float("nan")
+             for n, p in params.items()}
+    bad = [n for n, v in norms.items() if not (np.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"no finite non-zero gradient on step 1 for {bad}")
+    print(f"[train] step 1: all {len(norms)} parameters of G and D have finite non-zero "
+          f"gradients (norms {min(norms.values()):.3e} .. {max(norms.values()):.3e})", flush=True)
+    for _ in range(TRAIN_WARMUP - 1):
+        step(state, real)
+
+    # The counted, timed run.
+    ops.reset_launch_counts()
+    walls, history = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, real)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        history.append({k: v.item() for k, v in metrics.items()})
+    counts = ops.launch_counts()
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    print(f"[train] launch counts over {TRAIN_STEPS} timed steps: {counts} (want {want})",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    for name, n in counts.items():
+        kernel_rows[name]["launches"] = n
+        kernel_rows[name]["launches_per_step"] = per_step[name]
+    if not all(np.isfinite(v) for m in history for v in m.values()):
+        raise AssertionError(f"non-finite metrics: {history}")
+    still = [n for n, p in params.items() if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"parameters that never moved: {still}")
+    if state.step != TRAIN_WARMUP + TRAIN_STEPS:
+        raise AssertionError(f"state.step {state.step}")
+    wall = statistics.median(walls)
+
+    device = step_device_ms(lambda: step(state, real), wall * 1e3)
+    profiled = step_profile(lambda: step(state, real))
+    idle = 1.0 - profiled["device_ms"] / (wall * 1e3)
+    result = {
+        "config": {k: getattr(tcfg, k) for k in ("image_size", "code_size", "r_iterations",
+                                                 "norm", "num_features", "max_features",
+                                                 "dtype", "batch_size", "gan_loss", "lr")},
+        "step_wall_ms_median": wall * 1e3,
+        "step_wall_ms": [w * 1e3 for w in walls],
+        "images_per_s": BATCH / wall,
+        "step_device_ms": device["ms"],
+        "step_device": device,
+        "step_device_busy_ms": profiled["device_ms"],
+        "step_device_span_minus_busy_ms": device["ms"] - profiled["device_ms"],
+        "step_device_idle_share": idle,
+        "step_backward_device_ms": profiled["backward_device_ms"],
+        "step_device_launches": profiled["launches"],
+        "step_by_category": profiled["by_category"],
+        "port_backward_ms": profiled["port_backward_ms"],
+        "step_by_kernel": [{"name": n[:90], "ms": t, "count": c}
+                           for n, t, c in profiled["by_kernel"][:16]],
+        "metrics_first": history[0],
+        "metrics_last": history[-1],
+        "first_step_s": first_s,
+        "card": smi,
+    }
+    print(f"[train] flagship bf16 step, batch {BATCH}: median wall {wall * 1e3:.3f} ms of "
+          f"{TRAIN_STEPS} = {BATCH / wall:.1f} images/s on {smi}", flush=True)
+    print(f"[train] device time of one step {device['ms']:.3f} ms (CUDA events; "
+          f"{device['ms'] - profiled['device_ms']:.3f} ms above the profiler's busy time; spin "
+          f"covered the enqueue: {device['covered']}, enqueue vs spin ms "
+          f"{[(round(a, 3), round(b, 3)) for a, b in device['enqueue_vs_spin_ms']]})",
+          flush=True)
+    print(f"[train] torch.profiler: {profiled['device_ms']:.3f} ms of device time in "
+          f"{profiled['launches']} kernels and copies ({profiled['backward_device_ms']:.3f} ms "
+          f"under autograd); idle share {idle:.3f} of the median wall", flush=True)
+    for cat, t in sorted(profiled["by_category"].items(), key=lambda kv: -kv[1]):
+        print(f"[train] step by category: {t:8.4f} ms {cat}", flush=True)
+    for name, t in profiled["port_backward_ms"].items():
+        print(f"[train] eager backward of {name}: {t:.4f} ms a step", flush=True)
+        kernel_rows[name]["backward_step_ms"] = t
+    for n, t, c in profiled["by_kernel"][:16]:
+        print(f"[train] step by kernel: {t:8.4f} ms x{c:<4d} {n[:90]}", flush=True)
+    print(f"[train] metrics, first and last timed step: {history[0]} {history[-1]}", flush=True)
+    del state, step
+    return result
+
+
+def train_fp32_agreement(cfg) -> dict:
+    """2 fp32 steps with kernels against 2 with plain versions, from the
+    same params on the same real batch and z, beside a second run of the
+    plain versions: the card's own spread from run to run.
+
+    On the card the plain versions run twice already give gradients about
+    1e-3 of each tensor's largest apart (fp32 sums in another order, the
+    atomics of library kernels), and Adam's first update, about
+    lr * sign(g), turns a gradient at that noise level into a flip of 2 lr.
+    Tolerances: metrics rtol 1e-4; step 1's gradient of every parameter
+    within 2e-2 of the tensor's largest; after 2 steps, at most 2% of each
+    tensor's elements more than lr / 5 apart (a wrong backward moves them
+    all). Measured by this function on an H100: kernels vs plain 3.9e-3
+    and 0.6%, plain vs itself 1.3e-3 and 0.4%."""
+    tcfg = train_config(cfg, dtype="float32")
+    g_params = init_generator_params(cfg, 0)
+    d_params = init_discriminator_params(cfg, 1)
+    real = real_batch(cfg)
+    rng = np.random.default_rng(3)
+    zs = [torch.from_numpy(rng.standard_normal((BATCH, cfg.code_size)).astype(np.float32)).cuda()
+          for _ in range(2)]
+
+    def two_steps(use_kernels: bool):
+        state = create_glis_state(tcfg, g_params, d_params, use_kernels=use_kernels)
+        step = build_glis_train_step(tcfg)
+        metrics, grads = [], None
+        for z in zs:
+            metrics.append({k: v.item() for k, v in step(state, real, z).items()})
+            if grads is None:
+                grads = {n: p.grad.detach().clone() for n, p in named_params(state).items()}
+        return metrics, grads, {n: p.detach() for n, p in named_params(state).items()}
+
+    def compare(a, b) -> dict:
+        (ma, ga, pa), (mb, gb, pb) = a, b
+        flip = tcfg.lr / 5
+        return {
+            "metrics_rel": max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(ma, mb) for k in x),
+            "grad_rel_to_max": max((ga[n] - gb[n]).abs().max().item()
+                                   / max(gb[n].abs().max().item(), 1e-30) for n in gb),
+            "params_apart_share": max(((pa[n] - pb[n]).abs() > flip).float().mean().item()
+                                      for n in pb),
+            "params_abs": max((pa[n] - pb[n]).abs().max().item() for n in pb),
+        }
+
+    kernels, plain, again = two_steps(True), two_steps(False), two_steps(False)
+    errs, spread = compare(kernels, plain), compare(again, plain)
+    tol = {"metrics_rel": 1e-4, "grad_rel_to_max": 2e-2, "params_apart_share": 2e-2}
+    print(f"[train fp32] 2 steps with kernels vs plain versions: {errs} (tol {tol}); plain vs "
+          f"plain again: {spread}; metrics {kernels[0][-1]}", flush=True)
+    for k in tol:
+        if not errs[k] <= tol[k]:
+            raise AssertionError(f"fp32 train step {k} {errs[k]:.3e} > {tol[k]}")
+    return {"kernels_vs_plain": errs, "plain_vs_plain": spread, "tol": tol}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -514,25 +917,35 @@ def main() -> int:
 
     cfg = FLAGSHIP
     rows = check_kernels(cfg)
+    grads = check_grads(cfg, rows)
     edges = check_edges()
     serve = serving(cfg, rows)
     fp32 = fp32_agreement(cfg)
+    train = training(cfg, rows, smi)
+    train_fp32 = train_fp32_agreement(cfg)
 
     kernels = []
     for name, row in rows.items():
         route, source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "launches": row["launches"], "launches_per_step": row["launches_per_step"],
+            "launches_serving": row["launches_serving"], "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
             "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "composite_ms": row["composite_ms"],
             "empty_launch_ms": row["empty_launch_ms"],
-            "per": "bf16, one scored render (all its launches)",
+            "backward_ms": row["backward_ms"], "backward_step_ms": row["backward_step_ms"],
+            "render_ms": row["render_ms"], "render_plain_ms": row["render_plain_ms"],
+            "render_bound_ms": row["render_bound_ms"],
+            "per": "bf16, one flagship train step (all its forward launches); render_* per "
+                   "scored render",
             "shapes": row["shapes"],
         })
     print(json.dumps({"serving": serve, "fp32_agreement": fp32, "edges": edges,
+                      "grads": grads}), flush=True)
+    print(json.dumps({"training": train, "train_fp32_agreement": train_fp32,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -1,6 +1,7 @@
-"""Model configuration of the PyTorch port (the fields of `gea/config.py`
-`ModelConfig` that the generator and discriminator read) and device
-resolution for the port's entry points."""
+"""Configuration of the PyTorch port: the fields of `gea/config.py`
+`ModelConfig` that the generator and discriminator read, the fields of
+`TrainGLISConfig` that the G-LIS train step reads, `stage_weights`, and
+device resolution for the port's entry points."""
 
 from __future__ import annotations
 
@@ -41,6 +42,46 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
+
+
+@dataclass(frozen=True)
+class TrainGLISConfig(ModelConfig):
+    """The fields of `gea/config.py` `TrainGLISConfig` that the G-LIS train
+    step reads, with `gea`'s defaults."""
+
+    batch_size: int = 64
+    lr: float = 0.0002
+    lr_schedule: str = "constant"  # constant | cosine | linear, over niter updates
+    lr_final: float = 0.0  # final lr as a fraction of lr
+    beta1: float = 0.5
+    beta2: float = 0.999
+    niter: int = 50_000
+    stage_weight_initial: float = 0.2
+    gan_loss: str = "bce"  # bce | hinge | wgan-gp
+    gp_weight: float = 10.0
+    g_ema: float = 0.0
+    grad_accum: int = 1
+    remat: bool = False
+    seed: int = 42
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.lr_schedule not in ("constant", "cosine", "linear"):
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
+        if self.gan_loss not in ("bce", "hinge", "wgan-gp"):
+            raise ValueError(f"unknown gan_loss {self.gan_loss!r}")
+
+
+def stage_weights(cfg: ModelConfig) -> Tuple[float, ...]:
+    """Per-stage adversarial loss weights, final stage highest, normalised to
+    sum to 1 (`gea/config.py::stage_weights`)."""
+    n = cfg.n_stages
+    if n == 1:
+        return (1.0,)
+    initial = getattr(cfg, "stage_weight_initial", 0.2)
+    raw = [initial + (1.0 - initial) * i / (n - 1) for i in range(n)]
+    total = sum(raw)
+    return tuple(w / total for w in raw)
 
 
 # The flagship workload of `benchmarks/common.py`: G-LIS-3 at 80x80,

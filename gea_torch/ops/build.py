@@ -116,15 +116,8 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 def check_cuda_inputs(what: str, *tensors) -> None:
-    """Inference-only kernels: every input on one CUDA device, and no input
-    requiring grad while autograd records (the backward comes with the
-    training port)."""
+    """Every input of a kernel on one CUDA device."""
     dev = tensors[0].device
-    recording = torch.is_grad_enabled()
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{what}: inputs on {t.device} and {dev}")
-        if recording and t.requires_grad:
-            raise RuntimeError(
-                f"{what}: the CUDA kernel is forward-only; an input requires grad"
-            )

@@ -13,9 +13,13 @@ eighth of the hidden columns and of the output columns, and the blocks
 exchange their hidden slices through distributed shared memory, so no SM
 reads a weight whole. The fp32 kernel stays on the CUDA cores.
 
-On a CPU tensor `lis_residual_mlp` runs the plain version; on a CUDA tensor
-it launches the kernel (and counts the launch in
-`lis_residual_mlp.launches`) or raises.
+`lis_residual_mlp` is differentiable on both devices through
+`LISResidualMLP`, a `torch.autograd.Function`. Its forward runs the plain
+version on a CPU tensor; on a CUDA tensor it launches the kernel (and
+counts the launch in `lis_residual_mlp.launches`) or raises. Its backward
+is the one of `gea/ops/pallas/lis.py::_bwd` in eager PyTorch ops: the
+hidden row is recomputed in fp32 from the saved inputs, and the products
+run in fp32.
 """
 
 from __future__ import annotations
@@ -28,13 +32,12 @@ import torch
 from gea_torch.ops import build
 
 
-
 def lis_residual_mlp_plain(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
     """z (B, C); w1 (C, H); w2 (H, C); b1, slope, trans (H,); b2 (C,)."""
     dt = z.dtype
     h = z.float() @ w1.float() + b1.float()
     s = h - trans.float()
-    h = s.clamp_min(0) + slope.float() * s.clamp_max(0) + trans.float()
+    h = torch.where(s < 0, slope.float() * s, s) + trans.float()
     out = h.to(dt).float() @ w2.float() + b2.float()
     return z + out.to(dt)
 
@@ -50,7 +53,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def lis_residual_mlp(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
+def _forward(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
     if z.device.type == "cpu":
         return lis_residual_mlp_plain(z, w1, b1, slope, trans, w2, b2)
     build.check_cuda_inputs("lis_residual_mlp", z, w1, b1, slope, trans, w2, b2)
@@ -90,6 +93,39 @@ def lis_residual_mlp(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
     build.check(lib, rc, "lis_residual_mlp")
     lis_residual_mlp.launches += 1
     return out
+
+
+class LISResidualMLP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, w1, b1, slope, trans, w2, b2):
+        ctx.save_for_backward(z, w1, b1, slope, trans, w2)
+        return _forward(z, w1, b1, slope, trans, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, w1, b1, slope, trans, w2 = ctx.saved_tensors
+        gf, zf, w1f, w2f = g.float(), z.float(), w1.float(), w2.float()
+        s = zf @ w1f + b1.float() - trans.float()
+        neg = s < 0
+        a = slope.float()
+        h = torch.where(neg, a * s, s) + trans.float()
+        dh = gf @ w2f.t()
+        fprime = torch.where(neg, a, torch.ones_like(s))
+        dh_pre = dh * fprime
+        return (
+            (gf + dh_pre @ w1f.t()).to(z.dtype),
+            (zf.t() @ dh_pre).to(w1.dtype),
+            dh_pre.sum(0),
+            torch.where(neg, dh * s, torch.zeros_like(s)).sum(0),
+            (dh * (1 - fprime)).sum(0),
+            (h.t() @ gf).to(w2.dtype),
+            gf.sum(0),
+        )
+
+
+def lis_residual_mlp(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
+    """One LIS link; differentiable."""
+    return LISResidualMLP.apply(z, w1, b1, slope, trans, w2, b2)
 
 
 lis_residual_mlp.launches = 0

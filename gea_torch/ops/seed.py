@@ -17,8 +17,12 @@ flipped taps in place. Bound: operations, 28.8 us at the flagship shape on
 the H100's bf16 tensor cores. In fp32 a call is one launch on the CUDA
 cores. Either way it counts as one launch in `fused_seed.launches`.
 
-On a CPU tensor `fused_seed` runs the plain version; on a CUDA tensor it
-launches the kernels or raises.
+`fused_seed` is differentiable on both devices through `FusedSeed`, a
+`torch.autograd.Function`. Its forward runs the plain version on a CPU
+tensor; on a CUDA tensor it launches the kernels or raises. Its backward is
+the one of `gea/ops/pallas/seed.py::_bwd`: autograd through the plain
+version recomputed from the saved inputs (cuBLAS and cuDNN on the card),
+with the incoming cotangent first cast to the recomputed output's dtype.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
     c0 = wc.shape[2]
     h = z.float() @ wp.float() + bp.float()
     s = h.view(z.shape[0], s0, s0, c0) - trans.float()
-    h = (s.clamp_min(0) + slope.float() * s.clamp_max(0) + trans.float()).to(dt)
+    h = (torch.where(s < 0, slope.float() * s, s) + trans.float()).to(dt)
     y = F.conv_transpose2d(
         h.float().permute(0, 3, 1, 2),
         wc.float().permute(2, 3, 0, 1),  # HWIO -> (in, out, kh, kw)
@@ -59,7 +63,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def fused_seed(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
+def _forward(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
     if z.device.type == "cpu":
         return fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0)
     build.check_cuda_inputs("fused_seed", z, wp, bp, slope, trans, wc, bc)
@@ -106,6 +110,32 @@ def fused_seed(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
     build.check(lib, rc, "fused_seed")
     fused_seed.launches += 1
     return out
+
+
+class FusedSeed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, wp, bp, slope, trans, wc, bc, s0):
+        ctx.save_for_backward(z, wp, bp, slope, trans, wc, bc)
+        ctx.s0 = s0
+        return _forward(z, wp, bp, slope, trans, wc, bc, s0)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        want = [i for i, need in enumerate(ctx.needs_input_grad[:7]) if need]
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(i in want) for i, t in enumerate(saved)]
+            out = fused_seed_plain(*args, ctx.s0)
+            grads = torch.autograd.grad(out, [args[i] for i in want], g.to(out.dtype))
+        result = [None] * 8
+        for i, d in zip(want, grads):
+            result[i] = d.to(saved[i].dtype)
+        return tuple(result)
+
+
+def fused_seed(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
+    """The seed segment; differentiable."""
+    return FusedSeed.apply(z, wp, bp, slope, trans, wc, bc, s0)
 
 
 fused_seed.launches = 0

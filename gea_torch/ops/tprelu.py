@@ -14,8 +14,13 @@ are wide and coalesced, so they reach memory bandwidth as well as a CUDA
 kernel written by hand would; nothing else is needed for a streaming
 elementwise pass.
 
-On a CPU tensor `fused_tprelu` runs the plain version; on a CUDA tensor it
-launches the kernel (and counts the launch in `fused_tprelu.launches`) or raises.
+`fused_tprelu` is differentiable on both devices through `FusedTPReLU`, a
+`torch.autograd.Function`. Its forward runs the plain version on a CPU
+tensor; on a CUDA tensor it launches the kernel (and counts the launch in
+`fused_tprelu.launches`) or raises. Its backward is the one of
+`gea/ops/pallas/tprelu.py::_bwd`, written out in eager PyTorch ops and
+itself differentiable, so a gradient penalty can differentiate through it
+twice.
 """
 
 from __future__ import annotations
@@ -30,11 +35,13 @@ _BLOCK_ELEMS = 8192
 
 
 def fused_tprelu_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x (..., C); a, b (C,). Plain PyTorch, rounding to x's dtype per op."""
+    """x (..., C); a, b (C,). Plain PyTorch, rounding to x's dtype per op.
+    Written with `where`, as `gea`'s reference is, so that its autograd
+    takes the slope 1 at s = 0 as the explicit backward does."""
     a = a.to(x.dtype)
     b = b.to(x.dtype)
     s = x - b
-    return s.clamp_min(0) + a * s.clamp_max(0) + b
+    return torch.where(s < 0, a * s, s) + b
 
 
 @functools.cache
@@ -65,7 +72,7 @@ def _kernel():
     return triton, tprelu_kernel
 
 
-def fused_tprelu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_tprelu_plain(x, a, b)
     check_cuda_inputs("fused_tprelu", x, a, b)
@@ -90,6 +97,36 @@ def fused_tprelu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
         kernel[grid](x, a, b, out, m, c, BLOCK_M=block_m, BLOCK_C=block_c, num_warps=8)
     fused_tprelu.launches += 1
     return out
+
+
+class FusedTPReLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, b):
+        ctx.save_for_backward(x, a, b)
+        return _forward(x, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b = ctx.saved_tensors
+        s = x - b.to(x.dtype)
+        neg = s < 0
+        fprime = torch.where(neg, a.to(x.dtype), torch.ones_like(x))
+        dx = (g * fprime).to(x.dtype)
+        # The sums over every axis but the channel one accumulate in fp32
+        # (or wider).
+        axes = tuple(range(x.dim() - 1))
+        acc = torch.promote_types(x.dtype, torch.float32)
+        da = db = None
+        if ctx.needs_input_grad[1]:
+            da = torch.where(neg, g * s, torch.zeros_like(x)).sum(axes, dtype=acc).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            db = (g * (1 - fprime)).sum(axes, dtype=acc).to(b.dtype)
+        return dx, da, db
+
+
+def fused_tprelu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """TPReLU over the trailing channel axis of x; differentiable."""
+    return FusedTPReLU.apply(x, a, b)
 
 
 fused_tprelu.launches = 0

@@ -1,0 +1,198 @@
+"""The G-LIS alternating train step (port of `gea/train/steps.py::
+build_glis_train_step`).
+
+One step is (1) a D update on the real batch plus every LIS stage's fakes
+(detached), then (2) a G update against the freshly updated D, with the
+per-stage adversarial weights of `stage_weights` (final stage highest),
+then the EMA of G's parameters when `g_ema > 0`.
+
+* One G forward serves both players: its output, detached, feeds the D
+  step, and the G step pulls the image gradient of the G loss back through
+  the same graph. `share_g_forward=False` runs G's forward again in the G
+  step instead; `remat` recomputes G's forward in its backward
+  (`torch.utils.checkpoint`).
+* D runs one forward over real and all fakes together.
+* The G loss is differentiated with respect to the images only
+  (`autograd.grad`), so nothing accumulates into D's parameters, and the
+  image gradient, cast to the images' dtype, is pulled back through G.
+* `grad_accum` K splits the batch (and z, spatial noise and the
+  gradient-penalty eps, drawn for the full batch) into K microbatches: D's
+  gradients are summed over them and divided by K; G's are too, with a
+  fresh G forward per microbatch.
+
+z, spatial noise and the penalty's eps are inputs of the step; where the
+caller gives none, the step draws them from the state's `torch.Generator`
+on the device. The step updates the state in place and returns its
+metrics as 0-d tensors on the device, so it never waits for the device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from gea_torch.config import TrainGLISConfig, stage_weights
+from gea_torch.train import losses
+from gea_torch.train.state import GLISTrainState
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def check_accum(cfg: TrainGLISConfig) -> int:
+    """K microbatches per update; `norm=batch` is refused, as in `gea`:
+    per-microbatch batch statistics would change its semantics."""
+    accum = max(1, int(cfg.grad_accum))
+    if accum > 1 and cfg.norm == "batch":
+        raise ValueError(
+            "grad_accum > 1 requires norm weight|none: batch statistics would "
+            "be computed per microbatch"
+        )
+    return accum
+
+
+def _update(opt: torch.optim.Optimizer, sched) -> None:
+    opt.step()
+    if sched is not None:
+        sched.step()
+
+
+def build_glis_train_step(
+    cfg: TrainGLISConfig, share_g_forward: bool = True
+) -> Callable[..., Metrics]:
+    """Returns step(state, real, z=None, spatial_noise=None, gp_eps=None)
+    -> metrics. `real` (B, H, W, 3) in [-1, 1]; z (B, code); spatial_noise
+    (B, 2*s0, 2*s0, spatial_code); gp_eps (B, 1, 1, 1)."""
+    weights = stage_weights(cfg)
+    n_stages = cfg.n_stages
+    d_real_fn, d_fake_fn, g_fn = losses.gan_objective(cfg.gan_loss)
+    use_gp = cfg.gan_loss == "wgan-gp"
+    accum = check_accum(cfg)
+    weights_on: Dict[torch.device, torch.Tensor] = {}
+
+    def stage_w(dev: torch.device) -> torch.Tensor:
+        if dev not in weights_on:
+            weights_on[dev] = torch.tensor(weights, dtype=torch.float32, device=dev)
+        return weights_on[dev]
+
+    def inputs(state: GLISTrainState, real, z, sn, eps):
+        dev = state.device
+        real = torch.as_tensor(real, dtype=torch.float32, device=dev)
+        batch = real.shape[0]
+        if z is None:
+            z = torch.randn((batch, cfg.code_size), generator=state.rng, device=dev)
+        sn_shape = state.generator.spatial_noise_shape(batch)
+        if sn_shape is None:
+            sn = None
+        elif sn is None:
+            sn = torch.randn(sn_shape, generator=state.rng, device=dev)
+        if not use_gp:
+            eps = None
+        elif eps is None:
+            eps = torch.rand((batch, 1, 1, 1), generator=state.rng, device=dev)
+        to_dev = lambda t: None if t is None else torch.as_tensor(  # noqa: E731
+            t, dtype=torch.float32, device=dev)
+        return real, to_dev(z), to_dev(sn), to_dev(eps)
+
+    def g_images(g, z, sn, grad: bool) -> torch.Tensor:
+        """(S, B, H, W, 3) fakes in the compute dtype."""
+        if not grad:
+            with torch.no_grad():
+                return g(z, sn)[0]
+        if cfg.remat:
+            return checkpoint(lambda z_, sn_: g(z_, sn_)[0], z, sn, use_reentrant=False)
+        return g(z, sn)[0]
+
+    def d_loss(d, real, fakes, eps, w):
+        batch = real.shape[0]
+        flat = fakes.reshape(-1, *fakes.shape[2:])
+        logits = d(torch.cat([real.to(flat.dtype), flat]))
+        logits_real = logits[:batch]
+        logits_fake = logits[batch:].reshape(n_stages, batch)
+        loss = d_real_fn(logits_real) + losses.staged_apply(d_fake_fn, logits_fake, w)
+        if use_gp:
+            loss = loss + cfg.gp_weight * losses.gradient_penalty(d, real, fakes[-1], eps)
+        return loss, logits_real, logits_fake
+
+    def g_backward(d, images, w) -> torch.Tensor:
+        """The G loss against D, and its gradient pulled back through the
+        graph of `images` into G's parameters."""
+        leaf = images.detach().requires_grad_(True)
+        logits = d(leaf.reshape(-1, *leaf.shape[2:])).reshape(n_stages, leaf.shape[1])
+        loss = losses.staged_apply(g_fn, logits, w)
+        (d_images,) = torch.autograd.grad(loss, leaf)
+        images.backward(d_images.to(images.dtype))
+        return loss.detach()
+
+    def finish(state: GLISTrainState) -> None:
+        if cfg.g_ema > 0:
+            with torch.no_grad():
+                for name, p in state.generator.named_parameters():
+                    state.g_ema[name].mul_(cfg.g_ema).add_(p, alpha=1.0 - cfg.g_ema)
+        state.step += 1
+
+    def step(state: GLISTrainState, real, z=None, spatial_noise=None, gp_eps=None) -> Metrics:
+        g, d = state.generator, state.discriminator
+        real, z, sn, eps = inputs(state, real, z, spatial_noise, gp_eps)
+        w = stage_w(real.device)
+
+        fakes_live = g_images(g, z, sn, grad=share_g_forward)
+        state.opt_d.zero_grad(set_to_none=True)
+        loss_d, logits_real, logits_fake = d_loss(d, real, fakes_live.detach(), eps, w)
+        loss_d.backward()
+        _update(state.opt_d, state.sched_d)
+
+        state.opt_g.zero_grad(set_to_none=True)
+        if not share_g_forward:
+            fakes_live = g_images(g, z, sn, grad=True)
+        loss_g = g_backward(d, fakes_live, w)
+        _update(state.opt_g, state.sched_g)
+        finish(state)
+        return {
+            "loss_d": loss_d.detach(),
+            "loss_g": loss_g,
+            "d_real": torch.sigmoid(logits_real.detach()).mean(),
+            "d_fake_final": torch.sigmoid(logits_fake[-1].detach()).mean(),
+        }
+
+    def step_accum(state: GLISTrainState, real, z=None, spatial_noise=None,
+                   gp_eps=None) -> Metrics:
+        g, d = state.generator, state.discriminator
+        real, z, sn, eps = inputs(state, real, z, spatial_noise, gp_eps)
+        batch = real.shape[0]
+        if batch % accum:
+            raise ValueError(f"batch {batch} not divisible by grad_accum {accum}")
+        micro = batch // accum
+        split = lambda t: [None] * accum if t is None else t.split(micro)  # noqa: E731
+        mbs = list(zip(real.split(micro), z.split(micro), split(sn), split(eps)))
+        w = stage_w(real.device)
+
+        state.opt_d.zero_grad(set_to_none=True)
+        loss_d = d_real = d_fake = 0.0
+        for real_mb, z_mb, sn_mb, eps_mb in mbs:
+            fakes = g_images(g, z_mb, sn_mb, grad=False)
+            loss, logits_real, logits_fake = d_loss(d, real_mb, fakes, eps_mb, w)
+            loss.backward()
+            loss_d = loss_d + loss.detach()
+            d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
+            d_fake = d_fake + torch.sigmoid(logits_fake[-1].detach()).mean()
+        for p in d.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        _update(state.opt_d, state.sched_d)
+
+        state.opt_g.zero_grad(set_to_none=True)
+        loss_g = 0.0
+        for _, z_mb, sn_mb, _ in mbs:
+            loss_g = loss_g + g_backward(d, g_images(g, z_mb, sn_mb, grad=True), w)
+        for p in g.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+        _update(state.opt_g, state.sched_g)
+        finish(state)
+        return {"loss_d": loss_d / accum, "loss_g": loss_g / accum,
+                "d_real": d_real / accum, "d_fake_final": d_fake / accum}
+
+    return step_accum if accum > 1 else step
+

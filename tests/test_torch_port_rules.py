@@ -36,10 +36,12 @@ def test_port_imports_nothing_of_jax_or_gea(path):
 
 
 def test_import_without_cuda_builds_nothing():
-    """`import gea_torch` (and every module) works on a CPU-only host, starts
-    no build and imports no triton."""
+    """`import gea_torch` (and every module, the trainer's too) works on a
+    CPU-only host, starts no build and imports no triton."""
     code = (
         "import sys, gea_torch, gea_torch.serve, gea_torch.interop, gea_torch.ops;"
+        "import gea_torch.train, gea_torch.train.losses, gea_torch.train.state;"
+        "import gea_torch.train.steps;"
         "from gea_torch.ops import build;"
         "assert build._LIBS == {} and not build.BUILD_DIR.joinpath('x').exists();"
         "assert 'triton' not in sys.modules and 'jax' not in sys.modules;"
@@ -64,6 +66,21 @@ def test_serving_model_on_default_device_needs_cuda(monkeypatch):
     g = generator_from_jax_params(init_generator_params(cfg), cfg, device="cpu")
     out = ServingModel(g)(np.zeros((1, 16), np.float32))
     assert out["images"].shape == (1, 32, 32, 3)
+
+
+def test_train_state_on_default_device_needs_cuda(monkeypatch):
+    from gea_torch.config import TrainGLISConfig
+    from gea_torch.train import build_glis_train_step, create_glis_state
+
+    cfg = TrainGLISConfig(image_size=16, code_size=16, r_iterations=1,
+                          num_features=4, max_features=16, dtype="float32", batch_size=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_glis_state(cfg)
+    # Asked for explicitly, the CPU works.
+    state = create_glis_state(cfg, device="cpu")
+    metrics = build_glis_train_step(cfg)(state, np.zeros((2, 16, 16, 3), np.float32))
+    assert state.step == 1 and all(v.device.type == "cpu" for v in metrics.values())
 
 
 def test_chip_smoke_refuses_without_cuda():
