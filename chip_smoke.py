@@ -42,9 +42,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    backward of each port kernel and Adam on their own; then 2 fp32 steps
    with kernels against 2 with plain versions (metrics, step 1's
    gradients, parameters), beside a second run of the plain versions;
-8. print one JSON line of the serving results, one of the training
-   results, one of per-kernel results (per train step), the card's name
-   and power limit, and last `{"ok": true, "device": {...}}`.
+8. the trainer, `python -m gea_torch.cli.train_glis` called in-process at
+   flagship width with synthetic data drawn on the device: 40 steps with
+   the launch counters zeroed just before and read just after (exactly 40
+   steps' and 2 sample renders' launches), the run directory's artifacts;
+   the checkpoint of step 40 restored into a fresh state equals the trained
+   state bit for bit, as does a state with an EMA shadow and a cosine
+   schedule after 2 steps; a relaunch resumes at step 40 and reaches 60
+   with finite metrics; 40 steps each of the host-streamed synthetic data,
+   of the host preprocess and of a folder of JPEGs with `--data_cache` and
+   with `--device_data_cache`. Every CLI run, the relaunch included, has
+   the launch counters zeroed just before it and read just after, and
+   must launch exactly its steps' and renders' kernels. For each run the
+   meter's rate, the median
+   host time of a loop iteration and of its wait for input, and the
+   device's idle share over 10 steps of the same path under
+   torch.profiler; the host time of one synthetic batch; the two parts of
+   a checkpoint save and one restore;
+9. print one JSON line of the serving results, one of the training
+   results, one of the trainer's, one of per-kernel results (per train
+   step; `launches` counts phase 7's timed steps, `launches_trainer` the
+   trainer's first run), the card's name and power limit, and last
+   `{"ok": true, "device": {...}}`.
 
 Without CUDA the script exits 1 before printing any result.
 """
@@ -53,17 +72,22 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from gea_torch import FLAGSHIP, ops
+from gea_torch.cli import train_glis
 from gea_torch.config import TrainGLISConfig, generator_plan
+from gea_torch.data.pipeline import SyntheticDataset
 from gea_torch.interop import (
     discriminator_from_jax_params,
     generator_from_jax_params,
@@ -73,6 +97,14 @@ from gea_torch.interop import (
 from gea_torch.ops import build
 from gea_torch.serve import ServingModel
 from gea_torch.train import build_glis_train_step, create_glis_state
+from gea_torch.train.runner import input_iterator, make_input_fn
+from gea_torch.utils.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
+    state_dict,
+    wait_for_checkpoints,
+)
+from gea_torch.utils.grids import save_stage_grids
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -892,6 +924,292 @@ def train_fp32_agreement(cfg) -> dict:
     return {"kernels_vs_plain": errs, "plain_vs_plain": spread, "tol": tol}
 
 
+# ------------------------------------------------------------------ trainer
+
+TRAINER_ARGS = [
+    "--dataset", "synthetic", "--synthetic_on_device", "true", "--image_size", "80",
+    "--crop_size", "160", "--code_size", "256", "--r_iterations", "3", "--norm", "weight",
+    "--num_features", "64", "--max_features", "512", "--dtype", "bfloat16",
+    "--batch_size", str(BATCH), "--log_interval", "10",
+]
+TRAINER_STEPS, TRAINER_VIS, RESUME_TO, IDLE_STEPS = 40, 20, 60, 10
+JPEGS = 256  # a folder of 218 x 178 JPEGs, CelebA's aligned size
+
+
+class Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.buf.write(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(args) -> tuple:
+    """`python -m gea_torch.cli.train_glis` in-process: (state, stats,
+    printed text)."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        state, stats = train_glis.main(args)
+    return state, stats, tee.buf.getvalue()
+
+
+def same(a, b, path="") -> list:
+    """The paths at which two nests of tensors and values differ."""
+    if torch.is_tensor(a):
+        same_t = torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+        return [] if same_t else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path]
+        return [p for k in a for p in same(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in same(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def round_trip(run_dir: str, step: int, state, cfg) -> dict:
+    """The checkpoint of `step` restored into a fresh state equals `state`
+    bit for bit: parameters, Adam's moments and steps, the schedulers, the
+    generator's state, the EMA shadow and the step."""
+    want = state_dict(state)
+    restored = restore_checkpoint(run_dir, create_glis_state(cfg), step=step)
+    diff = same(state_dict(restored), want)
+    if diff:
+        raise AssertionError(f"restored checkpoint {step} differs at {diff[:8]}")
+    n_opt = sum(len(want[k]["state"]) for k in ("opt_g", "opt_d"))
+    return {"tensors_compared": sum(1 for _ in _tensors(want)), "adam_params": n_opt,
+            "schedulers": [want["sched_g"] is not None, want["sched_d"] is not None],
+            "ema_tensors": len(want["g_ema"])}
+
+
+def _tensors(obj):
+    if torch.is_tensor(obj):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def write_jpegs(root: str) -> None:
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:218, 0:178].astype(np.float32)
+    for i in range(JPEGS):
+        f = rng.uniform(0.01, 0.1, 3)
+        img = 127.5 + 100 * np.sin(yy[..., None] * f + xx[..., None] * f[::-1])
+        img += rng.normal(0, 10, img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(root, f"{i:06d}.jpg"), quality=90)
+
+
+def loop_idle(cfg: TrainGLISConfig, state) -> dict:
+    """The device's idle share over IDLE_STEPS loop iterations of a run's
+    input path and step (after 3 warm-up iterations), under torch.profiler:
+    1 - device busy / host wall."""
+    dev = state.device
+    data = input_iterator(cfg, dev, cfg.seed, start_step=state.step)
+    make_real, step = make_input_fn(cfg, dev), build_glis_train_step(cfg)
+    walls = []
+
+    def steps(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, make_real(next(data), state.step))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    steps(3)
+    busy_ms, _ = device_profile(lambda: steps(IDLE_STEPS))
+    data.close()
+    return {"busy_ms": busy_ms, "wall_ms": walls[-1], "idle_share": 1.0 - busy_ms / walls[-1]}
+
+
+def trainer(kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
+    """The trainer at flagship width under PyTorch's default TF32 settings,
+    as the bare step of phase 7 is timed."""
+    with cudnn_tf32(), tempfile.TemporaryDirectory() as tmp:
+        return _trainer(tmp, kernel_rows, bare_images_per_s, smi)
+
+
+def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
+    run = os.path.join(tmp, "run")
+    args = TRAINER_ARGS + ["--save_path", run, "--vis_interval", str(TRAINER_VIS),
+                           "--save_interval", str(TRAINER_VIS)]
+    cfg = TrainGLISConfig.from_args(args)
+    runs, launches = {}, {}
+    _, d = generator_plan(cfg.image_size)
+    per_step = {"fused_tprelu": 3 * (d - 1), "lis_residual_mlp": cfg.r_iterations,
+                "fused_seed": 1}
+    per_render = {"fused_tprelu": d - 1, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1}
+
+    def counted_cli(label, run_args, steps, renders):
+        """One CLI run with the launch counters zeroed just before it and
+        read just after: exactly `steps` train steps' and `renders` sample
+        renders' launches."""
+        ops.reset_launch_counts()
+        state, stats, text = run_cli(run_args)
+        counts = ops.launch_counts()
+        want = {k: steps * per_step[k] + renders * per_render[k] for k in per_step}
+        print(f"[trainer] {label}: launch counts over {steps} steps and {renders} renders: "
+              f"{counts} (want {want})", flush=True)
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts {counts} != {want}")
+        launches[label] = counts
+        return state, stats, text
+
+    def record(label, stats, run_cfg, state):
+        runs[label] = {k: stats[k] for k in ("images_per_sec", "step_wall_s_median",
+                                             "input_wait_s_median")}
+        runs[label]["metrics"] = stats["metrics"]
+        runs[label]["launches"] = launches[label]
+        runs[label]["idle"] = loop_idle(run_cfg, state)
+        r = runs[label]
+        print(f"[trainer] {label}: {r['images_per_sec']:.1f} img/s (meter), loop iteration "
+              f"{r['step_wall_s_median'] * 1e3:.3f} ms, input wait "
+              f"{r['input_wait_s_median'] * 1e3:.3f} ms (host medians); device idle "
+              f"{r['idle']['idle_share']:.3f} over {IDLE_STEPS} steps (busy "
+              f"{r['idle']['busy_ms']:.3f} of {r['idle']['wall_ms']:.3f} ms); launches "
+              f"{r['launches']}; {smi}", flush=True)
+
+    # The CLI run, its launches and its artifacts.
+    state, stats, _ = counted_cli("synthetic on device", args + ["--niter", str(TRAINER_STEPS)],
+                                  TRAINER_STEPS, TRAINER_STEPS // TRAINER_VIS)
+    for name, n in launches["synthetic on device"].items():
+        kernel_rows[name]["launches_trainer"] = n
+    artifacts = ["config.json"] + [f"checkpoints/{s}/state.pt" for s in (20, 40)] + [
+        f"samples/samples_{s:08d}_stage{i}.png" for s in (20, 40) for i in range(cfg.n_stages)]
+    missing = [a for a in artifacts if not os.path.isfile(os.path.join(run, a))]
+    if missing or state.step != TRAINER_STEPS:
+        raise AssertionError(f"missing artifacts {missing}, step {state.step}")
+    print(f"[trainer] artifacts present: {artifacts}; plots/loss.png "
+          f"{'present' if os.path.isfile(os.path.join(run, 'plots', 'loss.png')) else 'absent'}",
+          flush=True)
+
+    # The checkpoint round trip (before any further step), and the two parts
+    # of a save and a restore.
+    trip = round_trip(run, TRAINER_STEPS, state, cfg)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt_dir, state.step, state, async_save=True)
+    t1 = time.perf_counter()
+    wait_for_checkpoints()
+    t2 = time.perf_counter()
+    target = create_glis_state(cfg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    restore_checkpoint(ckpt_dir, target)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    ckpt = {"save_sync_s": t1 - t0, "save_async_s": t2 - t1, "restore_s": t4 - t3,
+            "bytes": os.path.getsize(os.path.join(ckpt_dir, "checkpoints", str(state.step),
+                                                  "state.pt"))}
+    del target
+    record("synthetic on device", stats, cfg, state)
+    ema_cfg = cfg.replace(g_ema=0.999, lr_schedule="cosine", niter=100)
+    ema_state = create_glis_state(ema_cfg)
+    ema_step = build_glis_train_step(ema_cfg)
+    for _ in range(2):
+        ema_step(ema_state, real_batch(ema_cfg))
+    save_checkpoint(os.path.join(tmp, "ema"), ema_state.step, ema_state)
+    trip_ema = round_trip(os.path.join(tmp, "ema"), ema_state.step, ema_state, ema_cfg)
+    del ema_state, ema_step
+    print(f"[trainer] checkpoint round trip bitwise: step 40 {trip}; EMA + cosine after 2 "
+          f"steps {trip_ema}; save {ckpt['save_sync_s'] * 1e3:.1f} ms on the loop thread + "
+          f"{ckpt['save_async_s'] * 1e3:.1f} ms written in the background, restore "
+          f"{ckpt['restore_s'] * 1e3:.1f} ms, {ckpt['bytes']} bytes", flush=True)
+
+    # One sample render with its grids, as the loop makes at each vis_interval.
+    vis = train_glis.make_vis_fn(cfg, state.generator, os.path.join(tmp, "vis"))
+    vis_s = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vis(state, i)
+        vis_s.append(time.perf_counter() - t0)
+    z = torch.randn((cfg.vis_rows ** 2, cfg.code_size), device=state.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        images = state.generator.render(z)[0].cpu().numpy()
+    t1 = time.perf_counter()
+    save_stage_grids(images, os.path.join(tmp, "vis"), 0, rows=cfg.vis_rows)
+    t2 = time.perf_counter()
+    vis_parts = {"render_to_host_s": t1 - t0, "png_grids_s": t2 - t1}
+    print(f"[trainer] one sample render of {cfg.vis_rows ** 2} codes and {cfg.n_stages} PNG grids: "
+          f"{[round(s * 1e3, 3) for s in vis_s]} ms (first call first); of a fourth, the render "
+          f"to host memory {vis_parts['render_to_host_s'] * 1e3:.3f} ms and the PNG grids "
+          f"{vis_parts['png_grids_s'] * 1e3:.3f} ms", flush=True)
+
+    # The relaunch resumes at step 40 and reaches 60.
+    del state
+    # Steps 41-60, and the render at 60.
+    state, stats, text = counted_cli(
+        "relaunch", args + ["--niter", str(RESUME_TO)], RESUME_TO - TRAINER_STEPS,
+        RESUME_TO // TRAINER_VIS - TRAINER_STEPS // TRAINER_VIS)
+    line = f"resumed from {run} at step {TRAINER_STEPS}"
+    if line not in text or state.step != RESUME_TO:
+        raise AssertionError(f"resume: {line!r} printed: {line in text}, step {state.step}")
+    if not all(np.isfinite(v) for v in stats["metrics"].values()):
+        raise AssertionError(f"non-finite metrics after the resume: {stats['metrics']}")
+    print(f"[trainer] relaunch printed {line!r} and reached step {state.step}; metrics "
+          f"{stats['metrics']}", flush=True)
+    del state
+
+    # The other input paths, 40 steps each.
+    jpegs = os.path.join(tmp, "jpegs")
+    os.makedirs(jpegs)
+    write_jpegs(jpegs)
+    other = {
+        "synthetic on device, no renders or saves before the end": [],
+        "synthetic streamed from the host": ["--synthetic_on_device", "false"],
+        "synthetic, host preprocess": ["--synthetic_on_device", "false",
+                                       "--on_device_pipeline", "false"],
+        "JPEG folder, --data_cache": ["--dataset", "folder", "--dataroot", jpegs,
+                                      "--data_cache", "true"],
+        "JPEG folder, --device_data_cache": ["--dataset", "folder", "--dataroot", jpegs,
+                                             "--device_data_cache", "true"],
+    }
+    for i, (label, extra) in enumerate(other.items()):
+        path_args = TRAINER_ARGS + extra + [
+            "--save_path", os.path.join(tmp, f"path{i}"), "--niter", str(TRAINER_STEPS),
+            "--vis_interval", "0", "--save_interval", "0"]
+        state, stats, _ = counted_cli(label, path_args, TRAINER_STEPS, 0)
+        record(label, stats, TrainGLISConfig.from_args(path_args), state)
+        del state
+
+    side = max(cfg.crop_size, cfg.image_size)
+    ds = SyntheticDataset(BATCH, side, seed=0).batches()
+    batch_s = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        next(ds)
+        batch_s.append(time.perf_counter() - t0)
+    synth_ms = statistics.median(batch_s[1:]) * 1e3
+    ratio = runs["synthetic on device"]["images_per_sec"] / bare_images_per_s
+    ratio_plain = (runs["synthetic on device, no renders or saves before the end"]
+                   ["images_per_sec"] / bare_images_per_s)
+    print(f"[trainer] host time of one synthetic batch ({BATCH} x {side} x {side} x 3 uint8): "
+          f"{synth_ms:.3f} ms (median of 5); CLI on-device synthetic rate / phase 7 bare "
+          f"step rate {ratio:.3f}, without renders and saves {ratio_plain:.3f} "
+          f"({bare_images_per_s:.1f} img/s); {smi}", flush=True)
+    return {"runs": runs, "checkpoint": ckpt, "vis_s": vis_s, "vis_parts": vis_parts, "round_trip": trip, "round_trip_ema": trip_ema,
+            "synthetic_batch_host_ms": synth_ms, "bare_step_images_per_s": bare_images_per_s,
+            "cli_over_bare": ratio, "cli_without_side_effects_over_bare": ratio_plain,
+            "launches": launches, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -923,6 +1241,7 @@ def main() -> int:
     fp32 = fp32_agreement(cfg)
     train = training(cfg, rows, smi)
     train_fp32 = train_fp32_agreement(cfg)
+    trained = trainer(rows, train["images_per_s"], smi)
 
     kernels = []
     for name, row in rows.items():
@@ -930,6 +1249,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": row["launches"], "launches_per_step": row["launches_per_step"],
+            "launches_trainer": row["launches_trainer"],
             "launches_serving": row["launches_serving"], "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
             "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -947,6 +1267,7 @@ def main() -> int:
                       "grads": grads}), flush=True)
     print(json.dumps({"training": train, "train_fp32_agreement": train_fp32,
                       "seconds": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"trainer": trained}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 The JAX package `gea/` stays the reference; this package imports nothing of
 it (nor JAX). Ported so far: the serving path (the G-LIS generator renders
 every LIS stage, the discriminator scores the final stage and the top-k by
-score is kept, `gea_torch.serve.ServingModel`) and the G-LIS alternating
-train step (`gea_torch.train`). Their three TPU kernels are hand-written
-Hopper kernels in `gea_torch.ops`, each a `torch.autograd.Function`.
+score is kept, `gea_torch.serve.ServingModel`), the G-LIS alternating
+train step (`gea_torch.train`) and its trainer, `python -m
+gea_torch.cli.train_glis` (`gea_torch.data`, `gea_torch.train.runner`,
+`gea_torch.utils`). Their three TPU kernels are hand-written Hopper kernels
+in `gea_torch.ops`, each a `torch.autograd.Function`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on the CPU
 every kernel runs its plain PyTorch version.

@@ -1,0 +1,100 @@
+"""G-LIS trainer CLI of the port (port of `gea/cli/train_glis.py`).
+
+Flagship on the card, with synthetic data drawn on the device:
+
+    python -m gea_torch.cli.train_glis --dataset synthetic \
+        --synthetic_on_device true --image_size 80 --crop_size 160 \
+        --r_iterations 3 --batch_size 64 --niter 1000 --save_path runs/glis3_80
+
+A tiny run on the CPU (the kernels' plain versions) in a fresh directory,
+then its resume:
+
+    RUN=$(mktemp -d)
+    python -m gea_torch.cli.train_glis --device cpu --dataset synthetic \
+        --image_size 16 --crop_size 32 --code_size 16 --num_features 4 \
+        --max_features 16 --r_iterations 1 --batch_size 4 --dtype float32 \
+        --niter 6 --log_interval 2 --vis_interval 3 --save_interval 3 \
+        --vis_rows 2 --save_path "$RUN"
+    # the same with --niter 9 prints "resumed from ... at step 6"
+
+The flags are `gea`'s, plus `--device`; flags the port does not implement
+yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from gea_torch.config import TrainGLISConfig, refuse_unported, resolve_device
+from gea_torch.train.runner import (
+    TrainLoop,
+    check_batch,
+    input_iterator,
+    make_input_fn,
+    maybe_resume,
+    prepare_run,
+)
+from gea_torch.train.state import create_glis_state
+from gea_torch.train.steps import build_glis_train_step
+from gea_torch.utils.grids import save_stage_grids
+
+
+def make_vis_fn(cfg: TrainGLISConfig, generator, run_dir: str):
+    """Per-stage sample grids of a fixed noise batch. The noise comes from
+    a `torch.Generator` seeded with seed + 999, as `gea`'s comes from
+    PRNGKey(seed + 999); the values differ from `gea`'s."""
+    n_vis = cfg.vis_rows * cfg.vis_rows
+    gen = torch.Generator().manual_seed(cfg.seed + 999)
+    dev = generator.device
+    z = torch.randn((n_vis, cfg.code_size), generator=gen).to(dev)
+    sn_shape = generator.spatial_noise_shape(n_vis)
+    sn = torch.randn(sn_shape, generator=gen).to(dev) if sn_shape else None
+
+    def vis(state, step: int) -> None:
+        with torch.no_grad():
+            images, _ = state.generator.render(z, sn)
+        save_stage_grids(images.cpu().numpy(), os.path.join(run_dir, "samples"), step,
+                         rows=cfg.vis_rows)
+
+    return vis
+
+
+def param_count(module: torch.nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def run(cfg: TrainGLISConfig):
+    """Train; returns (state, stats): the meter's rates and the loop's
+    median host times per step."""
+    refuse_unported(cfg)
+    device = resolve_device(cfg.device)
+    run_dir = prepare_run(cfg)
+    check_batch(cfg)
+    state = create_glis_state(cfg, device=device)  # `gea`'s build_models
+    print(f"[gea_torch] G params: {param_count(state.generator):,}  D params: "
+          f"{param_count(state.discriminator):,}  device: {device}  stages/step: "
+          f"{cfg.n_stages}")
+    state, start_step = maybe_resume(cfg, state)
+    data = input_iterator(cfg, device, cfg.seed, start_step=start_step)
+    loop = TrainLoop(cfg, run_dir, state, build_glis_train_step(cfg), data,
+                     make_input_fn(cfg, device),
+                     vis_fn=make_vis_fn(cfg, state.generator, run_dir))
+    try:
+        final_state = loop.run(start_step)
+    finally:
+        data.close()  # ends the prefetch thread
+    stats = {**loop.meter.stats(), **loop.timings(), "metrics": loop.last_metrics}
+    print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s "
+          f"({stats['images_per_sec_per_chip']:.1f}/chip)")
+    return final_state, stats
+
+
+def main(argv: Optional[list] = None):
+    return run(TrainGLISConfig.from_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,31 +1,107 @@
-"""Configuration of the PyTorch port: the fields of `gea/config.py`
-`ModelConfig` that the generator and discriminator read, the fields of
-`TrainGLISConfig` that the G-LIS train step reads, `stage_weights`, and
-device resolution for the port's entry points."""
+"""Configuration of the PyTorch port (a copy of `gea/config.py`'s
+`BaseConfig`, `ModelConfig`, `DataConfig` and `TrainGLISConfig`, with
+`gea`'s flag names, defaults and choices), `stage_weights`, the flags the
+port does not implement yet, and device resolution for the port's entry
+points."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import argparse
+import dataclasses
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple, Type, TypeVar
 
 import torch
 
+T = TypeVar("T", bound="BaseConfig")
+
 NORM_CHOICES = ("weight", "batch", "none")
+DATASET_CHOICES = ("folder", "lsun", "synthetic", "cifar10")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _flag(default: Any, help: str, **kw: Any) -> Any:  # noqa: A002
+    return field(default=default, metadata={"help": help, **kw})
+
+
 @dataclass(frozen=True)
-class ModelConfig:
-    image_size: int = 80
-    code_size: int = 256
-    norm: str = "weight"
-    r_iterations: int = 3
-    num_features: int = 64
-    max_features: int = 512
-    lis_hidden_mult: int = 1
-    spatial_code: int = 0
-    include_initial_image: bool = True
-    dtype: str = "bfloat16"
+class BaseConfig:
+    """argparse round trip from the dataclass fields, and JSON round trip
+    into the run directory (`config.json`)."""
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def load(cls: Type[T], path: str) -> T:
+        with open(path) as f:
+            raw = json.load(f)
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in names})
+
+    def replace(self: T, **kw: Any) -> T:
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def add_args(cls, parser: argparse.ArgumentParser) -> None:
+        for f in dataclasses.fields(cls):
+            name = "--" + f.name
+            help_text = f.metadata.get("help", "") + f" (default: {f.default})"
+            if f.type in ("bool", bool):
+                parser.add_argument(name, type=_str2bool, nargs="?", const=True,
+                                    default=f.default, help=help_text)
+            else:
+                typ = {"int": int, "float": float, "str": str}.get(str(f.type))
+                if typ is None:
+                    typ = type(f.default) if f.default is not None else str
+                parser.add_argument(name, type=typ, default=f.default,
+                                    choices=f.metadata.get("choices"), help=help_text)
+
+    @classmethod
+    def from_args(cls: Type[T], argv: Optional[list] = None) -> T:
+        parser = argparse.ArgumentParser(description=cls.__doc__)
+        cls.add_args(parser)
+        ns = parser.parse_args(argv)
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in vars(ns).items() if k in names})
+
+
+def _str2bool(v: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
+
+
+@dataclass(frozen=True)
+class ModelConfig(BaseConfig):
+    """Architecture hyper-parameters of G and D."""
+
+    image_size: int = _flag(80, "output image resolution (square)")
+    code_size: int = _flag(256, "dimensionality of the noise/code vector z")
+    norm: str = _flag("weight", "normalization scheme for G and D", choices=NORM_CHOICES)
+    r_iterations: int = _flag(
+        3, "number of chained LIS noise-refinement modules in the generator")
+    num_features: int = _flag(64, "base channel count of the conv stacks (doubled per halving)")
+    max_features: int = _flag(512, "channel cap for the deepest conv layers")
+    lis_hidden_mult: int = _flag(
+        1, "hidden width of each LIS residual MLP, as a multiple of code_size")
+    spatial_code: int = _flag(
+        0, "number of spatially-injected noise channels concatenated into an "
+        "intermediate generator feature map")
+    include_initial_image: bool = _flag(
+        True, "also render (and train on) the image for the raw z before any LIS module")
+    dtype: str = _flag("bfloat16", "compute dtype (params stay float32)")
 
     def __post_init__(self) -> None:
         if self.norm not in NORM_CHOICES:
@@ -45,24 +121,88 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
-class TrainGLISConfig(ModelConfig):
-    """The fields of `gea/config.py` `TrainGLISConfig` that the G-LIS train
-    step reads, with `gea`'s defaults."""
+class DataConfig(BaseConfig):
+    """Input pipeline: CenterCrop(crop_size) -> Resize(image_size) ->
+    RandomHorizontalFlip -> Normalize to [-1, 1]."""
 
-    batch_size: int = 64
-    lr: float = 0.0002
-    lr_schedule: str = "constant"  # constant | cosine | linear, over niter updates
-    lr_final: float = 0.0  # final lr as a fraction of lr
-    beta1: float = 0.5
-    beta2: float = 0.999
-    niter: int = 50_000
-    stage_weight_initial: float = 0.2
-    gan_loss: str = "bce"  # bce | hinge | wgan-gp
-    gp_weight: float = 10.0
-    g_ema: float = 0.0
-    grad_accum: int = 1
-    remat: bool = False
-    seed: int = 42
+    dataset: str = _flag("folder", "dataset kind", choices=DATASET_CHOICES)
+    dataroot: str = _flag("", "path to the image folder (CelebA dump)")
+    lsun_classes: str = _flag("bedroom", "comma-separated LSUN class names (dataset=lsun)")
+    crop_size: int = _flag(160, "center-crop size applied before resize")
+    batch_size: int = _flag(64, "global batch size")
+    data_workers: int = _flag(4, "host-side decode worker threads")
+    data_backend: str = _flag(
+        "auto", "image decode backend: auto and pil decode with PIL threads here",
+        choices=("auto", "native", "pil", "grain"))
+    data_cache: bool = _flag(
+        False, "decode the whole folder once into host RAM (uint8) and serve "
+        "batches from memory")
+    device_data_cache: bool = _flag(
+        False, "place the whole decoded dataset in device memory once and gather "
+        "batches on the device: each step sends only the batch's indices")
+    on_device_pipeline: bool = _flag(
+        True, "crop/resize/flip/normalize on the device instead of on the host; "
+        "the host only decodes to uint8")
+    host_resize: bool = _flag(
+        False, "crop and downsample to image_size on the host and stream uint8 at "
+        "the final resolution; flip/normalize stay on the device")
+    synthetic_on_device: bool = _flag(
+        False, "dataset=synthetic only: generate the synthetic batch on the device "
+        "(no host->device input transfer)")
+    augment_flip: bool = _flag(True, "random horizontal flip augmentation")
+
+
+@dataclass(frozen=True)
+class TrainGLISConfig(ModelConfig, DataConfig):
+    """Alternating G/D training of the G-LIS generator (`gea.cli.train_glis`)."""
+
+    lr: float = _flag(0.0002, "Adam learning rate for G and D")
+    lr_schedule: str = _flag(
+        "constant", "learning-rate schedule over --niter steps: cosine or linear decay "
+        "from --lr to --lr_final * --lr", choices=("constant", "cosine", "linear"))
+    lr_final: float = _flag(0.0, "final learning rate as a FRACTION of --lr")
+    beta1: float = _flag(0.5, "Adam beta1 (DCGAN convention)")
+    beta2: float = _flag(0.999, "Adam beta2")
+    niter: int = _flag(50_000, "number of training iterations")
+    stage_weight_initial: float = _flag(
+        0.2, "relative adversarial-loss weight of non-final LIS stages; the final "
+        "stage always has weight 1.0 before normalization")
+    fid_interval: int = _flag(0, "proxy-FID every N steps (not ported yet)")
+    fid_samples: int = _flag(1024, "sample count per --fid_interval evaluation (not ported yet)")
+    gan_loss: str = _flag(
+        "bce", "GAN objective: BCE, hinge, or WGAN with gradient penalty",
+        choices=("bce", "hinge", "wgan-gp"))
+    gp_weight: float = _flag(10.0, "gradient-penalty weight for --gan_loss wgan-gp")
+    stop_patience: int = _flag(0, "early stopping on FID (not ported yet)")
+    g_ema: float = _flag(
+        0.0, "decay for an exponential moving average of G's params; 0 disables")
+    seed: int = _flag(42, "PRNG seed")
+    save_path: str = _flag("runs/glis", "experiment directory for outputs")
+    load_path: str = _flag("", "resume from this experiment directory")
+    save_interval: int = _flag(2000, "checkpoint every N iterations")
+    keep_checkpoints: int = _flag(0, "retain only the newest K checkpoints (0 = keep all)")
+    max_host_rss_gb: float = _flag(
+        0.0, "host-RSS budget: checkpoint + exit 19 (for auto-resume) when the process "
+        "exceeds it. 0 = auto (85%% of system RAM), negative disables")
+    vis_interval: int = _flag(500, "sample grid + loss plot every N iters")
+    vis_rows: int = _flag(8, "rows (and cols) of the sample grid")
+    log_interval: int = _flag(50, "stdout loss print every N iterations")
+    num_devices: int = _flag(0, "device count; 0 = one device here (data parallelism "
+                             "is not ported yet)")
+    model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
+    tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
+    steps_per_dispatch: int = _flag(1, "steps fused into one dispatch (not ported yet)")
+    grad_accum: int = _flag(
+        1, "accumulate gradients over K sequential microbatches per optimizer update")
+    remat: bool = _flag(False, "recompute the generator forward in its backward")
+    profile_dir: str = _flag("", "profiler trace directory (not ported yet)")
+    use_pallas: bool = _flag(
+        False, "moot in the port: its kernels always run on the card")
+    tensorboard: bool = _flag(False, "tensorboard scalars (not ported yet)")
+    multihost: bool = _flag(False, "multi-host initialisation (not ported yet)")
+    debug_checks: bool = _flag(False, "NaN/Inf-checking step (not ported yet)")
+    device: str = _flag("cuda", "device to train on: cuda, or cpu for the plain "
+                        "PyTorch versions of the kernels")
 
     def __post_init__(self) -> None:
         super().__post_init__()
@@ -70,6 +210,42 @@ class TrainGLISConfig(ModelConfig):
             raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
         if self.gan_loss not in ("bce", "hinge", "wgan-gp"):
             raise ValueError(f"unknown gan_loss {self.gan_loss!r}")
+
+
+# Flags of `TrainGLISConfig` that the port does not implement yet, each with
+# the values it accepts besides its default, and why it refuses the others.
+UNPORTED = {
+    "fid_interval": ((), "needs the port of gea/eval/fid.py"),
+    "fid_samples": ((), "needs the port of gea/eval/fid.py"),
+    "stop_patience": ((), "needs the port of gea/eval/fid.py"),
+    "multihost": ((), "needs data parallelism"),
+    "num_devices": ((1,), "needs data parallelism"),
+    "model_shards": ((), "needs tensor parallelism"),
+    "tp_min_width": ((), "needs tensor parallelism"),
+    "steps_per_dispatch": ((), "needs CUDA graphs"),
+    "debug_checks": ((), "needs a NaN/Inf-checking step"),
+    "tensorboard": ((), "needs a scalar writer"),
+    "profile_dir": ((), "needs a profiler hook"),
+    "use_pallas": ((), "moot: the port always runs its kernels on the card"),
+    "data_backend": (("pil",), "needs the native and grain loaders"),
+    "lsun_classes": ((), "needs the LSUN reader"),
+    "norm": (("none",), "needs norm=batch in the models"),
+}
+
+
+def refuse_unported(cfg: TrainGLISConfig) -> None:
+    """SystemExit naming every flag set to a value the port does not
+    implement; none is silently ignored."""
+    defaults = {f.name: f.default for f in dataclasses.fields(TrainGLISConfig)}
+    bad = [
+        f"--{name} {getattr(cfg, name)} ({why})"
+        for name, (ok, why) in UNPORTED.items()
+        if getattr(cfg, name) != defaults[name] and getattr(cfg, name) not in ok
+    ]
+    if cfg.dataset == "lsun":
+        bad.append("--dataset lsun (needs the LSUN reader)")
+    if bad:
+        raise SystemExit("not implemented in gea_torch yet: " + "; ".join(bad))
 
 
 def stage_weights(cfg: ModelConfig) -> Tuple[float, ...]:

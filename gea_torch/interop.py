@@ -12,6 +12,9 @@ the port imports nothing of `gea`:
 | scale (out,)                      | weight_g, 1 on every non-output axis |
 | TPReLU slope / translation        | a / b                                |
 
+`glis_state_from_jax` carries a whole `gea` train state (params, optax's
+Adam state, step, EMA) into the port's `GLISTrainState`.
+
 `init_generator_params` / `init_discriminator_params` make seeded random
 trees in the same layout (lecun-normal variance, scale 1, slope 0.25,
 translation 0, zero biases), for runs that need no trained weights.
@@ -108,6 +111,60 @@ def discriminator_state_from_jax_params(params: Params, cfg: ModelConfig) -> Ord
             _tprelu(out, f"trunk.downs.{i}.act", trunk[f"down{i}_act"]["TPReLU_0"])
     _dense(out, "head", params["head"], wn)
     return out
+
+
+def _field(tree: Any, name: str) -> Any:
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def _adam_state(opt_state: Any):
+    """(count, mu, nu) of optax's `ScaleByAdamState` inside the state of
+    `optax.adam`'s chain (with or without a schedule)."""
+    for s in opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,):
+        try:
+            return tuple(_field(s, k) for k in ("count", "mu", "nu"))
+        except (KeyError, AttributeError, TypeError):
+            continue
+    raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+
+
+def glis_state_from_jax(state_tree: Any, cfg, device="cuda", use_kernels: bool = True):
+    """A `gea` `GANTrainState` whose leaves are numpy arrays (step,
+    params_g, params_d, opt_g, opt_d, params_g_ema; attributes or keys) ->
+    the port's `GLISTrainState`. optax's Adam moments map to
+    `torch.optim.Adam`'s `exp_avg` and `exp_avg_sq` through the params' key
+    mapping, its count to each parameter's `step`, and the schedulers are
+    set to `count` updates. `gea`'s PRNG key has no counterpart: the state's
+    `torch.Generator` is seeded with cfg.seed."""
+    from gea_torch.train.state import create_glis_state
+
+    state = create_glis_state(cfg, _field(state_tree, "params_g"),
+                              _field(state_tree, "params_d"), device=device,
+                              use_kernels=use_kernels)
+    players = ((state.opt_g, state.sched_g, state.generator, "opt_g",
+                generator_state_from_jax_params),
+               (state.opt_d, state.sched_d, state.discriminator, "opt_d",
+                discriminator_state_from_jax_params))
+    for opt, sched, module, key, to_port in players:
+        count, mu, nu = _adam_state(_field(state_tree, key))
+        count = int(np.asarray(count))
+        mu, nu = to_port(mu, cfg), to_port(nu, cfg)
+        for name, p in module.named_parameters():
+            opt.state[p] = {"step": torch.tensor(float(count)),
+                            "exp_avg": mu[name].to(p.device),
+                            "exp_avg_sq": nu[name].to(p.device)}
+        if sched is not None:
+            lrs = [base * fn(count) for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
+            sched.load_state_dict({**sched.state_dict(), "last_epoch": count,
+                                   "_last_lr": lrs})
+            for group, lr in zip(opt.param_groups, lrs):
+                group["lr"] = lr
+    ema = _field(state_tree, "params_g_ema")
+    if cfg.g_ema > 0 and ema:
+        state.g_ema = {n: t.to(state.device) for n, t in
+                       generator_state_from_jax_params(ema, cfg).items()}
+    state.step = int(np.asarray(_field(state_tree, "step")))
+    return state
 
 
 def generator_from_jax_params(params: Params, cfg: ModelConfig, device="cuda",

@@ -1,0 +1,259 @@
+"""The trainer's host loop (port of `gea/train/runner.py` for one process
+and one device): the run directory, the input stream, resume, and
+`TrainLoop` with its periodic side effects (losses on stdout, sample
+grids, the loss plot, checkpoints with retention) and its guards (NaN/Inf
+abort, host-RSS budget).
+
+Per-step randomness is keyed by the global step, so a resumed run draws
+what a run never interrupted would: the data stream fast-forwards to the
+resumed step (`input_iterator(start_step=...)`), the flip mask and the
+on-device synthetic batch come from a generator seeded by (seed, step)
+(`step_generator`), and z, spatial noise and the penalty's eps come from
+the train state's own generator, whose state the checkpoint keeps.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import statistics
+import time
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gea_torch.data.hostpre import host_downsample_uint8, host_preprocess
+from gea_torch.data.ondevice import preprocess_batch, synthetic_batch
+from gea_torch.data.pipeline import device_crop_size, make_dataset
+from gea_torch.data.prefetch import device_prefetch
+from gea_torch.utils.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
+from gea_torch.utils.hostmem import EXIT_HOST_RSS, host_rss_gb, resolve_rss_budget_gb
+from gea_torch.utils.meters import ThroughputMeter
+from gea_torch.utils.plotting import LossPlotter
+
+DATA_SEED_MIX = 0x5EED  # `gea`'s data key is PRNGKey(seed ^ 0x5EED)
+
+
+def prepare_run(cfg) -> str:
+    run_dir = os.path.abspath(cfg.save_path)
+    os.makedirs(run_dir, exist_ok=True)
+    cfg.save(os.path.join(run_dir, "config.json"))
+    return run_dir
+
+
+def check_batch(cfg) -> None:
+    """The batch must split into --grad_accum microbatches."""
+    accum = max(1, cfg.grad_accum)
+    if cfg.batch_size % accum:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide by --grad_accum {accum}")
+
+
+def synthetic_on_device(cfg) -> bool:
+    """True when the synthetic batch is drawn on the device (no input
+    transfer)."""
+    return cfg.dataset == "synthetic" and cfg.synthetic_on_device and cfg.on_device_pipeline
+
+
+def step_generator(device: torch.device) -> Callable[[int, int], torch.Generator]:
+    """(seed, step) -> one generator on `device`, reseeded for that step:
+    what it draws is a pure function of (seed, step)."""
+    gen = torch.Generator(device)
+
+    def at(seed: int, step: int) -> torch.Generator:
+        key = np.random.SeedSequence([seed ^ DATA_SEED_MIX, step]).generate_state(1, np.uint64)
+        return gen.manual_seed(int(key[0]) & 0x7FFF_FFFF_FFFF_FFFF)
+
+    return at
+
+
+def input_iterator(cfg, device: torch.device, seed: int,
+                   start_step: int = 0) -> Iterator[Optional[torch.Tensor]]:
+    """The input stream on the device, starting at batch `start_step`:
+    None per step when the synthetic batch is drawn on the device; uint8
+    batches for the on-device preprocess (at decode resolution, or at
+    image_size with --host_resize; gathered on the device with
+    --device_data_cache); float32 batches with --on_device_pipeline false."""
+    if synthetic_on_device(cfg):
+        return (None for _ in itertools.count())
+    if cfg.device_data_cache:
+        from gea_torch.data.devicecache import device_cached_iterator
+
+        return device_cached_iterator(cfg, device, seed, start_step=start_step)
+    ds = make_dataset(cfg, seed=seed)
+    crop = device_crop_size(cfg)
+    batches = ds.batches(start_step)
+    if not cfg.on_device_pipeline:
+        # The flip is keyed by the batch index, as on the device.
+        batches = (host_preprocess(raw, np.random.default_rng([seed ^ 0xFEED, i]),
+                                   crop_size=crop, image_size=cfg.image_size,
+                                   augment_flip=cfg.augment_flip)
+                   for i, raw in enumerate(batches, start_step))
+    elif cfg.host_resize:
+        batches = (host_downsample_uint8(raw, crop, cfg.image_size) for raw in batches)
+    return device_prefetch(batches, device, depth=3)
+
+
+def make_input_fn(cfg, device: torch.device) -> Callable[[Optional[torch.Tensor], int],
+                                                         torch.Tensor]:
+    """(batch from `input_iterator`, step) -> the real batch, float32 in
+    [-1, 1] on the device: the synthetic draw, or the on-device preprocess,
+    run just before the step."""
+    gen_at = step_generator(device)
+    if synthetic_on_device(cfg):
+        return lambda _, step: synthetic_batch(gen_at(cfg.seed, step), cfg.batch_size,
+                                               cfg.image_size)
+    if not cfg.on_device_pipeline:
+        return lambda batch, step: batch
+    crop = (cfg.image_size if cfg.host_resize and not cfg.device_data_cache
+            else device_crop_size(cfg))
+
+    def preprocess(raw: torch.Tensor, step: int) -> torch.Tensor:
+        return preprocess_batch(raw, crop, cfg.image_size, cfg.augment_flip,
+                                gen=gen_at(cfg.seed, step))
+
+    return preprocess
+
+
+def maybe_resume(cfg, state) -> Tuple[Any, int]:
+    """--load_path restores an earlier run; checkpoints already in
+    --save_path resume this run. Checkpoints in save_path win: a relaunch
+    with the same arguments must continue the run's own progress, not
+    rewind to the warm start (and load_path may be gone by then, so its
+    check applies only when it is used). An explicit load_path without
+    checkpoints is an error."""
+    own = latest_step(cfg.save_path) is not None
+    if own and cfg.save_path != cfg.load_path:
+        source = cfg.save_path
+        if cfg.load_path:
+            print(f"[gea_torch] save_path has checkpoints: auto-resuming from it "
+                  f"(ignoring --load_path {cfg.load_path} warm start)")
+    elif cfg.load_path:
+        if latest_step(cfg.load_path) is None:
+            raise FileNotFoundError(f"--load_path {cfg.load_path!r} contains no checkpoints")
+        source = cfg.load_path
+    else:
+        source = cfg.save_path if own else ""
+    if not source:
+        return state, 0
+    state = restore_checkpoint(source, state)
+    print(f"[gea_torch] resumed from {source} at step {state.step}", flush=True)
+    return state, state.step
+
+
+class TrainLoop:
+    """Drives `step_fn(state, real) -> metrics` over the input stream.
+    `input_fn(batch, step)` makes the real batch from the stream's batch.
+    Metrics are 0-d tensors on the device, read on the host only at log
+    intervals; the host waits for the device once more, when the warm-up
+    ends."""
+
+    def __init__(
+        self,
+        cfg,
+        run_dir: str,
+        state,
+        step_fn: Callable[[Any, torch.Tensor], Dict[str, torch.Tensor]],
+        data_iter: Iterator,
+        input_fn: Callable[[Any, int], torch.Tensor],
+        vis_fn: Optional[Callable[[Any, int], None]] = None,
+        loss_keys: Tuple[str, ...] = ("loss_d", "loss_g"),
+    ):
+        self.cfg = cfg
+        self.run_dir = run_dir
+        self.state = state
+        self.step_fn = step_fn
+        self.data_iter = data_iter
+        self.input_fn = input_fn
+        self.vis_fn = vis_fn
+        self.loss_keys = loss_keys
+        self.plotter = LossPlotter()
+        self.meter = ThroughputMeter(cfg.batch_size)
+        self.last_metrics: Dict[str, float] = {}
+        # Host seconds per loop iteration, and of those, waiting for input.
+        self.step_s: list = []
+        self.input_wait_s: list = []
+
+    def timings(self) -> Dict[str, float]:
+        """Medians over the iterations after the warm-up."""
+        skip = self.meter.warmup_steps
+        out = {}
+        for key, xs in (("step_wall_s_median", self.step_s),
+                        ("input_wait_s_median", self.input_wait_s)):
+            xs = xs[skip:] or xs
+            out[key] = statistics.median(xs) if xs else 0.0
+        return out
+
+    def _save(self, step: int) -> None:
+        save_checkpoint(self.run_dir, step, self.state, keep=self.cfg.keep_checkpoints,
+                        async_save=True)
+
+    def _save_and_keep_all(self, step: int) -> None:
+        """The guards' save (post-mortem, RSS): synchronous and pruning
+        nothing, so a NaN state never evicts the finite checkpoints."""
+        save_checkpoint(self.run_dir, step, self.state)
+
+    def run(self, start_step: int):
+        cfg = self.cfg
+        rss_budget = resolve_rss_budget_gb(cfg.max_host_rss_gb)
+        it = start_step
+        while it < cfg.niter:
+            # Host-RSS guard: checkpoint and exit for a clean auto-resume.
+            # Not before this process's first step (a relaunch must make
+            # progress), and after the save in flight. With several
+            # processes this decision must become a collective one; that
+            # waits for data parallelism.
+            if it > start_step and host_rss_gb() > rss_budget:
+                self._save_and_keep_all(it)  # after the save in flight
+                print(f"[gea_torch] host RSS {host_rss_gb():.1f} GB exceeds the "
+                      f"{rss_budget:.1f} GB budget (--max_host_rss_gb). Checkpoint "
+                      f"saved at step {it}; exiting {EXIT_HOST_RSS} for a clean "
+                      "auto-resume restart.", flush=True)
+                raise SystemExit(EXIT_HOST_RSS)
+            t0 = time.perf_counter()
+            batch = next(self.data_iter)
+            self.input_wait_s.append(time.perf_counter() - t0)
+            metrics = self.step_fn(self.state, self.input_fn(batch, it))
+            if self.meter.tick():
+                if self.state.device.type == "cuda":  # keep the warm-up off the clock
+                    torch.cuda.synchronize(self.state.device)
+                self.meter.restart_timer()
+            prev, it = it, it + 1
+
+            def crossed(interval: int) -> bool:
+                # A multiple of `interval` in (prev, it]; <= 0 disables.
+                return interval > 0 and it // interval > prev // interval
+
+            if crossed(cfg.log_interval) or prev == start_step:
+                m = {k: float(v) for k, v in metrics.items()}
+                bad = [k for k, v in m.items() if not np.isfinite(v)]
+                if bad:
+                    self._save_and_keep_all(it)
+                    raise FloatingPointError(
+                        f"non-finite metrics {bad} at iter {it}; post-mortem "
+                        f"checkpoint written to {self.run_dir}")
+                self.last_metrics = m
+                self.plotter.add(it, **{k: m[k] for k in self.loss_keys if k in m})
+                stats = self.meter.stats()
+                extras = " ".join(f"{k}={v:.4f}" for k, v in m.items()
+                                  if k not in self.loss_keys)
+                print(f"[gea_torch] iter {it}/{cfg.niter} "
+                      + " ".join(f"{k}={m[k]:.4f}" for k in self.loss_keys if k in m)
+                      + (f" {extras}" if extras else "")
+                      + f" | {stats['images_per_sec']:.1f} img/s", flush=True)
+
+            if crossed(cfg.vis_interval) and self.vis_fn is not None:
+                self.vis_fn(self.state, it)
+                self.plotter.plot(os.path.join(self.run_dir, "plots", "loss.png"))
+
+            if crossed(cfg.save_interval) or it == cfg.niter:
+                self._save(it)
+            self.step_s.append(time.perf_counter() - t0)
+
+        wait_for_checkpoints()
+        return self.state

@@ -41,7 +41,12 @@ def test_import_without_cuda_builds_nothing():
     code = (
         "import sys, gea_torch, gea_torch.serve, gea_torch.interop, gea_torch.ops;"
         "import gea_torch.train, gea_torch.train.losses, gea_torch.train.state;"
-        "import gea_torch.train.steps;"
+        "import gea_torch.train.steps, gea_torch.train.runner, gea_torch.cli.train_glis;"
+        "import gea_torch.data.pipeline, gea_torch.data.ondevice, gea_torch.data.hostpre;"
+        "import gea_torch.data.prefetch, gea_torch.data.devicecache;"
+        "import gea_torch.utils.checkpoint, gea_torch.utils.grids, gea_torch.utils.plotting;"
+        "import gea_torch.utils.meters, gea_torch.utils.hostmem;"
+        "assert 'PIL' not in sys.modules and 'matplotlib' not in sys.modules;"
         "from gea_torch.ops import build;"
         "assert build._LIBS == {} and not build.BUILD_DIR.joinpath('x').exists();"
         "assert 'triton' not in sys.modules and 'jax' not in sys.modules;"

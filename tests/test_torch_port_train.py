@@ -40,6 +40,7 @@ from gea.train.state import create_glis_state as jax_create_glis_state
 from gea.train.state import make_optimizer as jax_make_optimizer
 from gea.train.steps import build_glis_train_step as jax_build_glis_train_step
 from gea_torch.config import TrainGLISConfig
+from gea_torch.interop import glis_state_from_jax
 from gea_torch.train import build_glis_train_step, create_glis_state, losses
 from gea_torch.train.state import lr_factor
 
@@ -124,6 +125,7 @@ def gea_run(kw, steps=STEPS, dtype="float32", **model_kw):
             "mu_d": discriminator_to_torch_state(jax.device_get(_flat_moments(state.opt_d)), cfg),
             "ema": (generator_to_torch_state(jax.device_get(state.params_g_ema), cfg)
                     if cfg.g_ema > 0 else {}),
+            "state": jax.device_get(state),
         })
     return out
 
@@ -204,6 +206,45 @@ def test_step_matches_gea(case, after):
     if CASES[case].get("g_ema"):
         assert set(got["ema"]) == set(got["g"])
         assert_state_close(got["ema"], want["ema"], "EMA")
+
+
+@pytest.mark.parametrize("case", ["bce", "cosine", "g_ema", "spatial_code"])
+def test_state_carried_from_gea_takes_the_same_step(case):
+    """`gea`'s whole state after 2 steps (params, optax's Adam state with
+    its count, the step, the EMA), carried into the port by
+    `glis_state_from_jax`, takes step 3 from the same draws as `gea` did:
+    metrics rtol 1e-5, parameters atol 1e-5, both Adam moments atol 1e-6 +
+    rtol 1e-5."""
+    ref, _ = runs(case)
+    cfg = TrainGLISConfig(**{**TINY, **CASES[case]})
+    state = glis_state_from_jax(ref["steps"][1]["state"], cfg, device="cpu")
+    assert state.step == 2
+    for opt, module in ((state.opt_g, state.generator), (state.opt_d, state.discriminator)):
+        assert all(float(opt.state[p]["step"]) == 2 for p in module.parameters())
+    z, sn, eps = ref["draws"][2]
+    metrics = build_glis_train_step(cfg)(state, real_batch(cfg), z, sn, eps)
+    want = ref["steps"][2]
+    for k, v in want["metrics"].items():
+        np.testing.assert_allclose(float(metrics[k]), v, rtol=1e-5, err_msg=k)
+    assert_state_close(state.generator.state_dict(), want["g"], "G")
+    assert_state_close(state.discriminator.state_dict(), want["d"], "D")
+    adam = {"g": (want["state"].opt_g[0], state.opt_g, state.generator,
+                  generator_to_torch_state),
+            "d": (want["state"].opt_d[0], state.opt_d, state.discriminator,
+                  discriminator_to_torch_state)}
+    for part, (jax_adam, opt, module, to_torch) in adam.items():
+        jcfg = JaxTrainGLISConfig(**{**TINY, **CASES[case]}, dataset="synthetic")
+        for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            ref_m = to_torch(getattr(jax_adam, moment), jcfg)
+            for n, p in module.named_parameters():
+                np.testing.assert_allclose(opt.state[p][key].numpy(), np.asarray(ref_m[n]),
+                                           atol=1e-6, rtol=1e-5, err_msg=f"{part} {moment} {n}")
+    if cfg.lr_schedule != "constant":
+        factor = lr_factor(cfg.lr_schedule, cfg.niter, cfg.lr_final)
+        for opt in (state.opt_g, state.opt_d):
+            np.testing.assert_allclose(opt.param_groups[0]["lr"], cfg.lr * factor(3), rtol=1e-9)
+    if cfg.g_ema > 0:
+        assert_state_close(state.g_ema, want["ema"], "EMA")
 
 
 def test_grad_accum_matches_one_microbatch():
