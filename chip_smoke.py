@@ -59,11 +59,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    device's idle share over 10 steps of the same path under
    torch.profiler; the host time of one synthetic batch; the two parts of
    a checkpoint save and one restore;
-9. print one JSON line of the serving results, one of the training
-   results, one of the trainer's, one of per-kernel results (per train
-   step; `launches` counts phase 7's timed steps, `launches_trainer` the
-   trainer's first run), the card's name and power limit, and last
-   `{"ok": true, "device": {...}}`.
+9. R-separate, `python -m gea_torch.cli.train_r_separate` called
+   in-process against phase 8's main run directory as its frozen G (and D):
+   40 steps with renders and saves at 20, with exactly 40 steps' and 2
+   renders' launches (TPReLU 13, LIS 6, seed 2 a step; 10, 6, 2 a render);
+   the run directory's artifacts; every parameter of R got a finite,
+   non-zero gradient and moved; the frozen G and D are unchanged bit for
+   bit and hold no gradient; a bitwise checkpoint round trip of the R
+   state; 10 bare steps timed as in phase 7 (wall, images/s, device time,
+   idle share, a torch.profiler breakdown by category with each port
+   kernel's forward and eager backward on their own); a relaunch resuming
+   at 40 to 60 with exact launches; 2 fp32 steps with kernels against 2
+   with plain versions beside a second plain run;
+10. R-iterative, `python -m gea_torch.cli.train_r_iterative` in-process at
+   flagship width with `--r_chain_length 2 --lambda_r 0.9` and synthetic
+   data drawn on the device: the same list (TPReLU 43, seed 6 a step; 17,
+   3 a render), with G, D and R all trained;
+11. print one JSON line of the serving results, one of the training
+   results, one of the trainer's, one of the R trainers', one of
+   per-kernel results (per train step; `launches` counts phase 7's timed
+   steps, `launches_trainer` the trainer's first run, `launches_r_separate`
+   and `launches_r_iterative` the R trainers' first runs), the card's name
+   and power limit, and last `{"ok": true, "device": {...}}`.
+
+Phases 3-5 also hold each kernel against its plain version (forward and
+gradients) at the shapes only the R trainers give it: TPReLU on R's head,
+(64, 512), and the seed at R-iterative's batch of 64.
 
 Without CUDA the script exits 1 before printing any result.
 """
@@ -85,19 +106,34 @@ import numpy as np
 import torch
 
 from gea_torch import FLAGSHIP, ops
-from gea_torch.cli import train_glis
-from gea_torch.config import TrainGLISConfig, generator_plan
+from gea_torch.cli import train_glis, train_r_iterative, train_r_separate
+from gea_torch.cli.sample import load_discriminator, load_generator
+from gea_torch.config import (
+    TrainGLISConfig,
+    TrainRIterativeConfig,
+    TrainRSeparateConfig,
+    generator_plan,
+)
 from gea_torch.data.pipeline import SyntheticDataset
 from gea_torch.interop import (
     discriminator_from_jax_params,
     generator_from_jax_params,
     init_discriminator_params,
     init_generator_params,
+    init_reverter_params,
 )
 from gea_torch.ops import build
 from gea_torch.serve import ServingModel
-from gea_torch.train import build_glis_train_step, create_glis_state
+from gea_torch.train import (
+    build_glis_train_step,
+    build_r_iterative_step,
+    build_r_separate_step,
+    create_glis_state,
+    create_r_iterative_state,
+    create_r_state,
+)
 from gea_torch.train.runner import input_iterator, make_input_fn
+from gea_torch.train.state import generator_config
 from gea_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -110,6 +146,7 @@ from gea_torch.utils.grids import save_stage_grids
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor cores; fp32 CUDA cores
 COUNT, OVERSAMPLE, BATCH = 64, 4, 64
+R_HIDDEN = 512  # the reverser's head width (`gea`'s r_hidden default)
 REPS, WARMUP = 20, 3
 SPIN_CYCLES = 4_000_000  # about 2 ms at the H100's clock: longer than any call's enqueue
 RENDER_SPIN_CYCLES = 60_000_000  # about 30 ms: longer than a whole render's enqueue
@@ -282,20 +319,28 @@ def cases(cfg):
     out.append(("lis_residual_mlp", f"LIS link ({BATCH}, {code}) x ({code}, {hidden})",
                 cfg.r_iterations, cfg.r_iterations, lis_make))
 
-    def seed_make(dt):
-        e = torch.tensor([], dtype=dt).element_size()
-        p = s0 * s0 * c0
-        args = (randn((n, code), gen, 1.0, dt), randn((code, p), gen, code**-0.5, dt),
-                randn(p, gen, 0.1), torch.rand(c0, generator=gen).cuda() * 0.5,
-                randn(c0, gen, 0.1), randn((4, 4, c0, c1), gen, (16 * c0) ** -0.5, dt),
-                randn(c1, gen, 0.1), s0)
-        nbytes = (e * (n * code + code * p + 16 * c0 * c1 + n * (2 * s0) ** 2 * c1)
-                  + 4 * (p + 2 * c0 + c1))
-        nops = 2 * n * code * p + 2 * n * (2 * s0) ** 2 * 4 * c0 * c1
-        return args, nbytes, nops
+    def seed_case(n):
+        def make(dt):
+            e = torch.tensor([], dtype=dt).element_size()
+            p = s0 * s0 * c0
+            args = (randn((n, code), gen, 1.0, dt), randn((code, p), gen, code**-0.5, dt),
+                    randn(p, gen, 0.1), torch.rand(c0, generator=gen).cuda() * 0.5,
+                    randn(c0, gen, 0.1), randn((4, 4, c0, c1), gen, (16 * c0) ** -0.5, dt),
+                    randn(c1, gen, 0.1), s0)
+            nbytes = (e * (n * code + code * p + 16 * c0 * c1 + n * (2 * s0) ** 2 * c1)
+                      + 4 * (p + 2 * c0 + c1))
+            nops = 2 * n * code * p + 2 * n * (2 * s0) ** 2 * 4 * c0 * c1
+            return args, nbytes, nops
+        return make
 
     out.append(("fused_seed", f"seed ({n}, {code}) -> ({n}, {2 * s0}, {2 * s0}, {c1})",
-                1, 1, seed_make))
+                1, 1, seed_case(n)))
+    # Shapes only the R trainers give the kernels (no G-LIS launch): R's
+    # head activation, and R-iterative's single-stage render of a batch.
+    out.append(("fused_tprelu", f"R head act ({BATCH}, {R_HIDDEN})", 0, 0,
+                tprelu_case(BATCH, R_HIDDEN)))
+    out.append(("fused_seed", f"R-iterative seed ({BATCH}, {code}) -> ({BATCH}, {2 * s0}, "
+                f"{2 * s0}, {c1})", 0, 0, seed_case(BATCH)))
     return out
 
 
@@ -445,15 +490,14 @@ GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 def check_grads(cfg, kernel_rows: dict) -> dict:
     """Each kernel's Function (kernel forward, eager backward) against
-    autograd through its plain version at the train step's shapes, for one
-    random cotangent; the device time of each Function's backward in bf16,
-    summed per train step into the kernel's row, under the train step's
-    TF32 settings."""
+    autograd through its plain version at every case's shape (the R
+    trainers differentiate through the scoring and R-only shapes too), for
+    one random cotangent; the device time of each Function's backward in
+    bf16 at the train step's shapes, summed per train step into the
+    kernel's row, under the train step's TF32 settings."""
     gen = torch.Generator().manual_seed(2)
     errs = {}
     for name, label, _, per_step, make in cases(cfg):
-        if per_step == 0:
-            continue
         row = kernel_rows[name]
         row.setdefault("backward_ms", 0.0)
         for dt in (torch.float32, torch.bfloat16):
@@ -481,7 +525,7 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
                 raise AssertionError(f"{name} {label} {dt}: gradients differ by {rel:.3e} of "
                                      f"their max > {GRAD_TOL[dt]}")
             extra = ""
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 and per_step:
                 with cudnn_tf32():  # as the train step is timed
                     bwd_ms = time_ms(backward)
                 row["backward_ms"] += per_step * bwd_ms
@@ -644,6 +688,9 @@ def fp32_agreement(cfg) -> dict:
 PORT_BACKWARD = {"FusedTPReLUBackward": "fused_tprelu",
                  "LISResidualMLPBackward": "lis_residual_mlp",
                  "FusedSeedBackward": "fused_seed"}
+# Device kernels of the port's forwards, by name.
+PORT_FORWARD = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
+                "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed"}
 BACKWARD_CAT, OPTIMIZER_CAT = "eager backward of port kernels", "optimizer (Adam)"
 
 
@@ -691,9 +738,14 @@ def step_profile(fn) -> dict:
             cats[cat] = cats.get(cat, 0.0) + ms
             if port is not None:
                 backward[port] += ms
+    forward = dict.fromkeys(PORT_BACKWARD.values(), 0.0)
+    for name, ms, _ in rows:
+        port = next((k for key, k in PORT_FORWARD.items() if key in name), None)
+        if port is not None:
+            forward[port] += ms
     return {"device_ms": sum(r[1] for r in rows), "backward_device_ms": backward_ms,
             "launches": sum(r[2] for r in rows), "by_category": cats,
-            "port_backward_ms": backward, "by_kernel": rows}
+            "port_forward_ms": forward, "port_backward_ms": backward, "by_kernel": rows}
 
 
 def cycles_per_ms() -> float:
@@ -749,8 +801,9 @@ def real_batch(cfg) -> torch.Tensor:
 
 
 def named_params(state) -> dict:
-    return {f"{tag}.{n}": p for tag, m in (("G", state.generator), ("D", state.discriminator))
-            for n, p in m.named_parameters()}
+    """The trained parameters of a train state, by module and name."""
+    return {f"{name}.{n}": p for name, _ in state.PLAYERS
+            for n, p in getattr(state, name).named_parameters()}
 
 
 def training(cfg, kernel_rows: dict, smi: str) -> dict:
@@ -869,20 +922,65 @@ def _training(cfg, kernel_rows: dict, smi: str) -> dict:
     return result
 
 
-def train_fp32_agreement(cfg) -> dict:
-    """2 fp32 steps with kernels against 2 with plain versions, from the
-    same params on the same real batch and z, beside a second run of the
-    plain versions: the card's own spread from run to run.
+FP32_TOL = {"metrics_rel": 1e-4, "grad_rel_to_max": 2e-2, "params_apart_share": 2e-2}
+
+
+def fp32_agreement_of(label: str, two_steps, lr: float) -> dict:
+    """`two_steps(use_kernels)` -> (metrics of 2 fp32 steps, step 1's
+    gradients, parameters after step 2), by name: with kernels against
+    plain versions, beside a second run of the plain versions (the card's
+    own spread from run to run).
 
     On the card the plain versions run twice already give gradients about
     1e-3 of each tensor's largest apart (fp32 sums in another order, the
     atomics of library kernels), and Adam's first update, about
     lr * sign(g), turns a gradient at that noise level into a flip of 2 lr.
-    Tolerances: metrics rtol 1e-4; step 1's gradient of every parameter
-    within 2e-2 of the tensor's largest; after 2 steps, at most 2% of each
-    tensor's elements more than lr / 5 apart (a wrong backward moves them
-    all). Measured by this function on an H100: kernels vs plain 3.9e-3
-    and 0.6%, plain vs itself 1.3e-3 and 0.4%."""
+    Tolerances (FP32_TOL): metrics rtol 1e-4, relative to at least 1e-2
+    (R-iterative's loss_r_sim, the mean square of R's outputs, starts near
+    7e-5, where Adam's flips in step 1 move it by 1e-4 of itself); step
+    1's gradient of every parameter within 2e-2 of the tensor's largest;
+    after 2 steps, at most 2% of each tensor's elements more than lr / 5
+    apart (a wrong backward moves them all). Measured on an H100 for the
+    G-LIS step: kernels vs plain 3.9e-3 and 0.6%, plain vs itself 1.3e-3
+    and 0.4%."""
+
+    def compare(a, b) -> dict:
+        (ma, ga, pa), (mb, gb, pb) = a, b
+        return {
+            "metrics_rel": max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-2)
+                               for x, y in zip(ma, mb) for k in x),
+            "grad_rel_to_max": max((ga[n] - gb[n]).abs().max().item()
+                                   / max(gb[n].abs().max().item(), 1e-30) for n in gb),
+            "params_apart_share": max(((pa[n] - pb[n]).abs() > lr / 5).float().mean().item()
+                                      for n in pb),
+            "params_abs": max((pa[n] - pb[n]).abs().max().item() for n in pb),
+        }
+
+    kernels, plain, again = two_steps(True), two_steps(False), two_steps(False)
+    errs, spread = compare(kernels, plain), compare(again, plain)
+    print(f"[{label} fp32] 2 steps with kernels vs plain versions: {errs} (tol {FP32_TOL}); "
+          f"plain vs plain again: {spread}; metrics {kernels[0][-1]}", flush=True)
+    for k in FP32_TOL:
+        if not errs[k] <= FP32_TOL[k]:
+            raise AssertionError(f"{label} fp32 step {k} {errs[k]:.3e} > {FP32_TOL[k]}")
+    return {"kernels_vs_plain": errs, "plain_vs_plain": spread, "tol": FP32_TOL}
+
+
+def two_fp32_steps(make_state, step, named, batches):
+    """(metrics of each step, step 1's gradients, parameters after the
+    last) of `step` over `batches` (argument tuples) from `make_state()`."""
+    state = make_state()
+    metrics, grads = [], None
+    for args in batches:
+        metrics.append({k: v.item() for k, v in step(state, *args).items()})
+        if grads is None:
+            grads = {n: p.grad.detach().clone() for n, p in named(state).items()}
+    return metrics, grads, {n: p.detach() for n, p in named(state).items()}
+
+
+def train_fp32_agreement(cfg) -> dict:
+    """2 fp32 G-LIS steps with kernels against 2 with plain versions, from
+    the same params on the same real batch and z (`fp32_agreement_of`)."""
     tcfg = train_config(cfg, dtype="float32")
     g_params = init_generator_params(cfg, 0)
     d_params = init_discriminator_params(cfg, 1)
@@ -890,38 +988,9 @@ def train_fp32_agreement(cfg) -> dict:
     rng = np.random.default_rng(3)
     zs = [torch.from_numpy(rng.standard_normal((BATCH, cfg.code_size)).astype(np.float32)).cuda()
           for _ in range(2)]
-
-    def two_steps(use_kernels: bool):
-        state = create_glis_state(tcfg, g_params, d_params, use_kernels=use_kernels)
-        step = build_glis_train_step(tcfg)
-        metrics, grads = [], None
-        for z in zs:
-            metrics.append({k: v.item() for k, v in step(state, real, z).items()})
-            if grads is None:
-                grads = {n: p.grad.detach().clone() for n, p in named_params(state).items()}
-        return metrics, grads, {n: p.detach() for n, p in named_params(state).items()}
-
-    def compare(a, b) -> dict:
-        (ma, ga, pa), (mb, gb, pb) = a, b
-        flip = tcfg.lr / 5
-        return {
-            "metrics_rel": max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(ma, mb) for k in x),
-            "grad_rel_to_max": max((ga[n] - gb[n]).abs().max().item()
-                                   / max(gb[n].abs().max().item(), 1e-30) for n in gb),
-            "params_apart_share": max(((pa[n] - pb[n]).abs() > flip).float().mean().item()
-                                      for n in pb),
-            "params_abs": max((pa[n] - pb[n]).abs().max().item() for n in pb),
-        }
-
-    kernels, plain, again = two_steps(True), two_steps(False), two_steps(False)
-    errs, spread = compare(kernels, plain), compare(again, plain)
-    tol = {"metrics_rel": 1e-4, "grad_rel_to_max": 2e-2, "params_apart_share": 2e-2}
-    print(f"[train fp32] 2 steps with kernels vs plain versions: {errs} (tol {tol}); plain vs "
-          f"plain again: {spread}; metrics {kernels[0][-1]}", flush=True)
-    for k in tol:
-        if not errs[k] <= tol[k]:
-            raise AssertionError(f"fp32 train step {k} {errs[k]:.3e} > {tol[k]}")
-    return {"kernels_vs_plain": errs, "plain_vs_plain": spread, "tol": tol}
+    return fp32_agreement_of("train", lambda use_kernels: two_fp32_steps(
+        lambda: create_glis_state(tcfg, g_params, d_params, use_kernels=use_kernels),
+        build_glis_train_step(tcfg), named_params, [(real, z) for z in zs]), tcfg.lr)
 
 
 # ------------------------------------------------------------------ trainer
@@ -950,13 +1019,29 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_cli(args) -> tuple:
-    """`python -m gea_torch.cli.train_glis` in-process: (state, stats,
-    printed text)."""
+def run_cli(args, cli=train_glis) -> tuple:
+    """`python -m gea_torch.cli.<cli>` in-process: (state, stats, printed
+    text)."""
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        state, stats = train_glis.main(args)
+        state, stats = cli.main(args)
     return state, stats, tee.buf.getvalue()
+
+
+def counted_run(tag: str, label: str, cli, args, want: dict) -> tuple:
+    """One CLI run with the launch counters zeroed just before it and read
+    just after; they must equal `want`. (state, stats, text, counts)."""
+    ops.reset_launch_counts()
+    state, stats, text = run_cli(args, cli)
+    counts = ops.launch_counts()
+    print(f"[{tag}] {label}: launch counts {counts} (want {want})", flush=True)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    return state, stats, text, counts
+
+
+def launches(per_step: dict, steps: int, per_render: dict, renders: int) -> dict:
+    return {k: steps * per_step[k] + renders * per_render[k] for k in per_step}
 
 
 def same(a, b, path="") -> list:
@@ -975,19 +1060,21 @@ def same(a, b, path="") -> list:
     return [] if a == b else [path]
 
 
-def round_trip(run_dir: str, step: int, state, cfg) -> dict:
-    """The checkpoint of `step` restored into a fresh state equals `state`
-    bit for bit: parameters, Adam's moments and steps, the schedulers, the
-    generator's state, the EMA shadow and the step."""
+def round_trip(run_dir: str, step: int, state, fresh) -> dict:
+    """The checkpoint of `step` restored into `fresh`, a new state of the
+    same trainer, equals `state` bit for bit: parameters, Adam's moments and
+    steps, the schedulers, the generator's state, the EMA shadow (G-LIS)
+    and the step."""
     want = state_dict(state)
-    restored = restore_checkpoint(run_dir, create_glis_state(cfg), step=step)
+    restored = restore_checkpoint(run_dir, fresh, step=step)
     diff = same(state_dict(restored), want)
     if diff:
         raise AssertionError(f"restored checkpoint {step} differs at {diff[:8]}")
-    n_opt = sum(len(want[k]["state"]) for k in ("opt_g", "opt_d"))
-    return {"tensors_compared": sum(1 for _ in _tensors(want)), "adam_params": n_opt,
-            "schedulers": [want["sched_g"] is not None, want["sched_d"] is not None],
-            "ema_tensors": len(want["g_ema"])}
+    tags = [tag for _, tag in state.PLAYERS]
+    return {"tensors_compared": sum(1 for _ in _tensors(want)),
+            "adam_params": sum(len(want[f"opt_{t}"]["state"]) for t in tags),
+            "schedulers": [want[f"sched_{t}"] is not None for t in tags],
+            "ema_tensors": len(want.get("g_ema", {}))}
 
 
 def _tensors(obj):
@@ -1036,10 +1123,11 @@ def loop_idle(cfg: TrainGLISConfig, state) -> dict:
     return {"busy_ms": busy_ms, "wall_ms": walls[-1], "idle_share": 1.0 - busy_ms / walls[-1]}
 
 
-def trainer(kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
+def trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
     """The trainer at flagship width under PyTorch's default TF32 settings,
-    as the bare step of phase 7 is timed."""
-    with cudnn_tf32(), tempfile.TemporaryDirectory() as tmp:
+    as the bare step of phase 7 is timed. Its main run directory,
+    `<tmp>/run`, is the frozen G of phase 9."""
+    with cudnn_tf32():
         return _trainer(tmp, kernel_rows, bare_images_per_s, smi)
 
 
@@ -1048,32 +1136,26 @@ def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) ->
     args = TRAINER_ARGS + ["--save_path", run, "--vis_interval", str(TRAINER_VIS),
                            "--save_interval", str(TRAINER_VIS)]
     cfg = TrainGLISConfig.from_args(args)
-    runs, launches = {}, {}
+    runs, counted = {}, {}
     _, d = generator_plan(cfg.image_size)
     per_step = {"fused_tprelu": 3 * (d - 1), "lis_residual_mlp": cfg.r_iterations,
                 "fused_seed": 1}
     per_render = {"fused_tprelu": d - 1, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1}
 
     def counted_cli(label, run_args, steps, renders):
-        """One CLI run with the launch counters zeroed just before it and
-        read just after: exactly `steps` train steps' and `renders` sample
+        """One CLI run: exactly `steps` train steps' and `renders` sample
         renders' launches."""
-        ops.reset_launch_counts()
-        state, stats, text = run_cli(run_args)
-        counts = ops.launch_counts()
-        want = {k: steps * per_step[k] + renders * per_render[k] for k in per_step}
-        print(f"[trainer] {label}: launch counts over {steps} steps and {renders} renders: "
-              f"{counts} (want {want})", flush=True)
-        if counts != want:
-            raise AssertionError(f"{label}: launch counts {counts} != {want}")
-        launches[label] = counts
+        state, stats, text, counts = counted_run(
+            "trainer", f"{label}, {steps} steps and {renders} renders", train_glis, run_args,
+            launches(per_step, steps, per_render, renders))
+        counted[label] = counts
         return state, stats, text
 
     def record(label, stats, run_cfg, state):
         runs[label] = {k: stats[k] for k in ("images_per_sec", "step_wall_s_median",
                                              "input_wait_s_median")}
         runs[label]["metrics"] = stats["metrics"]
-        runs[label]["launches"] = launches[label]
+        runs[label]["launches"] = counted[label]
         runs[label]["idle"] = loop_idle(run_cfg, state)
         r = runs[label]
         print(f"[trainer] {label}: {r['images_per_sec']:.1f} img/s (meter), loop iteration "
@@ -1086,7 +1168,7 @@ def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) ->
     # The CLI run, its launches and its artifacts.
     state, stats, _ = counted_cli("synthetic on device", args + ["--niter", str(TRAINER_STEPS)],
                                   TRAINER_STEPS, TRAINER_STEPS // TRAINER_VIS)
-    for name, n in launches["synthetic on device"].items():
+    for name, n in counted["synthetic on device"].items():
         kernel_rows[name]["launches_trainer"] = n
     artifacts = ["config.json"] + [f"checkpoints/{s}/state.pt" for s in (20, 40)] + [
         f"samples/samples_{s:08d}_stage{i}.png" for s in (20, 40) for i in range(cfg.n_stages)]
@@ -1099,7 +1181,7 @@ def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) ->
 
     # The checkpoint round trip (before any further step), and the two parts
     # of a save and a restore.
-    trip = round_trip(run, TRAINER_STEPS, state, cfg)
+    trip = round_trip(run, TRAINER_STEPS, state, create_glis_state(cfg))
     ckpt_dir = os.path.join(tmp, "ckpt")
     t0 = time.perf_counter()
     save_checkpoint(ckpt_dir, state.step, state, async_save=True)
@@ -1123,7 +1205,8 @@ def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) ->
     for _ in range(2):
         ema_step(ema_state, real_batch(ema_cfg))
     save_checkpoint(os.path.join(tmp, "ema"), ema_state.step, ema_state)
-    trip_ema = round_trip(os.path.join(tmp, "ema"), ema_state.step, ema_state, ema_cfg)
+    trip_ema = round_trip(os.path.join(tmp, "ema"), ema_state.step, ema_state,
+                          create_glis_state(ema_cfg))
     del ema_state, ema_step
     print(f"[trainer] checkpoint round trip bitwise: step 40 {trip}; EMA + cosine after 2 "
           f"steps {trip_ema}; save {ckpt['save_sync_s'] * 1e3:.1f} ms on the loop thread + "
@@ -1204,10 +1287,284 @@ def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) ->
           f"{synth_ms:.3f} ms (median of 5); CLI on-device synthetic rate / phase 7 bare "
           f"step rate {ratio:.3f}, without renders and saves {ratio_plain:.3f} "
           f"({bare_images_per_s:.1f} img/s); {smi}", flush=True)
-    return {"runs": runs, "checkpoint": ckpt, "vis_s": vis_s, "vis_parts": vis_parts, "round_trip": trip, "round_trip_ema": trip_ema,
+    return {"runs": runs, "checkpoint": ckpt, "vis_s": vis_s, "vis_parts": vis_parts,
+            "round_trip": trip, "round_trip_ema": trip_ema, "run_dir": run,
             "synthetic_batch_host_ms": synth_ms, "bare_step_images_per_s": bare_images_per_s,
             "cli_over_bare": ratio, "cli_without_side_effects_over_bare": ratio_plain,
-            "launches": launches, "card": smi}
+            "launches": counted, "card": smi}
+
+
+# ------------------------------------------------------------- R trainers
+
+
+def timed_steps(tag: str, run_step, smi: str) -> dict:
+    """The bare step `run_step()` -> metrics, as phase 7 times G-LIS's: 2
+    warm-up steps, then TRAIN_STEPS synced steps on the host clock (finite
+    metrics), the device time of one step (CUDA events behind a spin), the
+    device's idle share and a torch.profiler breakdown by category, with
+    each port kernel's forward and eager backward on their own."""
+    for _ in range(2):
+        run_step()
+    walls, history = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        history.append({k: v.item() for k, v in metrics.items()})
+    if not all(np.isfinite(v) for m in history for v in m.values()):
+        raise AssertionError(f"{tag}: non-finite metrics {history}")
+    wall = statistics.median(walls)
+    device = step_device_ms(run_step, wall * 1e3)
+    profiled = step_profile(run_step)
+    idle = 1.0 - profiled["device_ms"] / (wall * 1e3)
+    result = {
+        "step_wall_ms_median": wall * 1e3, "step_wall_ms": [w * 1e3 for w in walls],
+        "images_per_s": BATCH / wall, "step_device_ms": device["ms"], "step_device": device,
+        "step_device_busy_ms": profiled["device_ms"], "step_device_idle_share": idle,
+        "step_backward_device_ms": profiled["backward_device_ms"],
+        "step_device_launches": profiled["launches"], "step_by_category": profiled["by_category"],
+        "port_forward_ms": profiled["port_forward_ms"],
+        "port_backward_ms": profiled["port_backward_ms"],
+        "step_by_kernel": [{"name": n[:90], "ms": t, "count": c}
+                           for n, t, c in profiled["by_kernel"][:16]],
+        "metrics_first": history[0], "metrics_last": history[-1], "card": smi,
+    }
+    print(f"[{tag}] bare bf16 step, batch {BATCH}: median wall {wall * 1e3:.3f} ms of "
+          f"{TRAIN_STEPS} = {BATCH / wall:.1f} images/s; device time of one step "
+          f"{device['ms']:.3f} ms (CUDA events; spin covered the enqueue: {device['covered']}); "
+          f"torch.profiler: {profiled['device_ms']:.3f} ms busy in {profiled['launches']} "
+          f"kernels and copies, idle share {idle:.3f}; {smi}", flush=True)
+    for cat, t in sorted(profiled["by_category"].items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}] step by category: {t:8.4f} ms {cat}", flush=True)
+    for name in PORT_BACKWARD.values():
+        print(f"[{tag}] {name}: forward {profiled['port_forward_ms'][name]:.4f} ms, eager "
+              f"backward {profiled['port_backward_ms'][name]:.4f} ms a step", flush=True)
+    for n, t, c in profiled["by_kernel"][:12]:
+        print(f"[{tag}] step by kernel: {t:8.4f} ms x{c:<4d} {n[:90]}", flush=True)
+    return result
+
+
+def variant_launches(tag: str, variants: dict) -> dict:
+    """One step of each option that changes the launches per step: label
+    -> (run_step, want), counters zeroed just before and read just
+    after."""
+    out = {}
+    for label, (run_step, want) in variants.items():
+        ops.reset_launch_counts()
+        run_step()
+        counts = ops.launch_counts()
+        print(f"[{tag}] one step with {label}: launch counts {counts} (want {want})", flush=True)
+        if counts != want:
+            raise AssertionError(f"{tag} {label}: launch counts {counts} != {want}")
+        out[label] = counts
+    return out
+
+
+def check_trained(tag: str, state, init: dict) -> dict:
+    """Every trained parameter has a finite, non-zero gradient from the
+    last step and has moved from its initial value `init`."""
+    params = named_params(state)
+    norms = {n: p.grad.float().norm().item() if p.grad is not None else float("nan")
+             for n, p in params.items()}
+    bad = [n for n, v in norms.items() if not (np.isfinite(v) and v > 0)]
+    still = [n for n, p in params.items() if torch.equal(p.detach(), init[n])]
+    if bad or still:
+        raise AssertionError(f"{tag}: no finite non-zero gradient for {bad}; never moved: {still}")
+    print(f"[{tag}] all {len(params)} trained parameters ({[m for m, _ in state.PLAYERS]}) have "
+          f"finite non-zero gradients (norms {min(norms.values()):.3e} .. "
+          f"{max(norms.values()):.3e}) and moved", flush=True)
+    return {"parameters": len(params), "grad_norm_min": min(norms.values()),
+            "grad_norm_max": max(norms.values())}
+
+
+def check_artifacts(tag: str, run: str, stages: int) -> list:
+    artifacts = ["config.json"] + [f"checkpoints/{s}/state.pt" for s in (20, 40)] + [
+        f"samples/samples_{s:08d}_stage{i}.png" for s in (20, 40) for i in range(stages)]
+    missing = [a for a in artifacts if not os.path.isfile(os.path.join(run, a))]
+    if missing:
+        raise AssertionError(f"{tag}: missing artifacts {missing}")
+    return artifacts
+
+
+def relaunch(tag: str, cli, args, run: str, per_step: dict, per_render: dict) -> dict:
+    """The same CLI with --niter RESUME_TO resumes at TRAINER_STEPS and
+    reaches RESUME_TO with finite metrics and exact launches."""
+    renders = RESUME_TO // TRAINER_VIS - TRAINER_STEPS // TRAINER_VIS
+    state, stats, text, counts = counted_run(
+        tag, f"relaunch, {RESUME_TO - TRAINER_STEPS} steps and {renders} render", cli,
+        args + ["--niter", str(RESUME_TO)],
+        launches(per_step, RESUME_TO - TRAINER_STEPS, per_render, renders))
+    line = f"resumed from {run} at step {TRAINER_STEPS}"
+    if line not in text or state.step != RESUME_TO:
+        raise AssertionError(f"{tag} resume: {line!r} printed: {line in text}, step {state.step}")
+    if not all(np.isfinite(v) for v in stats["metrics"].values()):
+        raise AssertionError(f"{tag}: non-finite metrics after the resume: {stats['metrics']}")
+    print(f"[{tag}] relaunch printed {line!r} and reached step {state.step}; metrics "
+          f"{stats['metrics']}", flush=True)
+    return {"launches": counts, "metrics": stats["metrics"], "images_per_sec": stats["images_per_sec"]}
+
+
+def cli_summary(stats: dict, counts: dict) -> dict:
+    return {**{k: stats[k] for k in ("images_per_sec", "step_wall_s_median",
+                                     "input_wait_s_median")},
+            "metrics": stats["metrics"], "launches": counts}
+
+
+def r_separate(tmp: str, g_run: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 9: the trainer under the train step's TF32 settings, then the
+    fp32 check without TF32, as phase 7's."""
+    with cudnn_tf32():
+        result, cfg = _r_separate(tmp, g_run, kernel_rows, smi)
+    cfg32 = cfg.replace(dtype="float32")
+    params = (init_generator_params(cfg32, 0), init_discriminator_params(cfg32, 1),
+              init_reverter_params(cfg32, 2))
+    rng = np.random.default_rng(4)
+    zs = [torch.from_numpy(rng.standard_normal((BATCH, cfg.code_size)).astype(np.float32)).cuda()
+          for _ in range(2)]
+
+    def make(use_kernels):
+        g = generator_from_jax_params(params[0], cfg32, use_kernels=use_kernels)
+        d = discriminator_from_jax_params(params[1], cfg32, use_kernels=use_kernels)
+        return create_r_state(cfg32, g, d, params[2], use_kernels=use_kernels)
+
+    result["fp32"] = fp32_agreement_of("r-separate", lambda use_kernels: two_fp32_steps(
+        lambda: make(use_kernels), build_r_separate_step(cfg32), named_params,
+        [(None, z) for z in zs]), cfg32.lr)
+    return result
+
+
+def _r_separate(tmp: str, g_run: str, kernel_rows: dict, smi: str) -> dict:
+    tag = "r-separate"
+    run = os.path.join(tmp, "rsep")
+    args = ["--g_path", g_run, "--batch_size", str(BATCH), "--log_interval", "10",
+            "--save_path", run, "--vis_interval", str(TRAINER_VIS),
+            "--save_interval", str(TRAINER_VIS)]
+    g_cfg = TrainGLISConfig.load(os.path.join(g_run, "config.json"))
+    cfg = train_r_separate.architecture_from_g(TrainRSeparateConfig.from_args(args), g_cfg)
+    acts = generator_plan(cfg.image_size)[1] - 1  # TPReLUs of one G render, of D's trunk
+    # A step: the frozen render, R (trunk + head), the corrected render, D.
+    per_step = {"fused_tprelu": acts + (acts + 1) + acts + acts,
+                "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2}
+    # A render: before, R, after.
+    per_render = {"fused_tprelu": acts + (acts + 1) + acts,
+                  "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2}
+    renders = TRAINER_STEPS // TRAINER_VIS
+    state, stats, _, counts = counted_run(
+        tag, f"CLI, {TRAINER_STEPS} steps and {renders} renders", train_r_separate,
+        args + ["--niter", str(TRAINER_STEPS)],
+        launches(per_step, TRAINER_STEPS, per_render, renders))
+    for name, n in counts.items():
+        kernel_rows[name]["launches_r_separate"] = n
+        kernel_rows[name]["launches_per_r_separate_step"] = per_step[name]
+    artifacts = check_artifacts(tag, run, 2)
+    if state.step != TRAINER_STEPS or state.discriminator is None:
+        raise AssertionError(f"{tag}: step {state.step}, frozen D {state.discriminator}")
+
+    # R trained; the frozen G and D unchanged bit for bit, without gradients.
+    fresh_g, _ = load_generator(g_run)
+    fresh_d = load_discriminator(g_run)
+    fresh = create_r_state(cfg, fresh_g, fresh_d)
+    trained = check_trained(tag, state, {n: p.detach().clone()
+                                         for n, p in named_params(fresh).items()})
+    changed = [f"{i}.{k}" for i, (live, ref) in
+               enumerate(((state.generator, fresh_g), (state.discriminator, fresh_d)))
+               for k, v in live.state_dict().items() if not torch.equal(v, ref.state_dict()[k])]
+    with_grad = [n for m in (state.generator, state.discriminator)
+                 for n, p in m.named_parameters() if p.requires_grad or p.grad is not None]
+    if changed or with_grad:
+        raise AssertionError(f"{tag}: frozen G/D changed at {changed}, with gradients {with_grad}")
+    n_frozen = len(fresh_g.state_dict()) + len(fresh_d.state_dict())
+    print(f"[{tag}] frozen G and D: all {n_frozen} tensors unchanged bit for bit, no "
+          f"gradients; artifacts present: {artifacts}", flush=True)
+    trip = round_trip(run, TRAINER_STEPS, state, fresh)
+    print(f"[{tag}] checkpoint round trip bitwise: step {TRAINER_STEPS} {trip}", flush=True)
+    del fresh
+
+    step = build_r_separate_step(cfg)
+    timed = timed_steps(tag, lambda: step(state), smi)
+    # --remat renders the corrected code and scores it again in the
+    # backward; mining scores the frozen render with D.
+    remat = {**per_step, "fused_tprelu": per_step["fused_tprelu"] + 2 * acts,
+             "lis_residual_mlp": 3 * cfg.r_iterations, "fused_seed": 3}
+    mining = {**per_step, "fused_tprelu": per_step["fused_tprelu"] + acts}
+    variants = variant_launches(tag, {
+        "--remat": ((lambda: build_r_separate_step(cfg.replace(remat=True))(state)), remat),
+        "--r_mine_weight 0.5": (
+            (lambda: build_r_separate_step(cfg.replace(r_mine_weight=0.5))(state)), mining)})
+    del state, step
+    resumed = relaunch(tag, train_r_separate, args, run, per_step, per_render)
+    return {"cli": cli_summary(stats, counts), "per_step": per_step, "per_render": per_render,
+            "artifacts": artifacts, "trained": trained, "frozen_tensors_unchanged": n_frozen,
+            "round_trip": trip, "bare_step": timed, "variants": variants, "relaunch": resumed,
+            "card": smi}, cfg
+
+
+def r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 10: the trainer under the train step's TF32 settings, then the
+    fp32 check without TF32, as phase 7's."""
+    with cudnn_tf32():
+        result, cfg = _r_iterative(tmp, kernel_rows, smi)
+    cfg32 = cfg.replace(dtype="float32")
+    params = (init_generator_params(generator_config(cfg32), 0),
+              init_discriminator_params(cfg32, 1), init_reverter_params(cfg32, 2))
+    rng = np.random.default_rng(5)
+    zs = [torch.from_numpy(rng.standard_normal((BATCH, cfg.code_size)).astype(np.float32)).cuda()
+          for _ in range(2)]
+    real = real_batch(cfg)
+    result["fp32"] = fp32_agreement_of("r-iterative", lambda use_kernels: two_fp32_steps(
+        lambda: create_r_iterative_state(cfg32, *params, use_kernels=use_kernels),
+        build_r_iterative_step(cfg32), named_params, [(real, z) for z in zs]), cfg32.lr)
+    return result
+
+
+def _r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
+    tag = "r-iterative"
+    run = os.path.join(tmp, "riter")
+    args = TRAINER_ARGS + ["--r_chain_length", "2", "--lambda_r", "0.9", "--save_path", run,
+                           "--vis_interval", str(TRAINER_VIS), "--save_interval", str(TRAINER_VIS)]
+    cfg = TrainRIterativeConfig.from_args(args)
+    acts, links = generator_plan(cfg.image_size)[1] - 1, cfg.r_chain_length
+    chain = (links + 1) * acts + links * (acts + 1)  # renders and R's of one unroll
+    # A step: the D step's unroll, D on real and on fakes, the joint
+    # unroll and D on its images.
+    per_step = {"fused_tprelu": 2 * chain + 3 * acts, "lis_residual_mlp": 0,
+                "fused_seed": 2 * (links + 1)}
+    per_render = {"fused_tprelu": chain, "lis_residual_mlp": 0, "fused_seed": links + 1}
+    renders = TRAINER_STEPS // TRAINER_VIS
+    state, stats, _, counts = counted_run(
+        tag, f"CLI, {TRAINER_STEPS} steps and {renders} renders", train_r_iterative,
+        args + ["--niter", str(TRAINER_STEPS)],
+        launches(per_step, TRAINER_STEPS, per_render, renders))
+    for name, n in counts.items():
+        kernel_rows[name]["launches_r_iterative"] = n
+        kernel_rows[name]["launches_per_r_iterative_step"] = per_step[name]
+    artifacts = check_artifacts(tag, run, links + 1)
+    if state.step != TRAINER_STEPS or state.generator.lis:
+        raise AssertionError(f"{tag}: step {state.step}, LIS modules {len(state.generator.lis)}")
+    print(f"[{tag}] artifacts present: {artifacts}", flush=True)
+
+    fresh = create_r_iterative_state(cfg)
+    trained = check_trained(tag, state, {n: p.detach().clone()
+                                         for n, p in named_params(fresh).items()})
+    trip = round_trip(run, TRAINER_STEPS, state, fresh)
+    print(f"[{tag}] checkpoint round trip bitwise: step {TRAINER_STEPS} {trip}", flush=True)
+    del fresh
+
+    step, real = build_r_iterative_step(cfg), real_batch(cfg)
+    timed = timed_steps(tag, lambda: step(state, real), smi)
+    # --remat runs the joint unroll's first render and its links again in
+    # the backward.
+    remat = {**per_step, "fused_tprelu": per_step["fused_tprelu"] + chain,
+             "fused_seed": per_step["fused_seed"] + links + 1}
+    variants = variant_launches(tag, {"--remat": (
+        (lambda: build_r_iterative_step(cfg.replace(remat=True))(state, real)), remat)})
+    del state, step
+    resumed = relaunch(tag, train_r_iterative, args, run, per_step, per_render)
+    return {"cli": cli_summary(stats, counts), "per_step": per_step, "per_render": per_render,
+            "artifacts": artifacts, "trained": trained, "round_trip": trip, "bare_step": timed,
+            "variants": variants, "relaunch": resumed, "card": smi}, cfg
 
 
 def main() -> int:
@@ -1241,7 +1598,10 @@ def main() -> int:
     fp32 = fp32_agreement(cfg)
     train = training(cfg, rows, smi)
     train_fp32 = train_fp32_agreement(cfg)
-    trained = trainer(rows, train["images_per_s"], smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = trainer(tmp, rows, train["images_per_s"], smi)
+        r_trainers = {"r_separate": r_separate(tmp, trained["run_dir"], rows, smi),
+                      "r_iterative": r_iterative(tmp, rows, smi)}
 
     kernels = []
     for name, row in rows.items():
@@ -1250,6 +1610,10 @@ def main() -> int:
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": row["launches"], "launches_per_step": row["launches_per_step"],
             "launches_trainer": row["launches_trainer"],
+            "launches_r_separate": row["launches_r_separate"],
+            "launches_r_iterative": row["launches_r_iterative"],
+            "launches_per_r_separate_step": row["launches_per_r_separate_step"],
+            "launches_per_r_iterative_step": row["launches_per_r_iterative_step"],
             "launches_serving": row["launches_serving"], "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
             "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -1268,6 +1632,8 @@ def main() -> int:
     print(json.dumps({"training": train, "train_fp32_agreement": train_fp32,
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"trainer": trained}), flush=True)
+    print(json.dumps({"r_trainers": r_trainers, "seconds": time.perf_counter() - t_start}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

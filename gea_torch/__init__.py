@@ -6,8 +6,11 @@ every LIS stage, the discriminator scores the final stage and the top-k by
 score is kept, `gea_torch.serve.ServingModel`), the G-LIS alternating
 train step (`gea_torch.train`) and its trainer, `python -m
 gea_torch.cli.train_glis` (`gea_torch.data`, `gea_torch.train.runner`,
-`gea_torch.utils`). Their three TPU kernels are hand-written Hopper kernels
-in `gea_torch.ops`, each a `torch.autograd.Function`.
+`gea_torch.utils`), and the two reverser trainers, `python -m
+gea_torch.cli.train_r_separate` and `train_r_iterative`
+(`gea_torch.models.reverter`, `gea_torch.train.steps_r`). Their three TPU
+kernels are hand-written Hopper kernels in `gea_torch.ops`, each a
+`torch.autograd.Function`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on the CPU
 every kernel runs its plain PyTorch version.

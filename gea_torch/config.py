@@ -1,8 +1,9 @@
 """Configuration of the PyTorch port (a copy of `gea/config.py`'s
-`BaseConfig`, `ModelConfig`, `DataConfig` and `TrainGLISConfig`, with
-`gea`'s flag names, defaults and choices), `stage_weights`, the flags the
-port does not implement yet, and device resolution for the port's entry
-points."""
+`BaseConfig`, `ModelConfig`, `DataConfig`, `TrainGLISConfig` and the
+reverser trainers' `TrainRConfig`, `TrainRSeparateConfig` and
+`TrainRIterativeConfig`, with `gea`'s flag names, defaults and choices),
+`stage_weights`, the flags the port does not implement yet, and device
+resolution for the port's entry points."""
 
 from __future__ import annotations
 
@@ -212,8 +213,92 @@ class TrainGLISConfig(ModelConfig, DataConfig):
             raise ValueError(f"unknown gan_loss {self.gan_loss!r}")
 
 
-# Flags of `TrainGLISConfig` that the port does not implement yet, each with
-# the values it accepts besides its default, and why it refuses the others.
+@dataclass(frozen=True)
+class TrainRConfig(ModelConfig, DataConfig):
+    """Flags shared by the two reverser trainers (`gea`'s `TrainRConfig`)."""
+
+    lr: float = _flag(0.0002, "Adam learning rate")
+    lr_schedule: str = _flag(
+        "constant", "learning-rate schedule over --niter steps: cosine or linear decay "
+        "from --lr to --lr_final * --lr", choices=("constant", "cosine", "linear"))
+    lr_final: float = _flag(0.0, "final learning rate as a FRACTION of --lr")
+    beta1: float = _flag(0.5, "Adam beta1")
+    beta2: float = _flag(0.999, "Adam beta2")
+    niter: int = _flag(20_000, "number of training iterations")
+    lambda_r: float = _flag(
+        0.9, "weight of the z-similarity penalty ||R(G(z)) - z||^2 keeping the "
+        "corrected code close to the original")
+    fid_interval: int = _flag(0, "proxy-FID every N steps (not ported yet)")
+    fid_samples: int = _flag(1024, "sample count per --fid_interval evaluation (not ported yet)")
+    seed: int = _flag(42, "PRNG seed")
+    save_path: str = _flag("runs/r", "experiment directory for outputs")
+    load_path: str = _flag("", "resume this R run from its directory")
+    save_interval: int = _flag(2000, "checkpoint every N iterations")
+    keep_checkpoints: int = _flag(0, "retain only the newest K checkpoints (0 = keep all)")
+    max_host_rss_gb: float = _flag(
+        0.0, "host-RSS budget: checkpoint + exit 19 (for auto-resume) when the process "
+        "exceeds it. 0 = auto (85%% of system RAM), negative disables")
+    vis_interval: int = _flag(500, "sample grid + loss plot every N iters")
+    vis_rows: int = _flag(8, "rows (and cols) of the sample grid")
+    log_interval: int = _flag(50, "stdout loss print every N iterations")
+    num_devices: int = _flag(0, "device count; 0 = one device here (data parallelism "
+                             "is not ported yet)")
+    model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
+    tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
+    steps_per_dispatch: int = _flag(1, "steps fused into one dispatch (not ported yet)")
+    grad_accum: int = _flag(
+        1, "accumulate gradients over K sequential microbatches per optimizer update")
+    remat: bool = _flag(
+        False, "recompute forward segments in the backward: R-iterative each chain "
+        "link, R-separate the corrected frozen-G render and its frozen-D scoring")
+    use_pallas: bool = _flag(
+        False, "moot in the port: its kernels always run on the card")
+    profile_dir: str = _flag("", "profiler trace directory (not ported yet)")
+    tensorboard: bool = _flag(False, "tensorboard scalars (not ported yet)")
+    multihost: bool = _flag(False, "multi-host initialisation (not ported yet)")
+    debug_checks: bool = _flag(False, "NaN/Inf-checking step (not ported yet)")
+    device: str = _flag("cuda", "device to train on: cuda, or cpu for the plain "
+                        "PyTorch versions of the kernels")
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.lr_schedule not in ("constant", "cosine", "linear"):
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
+
+
+@dataclass(frozen=True)
+class TrainRSeparateConfig(TrainRConfig):
+    """R-separate (`gea.cli.train_r_separate`): a reverser R trained against
+    a frozen G-LIS generator read from --g_path, a port G-LIS run directory."""
+
+    g_path: str = _flag("", "experiment directory of the trained (frozen) generator")
+    g_step: int = _flag(
+        0, "checkpoint step of the frozen generator (0 = latest, -1 = the best-FID "
+        "snapshot that best.json points at)")
+    r_hidden: int = _flag(512, "hidden width of the reverser FC head")
+    r_adv_weight: float = _flag(
+        0.3, "weight of the frozen-D adversarial term on G(R(G(z))); 0 = pure "
+        "code-reconstruction MSE")
+    r_mse_weight: float = _flag(1.0, "weight of the ||R(G(z)) - z||^2 code-reconstruction term")
+    r_mine_weight: float = _flag(
+        0.0, "defective-z mining in [0, 1]: re-weight the per-sample reconstruction "
+        "loss toward samples the frozen D scores as fake")
+    fid_correction_strength: float = _flag(
+        0.3, "blend strength of the correction scored by --fid_interval (not ported yet)")
+
+
+@dataclass(frozen=True)
+class TrainRIterativeConfig(TrainRConfig):
+    """R-iterative (`gea.cli.train_r_iterative`): G, D and R trained jointly,
+    with the correction chain z_{t+1} = z_t + R(G(z_t)) unrolled in each step."""
+
+    r_chain_length: int = _flag(2, "number of reverser correction iterations per step")
+    r_hidden: int = _flag(512, "hidden width of the reverser FC head")
+
+
+# Flags that the port does not implement yet, each with the values it
+# accepts besides its default, and why it refuses the others; one list per
+# trainer's config.
 UNPORTED = {
     "fid_interval": ((), "needs the port of gea/eval/fid.py"),
     "fid_samples": ((), "needs the port of gea/eval/fid.py"),
@@ -231,15 +316,22 @@ UNPORTED = {
     "lsun_classes": ((), "needs the LSUN reader"),
     "norm": (("none",), "needs norm=batch in the models"),
 }
+UNPORTED_R = {k: v for k, v in UNPORTED.items() if k != "stop_patience"}
+UNPORTED_BY_CONFIG = {
+    TrainGLISConfig: UNPORTED,
+    TrainRSeparateConfig: UNPORTED_R,
+    TrainRIterativeConfig: UNPORTED_R,
+}
 
 
-def refuse_unported(cfg: TrainGLISConfig) -> None:
+def refuse_unported(cfg: BaseConfig) -> None:
     """SystemExit naming every flag set to a value the port does not
-    implement; none is silently ignored."""
-    defaults = {f.name: f.default for f in dataclasses.fields(TrainGLISConfig)}
+    implement; none is silently ignored. The defaults are those of the
+    config's own class."""
+    defaults = {f.name: f.default for f in dataclasses.fields(type(cfg))}
     bad = [
         f"--{name} {getattr(cfg, name)} ({why})"
-        for name, (ok, why) in UNPORTED.items()
+        for name, (ok, why) in UNPORTED_BY_CONFIG[type(cfg)].items()
         if getattr(cfg, name) != defaults[name] and getattr(cfg, name) not in ok
     ]
     if cfg.dataset == "lsun":

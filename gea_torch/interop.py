@@ -1,8 +1,8 @@
 """`gea`'s flax param trees (as numpy arrays) -> the port's modules.
 
 A copy of the key mapping of `gea/interop/torch_port.py`
-(`generator_to_torch_state`, `discriminator_to_torch_state`), kept here so
-the port imports nothing of `gea`:
+(`generator_to_torch_state`, `discriminator_to_torch_state`,
+`reverter_to_torch_state`), kept here so the port imports nothing of `gea`:
 
 | gea (flax)                        | port                                 |
 |-----------------------------------|--------------------------------------|
@@ -13,17 +13,19 @@ the port imports nothing of `gea`:
 | TPReLU slope / translation        | a / b                                |
 
 `glis_state_from_jax` carries a whole `gea` train state (params, optax's
-Adam state, step, EMA) into the port's `GLISTrainState`.
+Adam state, step, EMA) into the port's `GLISTrainState`;
+`r_separate_state_from_jax` and `r_iterative_state_from_jax` do the same
+for the reverser trainers' states.
 
-`init_generator_params` / `init_discriminator_params` make seeded random
-trees in the same layout (lecun-normal variance, scale 1, slope 0.25,
+`init_generator_params` / `init_discriminator_params` /
+`init_reverter_params` make seeded random trees in the same layout (lecun-normal variance, scale 1, slope 0.25,
 translation 0, zero biases), for runs that need no trained weights.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -99,17 +101,32 @@ def generator_state_from_jax_params(params: Params, cfg: ModelConfig) -> Ordered
     return out
 
 
-def discriminator_state_from_jax_params(params: Params, cfg: ModelConfig) -> OrderedDict:
-    """Discriminator flax params -> the port's discriminator state_dict."""
-    wn = _wn(cfg.norm)
-    out: OrderedDict = OrderedDict()
+def _trunk(out: OrderedDict, trunk: Params, cfg: ModelConfig, wn: bool) -> None:
     _, d = generator_plan(cfg.image_size)
-    trunk = params["trunk"]
     for i in range(d):
         _conv(out, f"trunk.downs.{i}.conv", trunk[f"down{i}"], wn)
         if i > 0 and wn:
             _tprelu(out, f"trunk.downs.{i}.act", trunk[f"down{i}_act"]["TPReLU_0"])
+
+
+def discriminator_state_from_jax_params(params: Params, cfg: ModelConfig) -> OrderedDict:
+    """Discriminator flax params -> the port's discriminator state_dict."""
+    wn = _wn(cfg.norm)
+    out: OrderedDict = OrderedDict()
+    _trunk(out, params["trunk"], cfg, wn)
     _dense(out, "head", params["head"], wn)
+    return out
+
+
+def reverter_state_from_jax_params(params: Params, cfg: ModelConfig) -> OrderedDict:
+    """Reverter flax params -> the port's reverter state_dict."""
+    wn = _wn(cfg.norm)
+    out: OrderedDict = OrderedDict()
+    _trunk(out, params["trunk"], cfg, wn)
+    _dense(out, "fc1", params["fc1"], wn)
+    if wn:
+        _tprelu(out, "act", params["act"])
+    _dense(out, "fc2", params["fc2"], wn)
     return out
 
 
@@ -128,6 +145,24 @@ def _adam_state(opt_state: Any):
     raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
 
 
+def _load_adam(opt, sched, module, opt_tree: Any, to_port, cfg) -> None:
+    """optax's Adam state of one player -> its `torch.optim.Adam`: the
+    moments through the params' key mapping, the count as each parameter's
+    `step`, and the scheduler set to `count` updates."""
+    count, mu, nu = _adam_state(opt_tree)
+    count = int(np.asarray(count))
+    mu, nu = to_port(mu, cfg), to_port(nu, cfg)
+    for name, p in module.named_parameters():
+        opt.state[p] = {"step": torch.tensor(float(count)),
+                        "exp_avg": mu[name].to(p.device),
+                        "exp_avg_sq": nu[name].to(p.device)}
+    if sched is not None:
+        lrs = [base * fn(count) for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
+        sched.load_state_dict({**sched.state_dict(), "last_epoch": count, "_last_lr": lrs})
+        for group, lr in zip(opt.param_groups, lrs):
+            group["lr"] = lr
+
+
 def glis_state_from_jax(state_tree: Any, cfg, device="cuda", use_kernels: bool = True):
     """A `gea` `GANTrainState` whose leaves are numpy arrays (step,
     params_g, params_d, opt_g, opt_d, params_g_ema; attributes or keys) ->
@@ -141,28 +176,50 @@ def glis_state_from_jax(state_tree: Any, cfg, device="cuda", use_kernels: bool =
     state = create_glis_state(cfg, _field(state_tree, "params_g"),
                               _field(state_tree, "params_d"), device=device,
                               use_kernels=use_kernels)
-    players = ((state.opt_g, state.sched_g, state.generator, "opt_g",
-                generator_state_from_jax_params),
-               (state.opt_d, state.sched_d, state.discriminator, "opt_d",
-                discriminator_state_from_jax_params))
-    for opt, sched, module, key, to_port in players:
-        count, mu, nu = _adam_state(_field(state_tree, key))
-        count = int(np.asarray(count))
-        mu, nu = to_port(mu, cfg), to_port(nu, cfg)
-        for name, p in module.named_parameters():
-            opt.state[p] = {"step": torch.tensor(float(count)),
-                            "exp_avg": mu[name].to(p.device),
-                            "exp_avg_sq": nu[name].to(p.device)}
-        if sched is not None:
-            lrs = [base * fn(count) for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
-            sched.load_state_dict({**sched.state_dict(), "last_epoch": count,
-                                   "_last_lr": lrs})
-            for group, lr in zip(opt.param_groups, lrs):
-                group["lr"] = lr
+    _load_adam(state.opt_g, state.sched_g, state.generator, _field(state_tree, "opt_g"),
+               generator_state_from_jax_params, cfg)
+    _load_adam(state.opt_d, state.sched_d, state.discriminator, _field(state_tree, "opt_d"),
+               discriminator_state_from_jax_params, cfg)
     ema = _field(state_tree, "params_g_ema")
     if cfg.g_ema > 0 and ema:
         state.g_ema = {n: t.to(state.device) for n, t in
                        generator_state_from_jax_params(ema, cfg).items()}
+    state.step = int(np.asarray(_field(state_tree, "step")))
+    return state
+
+
+def r_separate_state_from_jax(state_tree: Any, cfg, generator: GeneratorLIS,
+                              discriminator=None, device="cuda"):
+    """A `gea` R-separate `GANTrainState` (step, params_r, opt_r; numpy
+    leaves) -> the port's `RSeparateTrainState` around the given frozen
+    generator (and discriminator), as `glis_state_from_jax` does for G-LIS."""
+    from gea_torch.train.state import create_r_state
+
+    state = create_r_state(cfg, generator, discriminator, _field(state_tree, "params_r"),
+                           device=device)
+    _load_adam(state.opt_r, state.sched_r, state.reverter, _field(state_tree, "opt_r"),
+               reverter_state_from_jax_params, cfg)
+    state.step = int(np.asarray(_field(state_tree, "step")))
+    return state
+
+
+def r_iterative_state_from_jax(state_tree: Any, cfg, device="cuda"):
+    """A `gea` R-iterative `GANTrainState` (step, params_g/d/r, opt_g/d/r;
+    numpy leaves) -> the port's `RIterativeTrainState`. G is the
+    single-stage generator (r_iterations=0), as `gea` builds it."""
+    from gea_torch.train.state import create_r_iterative_state, generator_config
+
+    state = create_r_iterative_state(
+        cfg, _field(state_tree, "params_g"), _field(state_tree, "params_d"),
+        _field(state_tree, "params_r"), device=device)
+    players = ((state.opt_g, state.sched_g, state.generator, "opt_g",
+                generator_state_from_jax_params, generator_config(cfg)),
+               (state.opt_d, state.sched_d, state.discriminator, "opt_d",
+                discriminator_state_from_jax_params, cfg),
+               (state.opt_r, state.sched_r, state.reverter, "opt_r",
+                reverter_state_from_jax_params, cfg))
+    for opt, sched, module, key, to_port, player_cfg in players:
+        _load_adam(opt, sched, module, _field(state_tree, key), to_port, player_cfg)
     state.step = int(np.asarray(_field(state_tree, "step")))
     return state
 
@@ -234,9 +291,8 @@ def init_generator_params(cfg: ModelConfig, seed: int = 0) -> Params:
     return params
 
 
-def init_discriminator_params(cfg: ModelConfig, seed: int = 0) -> Params:
-    wn = _wn(cfg.norm)
-    rng = np.random.default_rng(seed)
+def _init_trunk(rng: np.random.Generator, cfg: ModelConfig, wn: bool) -> Tuple[Params, int]:
+    """The conv trunk's params and its flat output width."""
     s0, d = generator_plan(cfg.image_size)
     nf, cap = cfg.num_features, cfg.max_features
     trunk: Params = {}
@@ -247,5 +303,26 @@ def init_discriminator_params(cfg: ModelConfig, seed: int = 0) -> Params:
         if i > 0 and wn:
             trunk[f"down{i}_act"] = _act(ci)
         ch = ci
-    head = _layer(rng, (ch * s0 * s0, 1), ch * s0 * s0, wn)
-    return {"trunk": trunk, "head": head}
+    return trunk, ch * s0 * s0
+
+
+def init_discriminator_params(cfg: ModelConfig, seed: int = 0) -> Params:
+    wn = _wn(cfg.norm)
+    rng = np.random.default_rng(seed)
+    trunk, flat = _init_trunk(rng, cfg, wn)
+    return {"trunk": trunk, "head": _layer(rng, (flat, 1), flat, wn)}
+
+
+def init_reverter_params(cfg: ModelConfig, seed: int = 0) -> Params:
+    """`gea`'s Reverter tree: trunk, fc1, act (slope, translation; weight
+    norm only), fc2; hidden width `cfg.r_hidden` (512 where the config has
+    none)."""
+    wn = _wn(cfg.norm)
+    rng = np.random.default_rng(seed)
+    hidden = getattr(cfg, "r_hidden", 512)
+    trunk, flat = _init_trunk(rng, cfg, wn)
+    params = {"trunk": trunk, "fc1": _layer(rng, (flat, hidden), flat, wn),
+              "fc2": _layer(rng, (hidden, cfg.code_size), hidden, wn)}
+    if wn:
+        params["act"] = _act(hidden)["TPReLU_0"]
+    return params

@@ -4,3 +4,4 @@ from gea_torch.models.generator import (  # noqa: F401
     GeneratorLIS,
     LISModule,
 )
+from gea_torch.models.reverter import Reverter  # noqa: F401

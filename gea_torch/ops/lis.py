@@ -18,8 +18,8 @@ reads a weight whole. The fp32 kernel stays on the CUDA cores.
 version on a CPU tensor; on a CUDA tensor it launches the kernel (and
 counts the launch in `lis_residual_mlp.launches`) or raises. Its backward
 is the one of `gea/ops/pallas/lis.py::_bwd` in eager PyTorch ops: the
-hidden row is recomputed in fp32 from the saved inputs, and the products
-run in fp32.
+hidden row is recomputed in fp32 from the saved inputs, the products run in
+fp32, and only the gradients of inputs that need one are computed.
 """
 
 from __future__ import annotations
@@ -103,24 +103,38 @@ class LISResidualMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        """The gradients that `ctx.needs_input_grad` asks for, None for the
+        others: a frozen link (R-separate's G) pays for dz alone."""
         z, w1, b1, slope, trans, w2 = ctx.saved_tensors
-        gf, zf, w1f, w2f = g.float(), z.float(), w1.float(), w2.float()
+        need = ctx.needs_input_grad
+        gf, zf, w1f = g.float(), z.float(), w1.float()
+        grads = [None] * 7
+        if need[6]:
+            grads[6] = gf.sum(0)
+        if not any(need[:6]):
+            return tuple(grads)
         s = zf @ w1f + b1.float() - trans.float()
         neg = s < 0
         a = slope.float()
-        h = torch.where(neg, a * s, s) + trans.float()
-        dh = gf @ w2f.t()
+        if need[5]:
+            h = torch.where(neg, a * s, s) + trans.float()
+            grads[5] = (h.t() @ gf).to(w2.dtype)
+        if not any(need[:5]):
+            return tuple(grads)
+        dh = gf @ w2.float().t()
         fprime = torch.where(neg, a, torch.ones_like(s))
         dh_pre = dh * fprime
-        return (
-            (gf + dh_pre @ w1f.t()).to(z.dtype),
-            (zf.t() @ dh_pre).to(w1.dtype),
-            dh_pre.sum(0),
-            torch.where(neg, dh * s, torch.zeros_like(s)).sum(0),
-            (dh * (1 - fprime)).sum(0),
-            (h.t() @ gf).to(w2.dtype),
-            gf.sum(0),
-        )
+        if need[0]:
+            grads[0] = (gf + dh_pre @ w1f.t()).to(z.dtype)
+        if need[1]:
+            grads[1] = (zf.t() @ dh_pre).to(w1.dtype)
+        if need[2]:
+            grads[2] = dh_pre.sum(0)
+        if need[3]:
+            grads[3] = torch.where(neg, dh * s, torch.zeros_like(s)).sum(0)
+        if need[4]:
+            grads[4] = (dh * (1 - fprime)).sum(0)
+        return tuple(grads)
 
 
 def lis_residual_mlp(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:

@@ -65,6 +65,15 @@ def staged_apply(fn: Callable, logits_per_stage: torch.Tensor,
     return (w * per_stage).sum()
 
 
+def staged_loss(logits_per_stage: torch.Tensor, weights: Sequence[float] | torch.Tensor,
+                target: float) -> torch.Tensor:
+    """sum_s w_s * BCE(logits[s], target) over the stages of logits (S, B),
+    with one target for every logit."""
+    t = torch.full(logits_per_stage.shape[1:], target, dtype=torch.float32,
+                   device=logits_per_stage.device)
+    return staged_apply(lambda lg: bce_with_logits(lg, t), logits_per_stage, weights)
+
+
 def gradient_penalty(d_apply: Callable, real: torch.Tensor, fake: torch.Tensor,
                      eps: torch.Tensor) -> torch.Tensor:
     """WGAN-GP: E[(||grad_x D(x_hat)|| - 1)^2] on the interpolates

@@ -72,6 +72,12 @@ def step_generator(device: torch.device) -> Callable[[int, int], torch.Generator
     return at
 
 
+def no_input() -> Iterator[None]:
+    """The input stream of a step that reads no data (R-separate, whose
+    frozen G is its data source): None per step (`gea`'s `dummy_input`)."""
+    return (None for _ in itertools.count())
+
+
 def input_iterator(cfg, device: torch.device, seed: int,
                    start_step: int = 0) -> Iterator[Optional[torch.Tensor]]:
     """The input stream on the device, starting at batch `start_step`:
@@ -80,7 +86,7 @@ def input_iterator(cfg, device: torch.device, seed: int,
     image_size with --host_resize; gathered on the device with
     --device_data_cache); float32 batches with --on_device_pipeline false."""
     if synthetic_on_device(cfg):
-        return (None for _ in itertools.count())
+        return no_input()
     if cfg.device_data_cache:
         from gea_torch.data.devicecache import device_cached_iterator
 
@@ -149,6 +155,9 @@ def maybe_resume(cfg, state) -> Tuple[Any, int]:
 class TrainLoop:
     """Drives `step_fn(state, real) -> metrics` over the input stream.
     `input_fn(batch, step)` makes the real batch from the stream's batch.
+    `loss_keys` are the metrics plotted and printed first: each trainer
+    passes its own (G-LIS loss_d and loss_g, R-separate loss_r, R-iterative
+    loss_d, loss_g and loss_r_sim).
     Metrics are 0-d tensors on the device, read on the host only at log
     intervals; the host waits for the device once more, when the warm-up
     ends."""

@@ -1,10 +1,14 @@
-"""Train state of the G-LIS trainer (port of `gea/train/state.py`).
+"""Train states of the three trainers (port of `gea/train/state.py` and of
+`gea/cli/train_r_separate.py::create_r_state`).
 
 `gea` keeps one immutable pytree (params, optax states, step, PRNG key)
 that a pure step maps to the next. The port keeps the same pieces as
-mutable objects that the step updates in place: G and D as modules, one
-Adam per player, the step count, the EMA shadow of G's parameters and a
-`torch.Generator` on the device for the trainer's own draws.
+mutable objects that the step updates in place: the models as modules,
+one Adam (and scheduler) per trained player, the step count and a
+`torch.Generator` on the device for the trainer's own draws; G-LIS adds
+the EMA shadow of G's parameters, R-separate the frozen G (and D) it
+trains against. `PLAYERS` names each state's trained modules, with the tag
+of their optimizer and scheduler fields; the checkpoint holds those.
 """
 
 from __future__ import annotations
@@ -15,14 +19,16 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from gea_torch.config import TrainGLISConfig, resolve_device
+from gea_torch.config import TrainGLISConfig, TrainRConfig, TrainRIterativeConfig, resolve_device
 from gea_torch.interop import (
     discriminator_state_from_jax_params,
     generator_state_from_jax_params,
     init_discriminator_params,
     init_generator_params,
+    init_reverter_params,
+    reverter_state_from_jax_params,
 )
-from gea_torch.models import Discriminator, GeneratorLIS
+from gea_torch.models import Discriminator, GeneratorLIS, Reverter
 
 
 def lr_factor(schedule: str, total_steps: int, lr_final: float):
@@ -62,6 +68,8 @@ def make_optimizer(
 
 @dataclass
 class GLISTrainState:
+    PLAYERS = (("generator", "g"), ("discriminator", "d"))
+
     generator: GeneratorLIS
     discriminator: Discriminator
     opt_g: torch.optim.Adam
@@ -104,9 +112,133 @@ def create_glis_state(
     opt_g, sched_g = make_optimizer(g.parameters(), cfg.lr, cfg.beta1, cfg.beta2, *sched)
     opt_d, sched_d = make_optimizer(d.parameters(), cfg.lr, cfg.beta1, cfg.beta2, *sched)
     ema = {}
-    if cfg.g_ema > 0:
+    if getattr(cfg, "g_ema", 0.0) > 0:
         ema = {n: p.detach().clone() for n, p in g.named_parameters()}
     return GLISTrainState(
         generator=g, discriminator=d, opt_g=opt_g, opt_d=opt_d, sched_g=sched_g,
         sched_d=sched_d, rng=torch.Generator(dev).manual_seed(seed), g_ema=ema,
     )
+
+
+def _reverter(cfg: TrainRConfig, r_params, seed: int, dev: torch.device,
+              use_kernels: bool) -> Tuple[Reverter, torch.optim.Adam,
+                                          Optional[torch.optim.lr_scheduler.LambdaLR]]:
+    """R from a `gea`-layout tree (seeded `init_reverter_params` where none
+    is given) and a fresh Adam with the config's schedule."""
+    if r_params is None:
+        r_params = init_reverter_params(cfg, seed)
+    r = Reverter(cfg, device=dev, use_kernels=use_kernels)
+    r.load_state_dict(reverter_state_from_jax_params(r_params, cfg), strict=True)
+    opt, sched = make_optimizer(r.parameters(), cfg.lr, cfg.beta1, cfg.beta2,
+                                cfg.lr_schedule, cfg.niter, cfg.lr_final)
+    return r, opt, sched
+
+
+@dataclass
+class RSeparateTrainState:
+    """R and its Adam; the frozen G (and D, for the D-feedback and mining
+    terms; None without one) that the step renders and scores with. Only R
+    is trained and checkpointed."""
+
+    PLAYERS = (("reverter", "r"),)
+
+    reverter: Reverter
+    opt_r: torch.optim.Adam
+    sched_r: Optional[torch.optim.lr_scheduler.LambdaLR]
+    rng: torch.Generator
+    generator: GeneratorLIS
+    discriminator: Optional[Discriminator] = None
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.reverter.device
+
+
+def freeze(module: Optional[torch.nn.Module]) -> None:
+    """Inference mode and no parameter gradients, in place."""
+    if module is not None:
+        module.eval().requires_grad_(False)
+
+
+def create_r_state(
+    cfg: TrainRConfig,
+    generator: GeneratorLIS,
+    discriminator: Optional[Discriminator] = None,
+    r_params=None,
+    seed: Optional[int] = None,
+    device: str | torch.device = "cuda",
+    use_kernels: bool = True,
+) -> RSeparateTrainState:
+    """R-separate's state (`gea`'s `create_r_state`): R seeded with `seed`
+    (cfg.seed by default), fresh Adam, the trainer's generator seeded with
+    `seed`, and the given G and D, which are frozen here. CUDA unless the
+    caller asks for the CPU."""
+    dev = resolve_device(device)
+    seed = cfg.seed if seed is None else seed
+    r, opt_r, sched_r = _reverter(cfg, r_params, seed, dev, use_kernels)
+    freeze(generator)
+    freeze(discriminator)
+    return RSeparateTrainState(
+        reverter=r, opt_r=opt_r, sched_r=sched_r, rng=torch.Generator(dev).manual_seed(seed),
+        generator=generator, discriminator=discriminator,
+    )
+
+
+@dataclass
+class RIterativeTrainState:
+    """G (single-stage, r_iterations=0), D and R, trained jointly, each with
+    its own Adam."""
+
+    PLAYERS = (("generator", "g"), ("discriminator", "d"), ("reverter", "r"))
+
+    generator: GeneratorLIS
+    discriminator: Discriminator
+    reverter: Reverter
+    opt_g: torch.optim.Adam
+    opt_d: torch.optim.Adam
+    opt_r: torch.optim.Adam
+    sched_g: Optional[torch.optim.lr_scheduler.LambdaLR]
+    sched_d: Optional[torch.optim.lr_scheduler.LambdaLR]
+    sched_r: Optional[torch.optim.lr_scheduler.LambdaLR]
+    rng: torch.Generator
+    step: int = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+
+def generator_config(cfg: TrainRIterativeConfig) -> TrainRIterativeConfig:
+    """R-iterative's G is the plain conv core: no LIS modules, one stage."""
+    return cfg.replace(r_iterations=0)
+
+
+def add_reverter(state: GLISTrainState, cfg: TrainRConfig, r_params=None,
+                 seed: Optional[int] = None, use_kernels: bool = True) -> RIterativeTrainState:
+    """`gea`'s `add_reverter`: a G/D state plus R, seeded with seed + 101,
+    and its Adam."""
+    seed = cfg.seed if seed is None else seed
+    r, opt_r, sched_r = _reverter(cfg, r_params, seed + 101, state.device, use_kernels)
+    return RIterativeTrainState(
+        generator=state.generator, discriminator=state.discriminator, reverter=r,
+        opt_g=state.opt_g, opt_d=state.opt_d, opt_r=opt_r, sched_g=state.sched_g,
+        sched_d=state.sched_d, sched_r=sched_r, rng=state.rng, step=state.step,
+    )
+
+
+def create_r_iterative_state(
+    cfg: TrainRIterativeConfig,
+    g_params=None,
+    d_params=None,
+    r_params=None,
+    seed: Optional[int] = None,
+    device: str | torch.device = "cuda",
+    use_kernels: bool = True,
+) -> RIterativeTrainState:
+    """R-iterative's state: G (r_iterations=0) and D as `create_glis_state`
+    makes them, then `add_reverter`. CUDA unless the caller asks for the
+    CPU."""
+    glis = create_glis_state(generator_config(cfg), g_params, d_params, seed, device,
+                             use_kernels)
+    return add_reverter(glis, cfg, r_params, seed, use_kernels)

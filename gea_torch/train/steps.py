@@ -28,7 +28,7 @@ metrics as 0-d tensors on the device, so it never waits for the device.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -58,6 +58,41 @@ def _update(opt: torch.optim.Optimizer, sched) -> None:
         sched.step()
 
 
+def draw_noise(state, generator, batch: int, code_size: int, z, sn):
+    """z (batch, code) and the generator's spatial noise (None without
+    spatial code), fp32 on the state's device; where not given, drawn from
+    the state's generator, z first."""
+    dev = state.device
+    if z is None:
+        z = torch.randn((batch, code_size), generator=state.rng, device=dev)
+    sn_shape = generator.spatial_noise_shape(batch)
+    if sn_shape is None:
+        sn = None
+    elif sn is None:
+        sn = torch.randn(sn_shape, generator=state.rng, device=dev)
+    return to_device(z, dev), to_device(sn, dev)
+
+
+def to_device(t, dev: torch.device) -> Optional[torch.Tensor]:
+    return None if t is None else torch.as_tensor(t, dtype=torch.float32, device=dev)
+
+
+def microbatches(t: Optional[torch.Tensor], batch: int, accum: int) -> list:
+    """t split into `accum` microbatches along its first axis (Nones for
+    None); the batch must divide by accum."""
+    if batch % accum:
+        raise ValueError(f"batch {batch} not divisible by grad_accum {accum}")
+    return [None] * accum if t is None else list(t.split(batch // accum))
+
+
+def mean_grads(module: torch.nn.Module, accum: int) -> None:
+    """Gradients summed over `accum` microbatches -> their mean."""
+    if accum > 1:
+        for p in module.parameters():
+            if p.grad is not None:
+                p.grad.div_(accum)
+
+
 def build_glis_train_step(
     cfg: TrainGLISConfig, share_g_forward: bool = True
 ) -> Callable[..., Metrics]:
@@ -78,22 +113,14 @@ def build_glis_train_step(
 
     def inputs(state: GLISTrainState, real, z, sn, eps):
         dev = state.device
-        real = torch.as_tensor(real, dtype=torch.float32, device=dev)
+        real = to_device(real, dev)
         batch = real.shape[0]
-        if z is None:
-            z = torch.randn((batch, cfg.code_size), generator=state.rng, device=dev)
-        sn_shape = state.generator.spatial_noise_shape(batch)
-        if sn_shape is None:
-            sn = None
-        elif sn is None:
-            sn = torch.randn(sn_shape, generator=state.rng, device=dev)
+        z, sn = draw_noise(state, state.generator, batch, cfg.code_size, z, sn)
         if not use_gp:
             eps = None
         elif eps is None:
             eps = torch.rand((batch, 1, 1, 1), generator=state.rng, device=dev)
-        to_dev = lambda t: None if t is None else torch.as_tensor(  # noqa: E731
-            t, dtype=torch.float32, device=dev)
-        return real, to_dev(z), to_dev(sn), to_dev(eps)
+        return real, z, sn, to_device(eps, dev)
 
     def g_images(g, z, sn, grad: bool) -> torch.Tensor:
         """(S, B, H, W, 3) fakes in the compute dtype."""
@@ -161,11 +188,7 @@ def build_glis_train_step(
         g, d = state.generator, state.discriminator
         real, z, sn, eps = inputs(state, real, z, spatial_noise, gp_eps)
         batch = real.shape[0]
-        if batch % accum:
-            raise ValueError(f"batch {batch} not divisible by grad_accum {accum}")
-        micro = batch // accum
-        split = lambda t: [None] * accum if t is None else t.split(micro)  # noqa: E731
-        mbs = list(zip(real.split(micro), z.split(micro), split(sn), split(eps)))
+        mbs = list(zip(*(microbatches(t, batch, accum) for t in (real, z, sn, eps))))
         w = stage_w(real.device)
 
         state.opt_d.zero_grad(set_to_none=True)
@@ -177,18 +200,14 @@ def build_glis_train_step(
             loss_d = loss_d + loss.detach()
             d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
             d_fake = d_fake + torch.sigmoid(logits_fake[-1].detach()).mean()
-        for p in d.parameters():
-            if p.grad is not None:
-                p.grad.div_(accum)
+        mean_grads(d, accum)
         _update(state.opt_d, state.sched_d)
 
         state.opt_g.zero_grad(set_to_none=True)
         loss_g = 0.0
         for _, z_mb, sn_mb, _ in mbs:
             loss_g = loss_g + g_backward(d, g_images(g, z_mb, sn_mb, grad=True), w)
-        for p in g.parameters():
-            if p.grad is not None:
-                p.grad.div_(accum)
+        mean_grads(g, accum)
         _update(state.opt_g, state.sched_g)
         finish(state)
         return {"loss_d": loss_d / accum, "loss_g": loss_g / accum,

@@ -9,9 +9,13 @@ read (a frozen G for R-separate, the samplers):
       plots/loss.png                # loss curves
       best.json                     # best-snapshot pointer, when tracked
 
-`state.pt` holds G's and D's `state_dict`s, both Adams' `state_dict`s, both
-schedulers' (None without a schedule), the step, the state of the train
-state's `torch.Generator`, and the EMA shadow ({} without `--g_ema`).
+`state.pt` holds, for each trained module of the state (its `PLAYERS`:
+G and D for G-LIS, R for R-separate, G, D and R for R-iterative), its
+`state_dict` under its name ("generator", "discriminator", "reverter"), its
+Adam's under "opt_<tag>" and its scheduler's under "sched_<tag>" (None
+without a schedule); then the step, the state of the train state's
+`torch.Generator`, and for G-LIS the EMA shadow ({} without `--g_ema`). An
+R-separate checkpoint holds R only: its frozen G stays in `--g_path`.
 
 A save copies every tensor to the host on the caller's thread; with
 `async_save` the file is written on a background thread, at most one save
@@ -33,6 +37,7 @@ from typing import Any, Iterable, Optional, Union
 import torch
 
 STATE_FILE = "state.pt"
+_MODULES = ("generator", "discriminator", "reverter")
 
 _lock = threading.Lock()
 _writer: Optional[ThreadPoolExecutor] = None
@@ -56,37 +61,42 @@ def _to_host(obj: Any) -> Any:
 
 
 def state_dict(state) -> dict:
-    """The whole `GLISTrainState` as a nest of host tensors and numbers."""
-    return _to_host({
-        "step": int(state.step),
-        "generator": state.generator.state_dict(),
-        "discriminator": state.discriminator.state_dict(),
-        "opt_g": state.opt_g.state_dict(),
-        "opt_d": state.opt_d.state_dict(),
-        "sched_g": None if state.sched_g is None else state.sched_g.state_dict(),
-        "sched_d": None if state.sched_d is None else state.sched_d.state_dict(),
-        "rng": state.rng.get_state(),
-        "g_ema": dict(state.g_ema),
-    })
+    """The whole train state (G-LIS, R-separate or R-iterative) as a nest
+    of host tensors and numbers."""
+    out = {"step": int(state.step)}
+    for name, tag in state.PLAYERS:
+        sched = getattr(state, f"sched_{tag}")
+        out[name] = getattr(state, name).state_dict()
+        out[f"opt_{tag}"] = getattr(state, f"opt_{tag}").state_dict()
+        out[f"sched_{tag}"] = None if sched is None else sched.state_dict()
+    out["rng"] = state.rng.get_state()
+    if hasattr(state, "g_ema"):
+        out["g_ema"] = dict(state.g_ema)
+    return _to_host(out)
 
 
 def load_state_dict(state, ckpt: dict):
     """Load a `state_dict` into `state` in place and return it. A shadow
     missing from the checkpoint under `--g_ema > 0` starts from the restored
     G; a shadow in it under `--g_ema 0` is dropped."""
-    for sched, key in ((state.sched_g, "sched_g"), (state.sched_d, "sched_d")):
-        if (sched is None) != (ckpt.get(key) is None):
-            raise ValueError(f"{key}: the checkpoint was written with another "
+    players = [name for name, _ in state.PLAYERS]
+    if any(name not in ckpt for name in players):
+        raise ValueError(f"the checkpoint holds {sorted(k for k in ckpt if k in _MODULES)}, "
+                         f"this run trains {players}: a checkpoint of another trainer")
+    for _, tag in state.PLAYERS:
+        if (getattr(state, f"sched_{tag}") is None) != (ckpt.get(f"sched_{tag}") is None):
+            raise ValueError(f"sched_{tag}: the checkpoint was written with another "
                              "--lr_schedule than this run's")
-    state.generator.load_state_dict(ckpt["generator"], strict=True)
-    state.discriminator.load_state_dict(ckpt["discriminator"], strict=True)
-    state.opt_g.load_state_dict(ckpt["opt_g"])
-    state.opt_d.load_state_dict(ckpt["opt_d"])
-    if state.sched_g is not None:
-        state.sched_g.load_state_dict(ckpt["sched_g"])
-        state.sched_d.load_state_dict(ckpt["sched_d"])
+    for name, tag in state.PLAYERS:
+        getattr(state, name).load_state_dict(ckpt[name], strict=True)
+        getattr(state, f"opt_{tag}").load_state_dict(ckpt[f"opt_{tag}"])
+        sched = getattr(state, f"sched_{tag}")
+        if sched is not None:
+            sched.load_state_dict(ckpt[f"sched_{tag}"])
     state.rng.set_state(ckpt["rng"])
     state.step = int(ckpt["step"])
+    if not hasattr(state, "g_ema"):
+        return state
     disk_ema = ckpt.get("g_ema") or {}
     if state.g_ema and not disk_ema:
         print("[gea_torch] checkpoint has no EMA shadow; initializing it from the "
@@ -206,10 +216,9 @@ def _load(root: str, step: int) -> dict:
                       weights_only=True)
 
 
-def restore_checkpoint(run_dir: str, target, step: Optional[int] = None):
-    """Load a checkpoint into `target` (a `GLISTrainState`) and return it:
-    the latest step when none is given, `step`, or with -1 the step that
-    best.json points at."""
+def load_checkpoint(run_dir: str, step: Optional[int] = None) -> dict:
+    """The `state_dict` of a checkpoint on the host: the latest step when
+    none is given, `step`, or with -1 the step that best.json points at."""
     wait_for_checkpoints()  # the save in flight may be the latest
     if step == -1:
         step = best_step(run_dir)
@@ -229,4 +238,11 @@ def restore_checkpoint(run_dir: str, target, step: Optional[int] = None):
         if retry is None or retry == step:
             raise
         ckpt = _load(root, retry)
-    return load_state_dict(target, ckpt)
+    return ckpt
+
+
+def restore_checkpoint(run_dir: str, target, step: Optional[int] = None):
+    """Load a checkpoint into `target` (a train state of any of the three
+    trainers) and return it: the latest step when none is given, `step`, or
+    with -1 the step that best.json points at."""
+    return load_state_dict(target, load_checkpoint(run_dir, step))

@@ -147,3 +147,23 @@ def test_functions_match_autograd_of_plain(rng, name):
         grads.append([t.grad for t in ts])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("wanted", [(0,), (0, 5), (1, 3), (2, 4, 6), tuple(range(7))],
+                         ids=["z", "z-w2", "w1-slope", "b1-trans-b2", "all"])
+def test_lis_backward_computes_only_what_is_asked(rng, wanted):
+    """With only some inputs requiring a gradient (a frozen link's weights
+    need none), those gradients equal the ones of a backward asked for all
+    seven, and the others are not computed."""
+    args = lis_args(rng, 5, 16, 32)
+    full = _port_grads(ops.lis_residual_mlp, args)
+    ts = [torch.from_numpy(a).requires_grad_(i in wanted) for i, a in enumerate(args)]
+    out = ops.lis_residual_mlp(*ts)
+    got = torch.autograd.grad((out**2).sum(), [ts[i] for i in wanted])
+    for i, g in zip(wanted, got):
+        np.testing.assert_array_equal(g.numpy(), full[i])
+    grads = LISResidualMLP.backward(
+        type("Ctx", (), {"saved_tensors": ts[:6],
+                         "needs_input_grad": tuple(i in wanted for i in range(7))})(),
+        2 * out.detach())
+    assert [i for i, g in enumerate(grads) if g is not None] == list(wanted)

@@ -1,6 +1,7 @@
-"""The port's LISModule, GeneratorLIS.render and Discriminator against
-`gea`'s on the same params (flax init, jittered, converted through
-`gea_torch.interop`), in fp32 on the CPU."""
+"""The port's LISModule, GeneratorLIS.render, Discriminator and Reverter
+(with `iterative_chain` and `blend_correction`) against `gea`'s on the same
+params (flax init, jittered, converted through `gea_torch.interop`), in
+fp32 on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -11,19 +12,25 @@ import torch
 from gea.interop.torch_port import (
     discriminator_to_torch_state,
     generator_to_torch_state,
+    reverter_to_torch_state,
 )
 from gea.models import Discriminator as JaxDiscriminator
 from gea.models import GeneratorLIS as JaxGeneratorLIS
+from gea.models import Reverter as JaxReverter
+from gea.models import reverter as jax_reverter
 from gea.models.generator import LISModule as JaxLISModule
 from gea_torch import ModelConfig
-from gea_torch.config import generator_plan
+from gea_torch.config import TrainRIterativeConfig, generator_plan
 from gea_torch.interop import (
     discriminator_from_jax_params,
     generator_from_jax_params,
     init_discriminator_params,
     init_generator_params,
+    init_reverter_params,
+    reverter_state_from_jax_params,
 )
-from gea_torch.models import Discriminator, GeneratorLIS, LISModule
+from gea_torch.models import Discriminator, GeneratorLIS, LISModule, Reverter
+from gea_torch.models import reverter
 
 SMALL = dict(image_size=32, code_size=16, r_iterations=2, num_features=8,
              max_features=32, dtype="float32")
@@ -187,3 +194,73 @@ def test_default_device_needs_cuda(monkeypatch):
         GeneratorLIS(small_cfg())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Discriminator(small_cfg())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Reverter(small_cfg())
+
+
+def jax_reverter_model(cfg, hidden):
+    return JaxReverter(image_size=cfg.image_size, code_size=cfg.code_size, norm=cfg.norm,
+                       num_features=cfg.num_features, max_features=cfg.max_features,
+                       hidden=hidden, dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("norm", ["weight", "none"])
+def test_reverter_matches_gea(rng, norm):
+    """The port's Reverter (trunk, fc1, the head's TPReLU on (B, hidden),
+    fc2) against `gea`'s, from its own mapping and from `gea`'s
+    `reverter_to_torch_state` loaded with strict=True; fp32 output."""
+    cfg = TrainRIterativeConfig(**{**SMALL, "norm": norm, "r_hidden": 24})
+    x = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    params = jitter(init_reverter_params(cfg, 2), 3)
+    want = np.asarray(jax_reverter_model(cfg, 24).apply({"params": params}, jnp.asarray(x)))
+
+    ours, theirs = Reverter(cfg, device="cpu"), Reverter(cfg, device="cpu")
+    ours.load_state_dict(reverter_state_from_jax_params(params, cfg), strict=True)
+    theirs.load_state_dict(reverter_to_torch_state(params, cfg), strict=True)
+    for port in (ours, theirs):
+        with torch.no_grad():
+            got = port(torch.from_numpy(x))
+        assert got.dtype == torch.float32 and got.shape == (4, cfg.code_size)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("norm", ["weight", "none"])
+def test_init_reverter_params_have_flax_tree(norm):
+    cfg = small_cfg(norm=norm)
+    shapes = lambda t: jax.tree_util.tree_map(np.shape, t)  # noqa: E731
+    want = jax.eval_shape(jax_reverter_model(cfg, 512).init, jax.random.PRNGKey(0),
+                          jnp.zeros((1, 32, 32, 3)))["params"]
+    assert shapes(init_reverter_params(cfg, 0)) == shapes(want)
+
+
+def test_blend_correction_matches_gea(rng):
+    z, z_hat = (rng.standard_normal((5, 16)).astype(np.float32) for _ in range(2))
+    for strength, renorm in ((0.3, True), (0.7, False)):
+        want = jax_reverter.blend_correction(jnp.asarray(z), jnp.asarray(z_hat), strength, renorm)
+        got = reverter.blend_correction(torch.from_numpy(z), torch.from_numpy(z_hat), strength,
+                                        renorm)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("spatial_code", [0, 3])
+def test_iterative_chain_matches_gea(rng, spatial_code):
+    """The unrolled chain z_t = z_{t-1} + R(G(z_{t-1})) of a single-stage
+    generator, 2 links: every link's image."""
+    cfg = small_cfg(r_iterations=0, spatial_code=spatial_code)
+    g, _ = jax_models(cfg)
+    r = jax_reverter_model(cfg, 512)
+    z = rng.standard_normal((3, cfg.code_size)).astype(np.float32)
+    sn = spatial_noise(rng, cfg, 3)
+    g_params = jitter(init_generator_params(cfg, 0), 4)
+    r_params = jitter(init_reverter_params(cfg, 1), 5)
+    want = jax_reverter.iterative_chain(g, r, {"params": g_params}, {"params": r_params},
+                                        jnp.asarray(z), None if sn is None else jnp.asarray(sn),
+                                        2)
+    port_g = generator_from_jax_params(g_params, cfg, device="cpu")
+    port_r = Reverter(cfg, device="cpu")
+    port_r.load_state_dict(reverter_state_from_jax_params(r_params, cfg), strict=True)
+    with torch.no_grad():
+        got = reverter.iterative_chain(port_g, port_r, torch.from_numpy(z),
+                                       None if sn is None else torch.from_numpy(sn), 2)
+    assert got.shape == (3, 3, 32, 32, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)

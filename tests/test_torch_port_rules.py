@@ -46,6 +46,8 @@ def test_import_without_cuda_builds_nothing():
         "import gea_torch.data.prefetch, gea_torch.data.devicecache;"
         "import gea_torch.utils.checkpoint, gea_torch.utils.grids, gea_torch.utils.plotting;"
         "import gea_torch.utils.meters, gea_torch.utils.hostmem;"
+        "import gea_torch.models.reverter, gea_torch.train.steps_r, gea_torch.cli.sample;"
+        "import gea_torch.cli.train_r_separate, gea_torch.cli.train_r_iterative;"
         "assert 'PIL' not in sys.modules and 'matplotlib' not in sys.modules;"
         "from gea_torch.ops import build;"
         "assert build._LIBS == {} and not build.BUILD_DIR.joinpath('x').exists();"
@@ -86,6 +88,48 @@ def test_train_state_on_default_device_needs_cuda(monkeypatch):
     state = create_glis_state(cfg, device="cpu")
     metrics = build_glis_train_step(cfg)(state, np.zeros((2, 16, 16, 3), np.float32))
     assert state.step == 1 and all(v.device.type == "cpu" for v in metrics.values())
+
+
+def test_r_states_on_default_device_need_cuda(monkeypatch):
+    from gea_torch.config import TrainRIterativeConfig, TrainRSeparateConfig
+    from gea_torch.interop import generator_from_jax_params, init_generator_params
+    from gea_torch.train import (
+        build_r_iterative_step,
+        build_r_separate_step,
+        create_r_iterative_state,
+        create_r_state,
+    )
+
+    tiny = dict(image_size=16, code_size=16, r_iterations=1, num_features=4,
+                max_features=16, dtype="float32", batch_size=2, r_hidden=8)
+    sep, it = TrainRSeparateConfig(**tiny), TrainRIterativeConfig(**tiny)
+    g = generator_from_jax_params(init_generator_params(sep), sep, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_r_state(sep, g)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_r_iterative_state(it)
+    # Asked for explicitly, the CPU works.
+    state = create_r_state(sep, g, device="cpu")
+    metrics = build_r_separate_step(sep)(state)
+    assert state.step == 1 and all(v.device.type == "cpu" for v in metrics.values())
+    state = create_r_iterative_state(it, device="cpu")
+    metrics = build_r_iterative_step(it)(state, np.zeros((2, 16, 16, 3), np.float32))
+    assert state.step == 1 and all(v.device.type == "cpu" for v in metrics.values())
+
+
+@pytest.mark.parametrize("cli", ["train_r_separate", "train_r_iterative"])
+def test_r_clis_on_default_device_need_cuda(monkeypatch, tmp_path, cli):
+    """Without --device cpu the R trainers raise on a host without CUDA."""
+    import importlib
+
+    mod = importlib.import_module(f"gea_torch.cli.{cli}")
+    args = ["--save_path", str(tmp_path / "r"), "--dataset", "synthetic"]
+    if cli == "train_r_separate":
+        args += ["--g_path", str(tmp_path)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(args)
 
 
 def test_chip_smoke_refuses_without_cuda():
