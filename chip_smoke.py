@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-1. print the card's name and power limit, and the torch and CUDA versions;
+1. print the card's name and power limit, and the torch, CUDA and scipy
+   versions;
 2. build the CUDA kernels from `gea_torch/csrc/` (nvcc, sm_90a);
 3. for each kernel, at the shapes of the flagship serving path and of the
    flagship train step, in fp32 and bf16: compare the kernel with its plain
@@ -75,12 +76,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    flagship width with `--r_chain_length 2 --lambda_r 0.9` and synthetic
    data drawn on the device: the same list (TPReLU 43, seed 6 a step; 17,
    3 a render), with G, D and R all trained;
-11. print one JSON line of the serving results, one of the training
-   results, one of the trainer's, one of the R trainers', one of
-   per-kernel results (per train step; `launches` counts phase 7's timed
-   steps, `launches_trainer` the trainer's first run, `launches_r_separate`
-   and `launches_r_iterative` the R trainers' first runs), the card's name
-   and power limit, and last `{"ok": true, "device": {...}}`.
+11. evaluation (`gea_torch.eval.fid`, the trainers' `--fid_interval` and
+   the offline evaluators), on the run directories phases 8-10 leave:
+   both feature networks on the card, fp32 without TF32, against the golden
+   written from `gea` (`tests/torch_port_fid_golden.json`: feature means
+   and covariance trace within rtol 1e-4, the proxy-FID of its two halves
+   within rtol 1e-3) and the device time of a batch of 64; each trainer
+   for 20 steps without and with `--fid_interval 10 --fid_samples 1024`
+   (G-LIS fresh, R-separate against phase 8's run, R-iterative fresh),
+   with exact launches (the steps' and 2 evaluations of 16 renders), 2
+   finite rows in fid.jsonl, a best.json whose checkpoint restores, the
+   rate with tracking against the rate without, and outside the loop the
+   wall time of the real side and of one evaluation with its launches and
+   the device's idle share; then `compute_fid` (plain, `--d_filter`,
+   `--r_path` on phase 9's run, `--second_opinion`, `--step -1` on the
+   tracked G-LIS run), `eval_stages` on phase 8's run and `eval_chain` on
+   phase 10's, 2048 samples each in batches of 64, with exact launches and
+   finite values;
+12. print one JSON line of the serving results, one of the training
+   results, one of the trainer's, one of the R trainers', one of the
+   evaluation's, one of per-kernel results (per train step; `launches`
+   counts phase 7's timed steps, `launches_trainer` the trainer's first
+   run, `launches_r_separate` and `launches_r_iterative` the R trainers'
+   first runs, `launches_eval` phase 11's tracked runs and evaluators), the
+   card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Phases 3-5 also hold each kernel against its plain version (forward and
 gradients) at the shapes only the R trainers give it: TPReLU on R's head,
@@ -106,7 +125,14 @@ import numpy as np
 import torch
 
 from gea_torch import FLAGSHIP, ops
-from gea_torch.cli import train_glis, train_r_iterative, train_r_separate
+from gea_torch.cli import (
+    compute_fid,
+    eval_chain,
+    eval_stages,
+    train_glis,
+    train_r_iterative,
+    train_r_separate,
+)
 from gea_torch.cli.sample import load_discriminator, load_generator
 from gea_torch.config import (
     TrainGLISConfig,
@@ -115,6 +141,7 @@ from gea_torch.config import (
     generator_plan,
 )
 from gea_torch.data.pipeline import SyntheticDataset
+from gea_torch.eval import fid
 from gea_torch.interop import (
     discriminator_from_jax_params,
     generator_from_jax_params,
@@ -135,6 +162,7 @@ from gea_torch.train import (
 from gea_torch.train.runner import input_iterator, make_input_fn
 from gea_torch.train.state import generator_config
 from gea_torch.utils.checkpoint import (
+    best_record,
     restore_checkpoint,
     save_checkpoint,
     state_dict,
@@ -1131,16 +1159,23 @@ def trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> 
         return _trainer(tmp, kernel_rows, bare_images_per_s, smi)
 
 
+def glis_launches(cfg) -> tuple:
+    """(launches of a G-LIS train step, of a render of every stage): a
+    render has one seed call, a LIS link per module and a TPReLU per
+    upsampling block after the seed's; the step renders once, and D's trunk
+    (as many TPReLUs) runs on the reals and fakes and again for G's loss."""
+    acts = generator_plan(cfg.image_size)[1] - 1
+    return ({"fused_tprelu": 3 * acts, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1},
+            {"fused_tprelu": acts, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1})
+
+
 def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
     run = os.path.join(tmp, "run")
     args = TRAINER_ARGS + ["--save_path", run, "--vis_interval", str(TRAINER_VIS),
                            "--save_interval", str(TRAINER_VIS)]
     cfg = TrainGLISConfig.from_args(args)
     runs, counted = {}, {}
-    _, d = generator_plan(cfg.image_size)
-    per_step = {"fused_tprelu": 3 * (d - 1), "lis_residual_mlp": cfg.r_iterations,
-                "fused_seed": 1}
-    per_render = {"fused_tprelu": d - 1, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1}
+    per_step, per_render = glis_launches(cfg)
 
     def counted_cli(label, run_args, steps, renders):
         """One CLI run: exactly `steps` train steps' and `renders` sample
@@ -1435,21 +1470,29 @@ def r_separate(tmp: str, g_run: str, kernel_rows: dict, smi: str) -> dict:
     return result
 
 
+def r_separate_launches(cfg) -> tuple:
+    """(launches of an R-separate step, of a corrected render)."""
+    acts = generator_plan(cfg.image_size)[1] - 1  # TPReLUs of one G render, of D's trunk
+    # A render: before, R (trunk + head), after; a step adds D on it.
+    per_render = {"fused_tprelu": acts + (acts + 1) + acts,
+                  "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2}
+    return {**per_render, "fused_tprelu": per_render["fused_tprelu"] + acts}, per_render
+
+
+def r_separate_config(g_run: str, args: list) -> TrainRSeparateConfig:
+    g_cfg = TrainGLISConfig.load(os.path.join(g_run, "config.json"))
+    return train_r_separate.architecture_from_g(TrainRSeparateConfig.from_args(args), g_cfg)
+
+
 def _r_separate(tmp: str, g_run: str, kernel_rows: dict, smi: str) -> dict:
     tag = "r-separate"
     run = os.path.join(tmp, "rsep")
     args = ["--g_path", g_run, "--batch_size", str(BATCH), "--log_interval", "10",
             "--save_path", run, "--vis_interval", str(TRAINER_VIS),
             "--save_interval", str(TRAINER_VIS)]
-    g_cfg = TrainGLISConfig.load(os.path.join(g_run, "config.json"))
-    cfg = train_r_separate.architecture_from_g(TrainRSeparateConfig.from_args(args), g_cfg)
-    acts = generator_plan(cfg.image_size)[1] - 1  # TPReLUs of one G render, of D's trunk
-    # A step: the frozen render, R (trunk + head), the corrected render, D.
-    per_step = {"fused_tprelu": acts + (acts + 1) + acts + acts,
-                "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2}
-    # A render: before, R, after.
-    per_render = {"fused_tprelu": acts + (acts + 1) + acts,
-                  "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2}
+    cfg = r_separate_config(g_run, args)
+    acts = generator_plan(cfg.image_size)[1] - 1
+    per_step, per_render = r_separate_launches(cfg)
     renders = TRAINER_STEPS // TRAINER_VIS
     state, stats, _, counts = counted_run(
         tag, f"CLI, {TRAINER_STEPS} steps and {renders} renders", train_r_separate,
@@ -1501,6 +1544,17 @@ def _r_separate(tmp: str, g_run: str, kernel_rows: dict, smi: str) -> dict:
             "card": smi}, cfg
 
 
+def r_iterative_launches(cfg) -> tuple:
+    """(launches of an R-iterative step, of one unroll of the chain)."""
+    acts, links = generator_plan(cfg.image_size)[1] - 1, cfg.r_chain_length
+    chain = (links + 1) * acts + links * (acts + 1)  # renders and R's of one unroll
+    # A step: the D step's unroll, D on real and on fakes, the joint
+    # unroll and D on its images.
+    return ({"fused_tprelu": 2 * chain + 3 * acts, "lis_residual_mlp": 0,
+             "fused_seed": 2 * (links + 1)},
+            {"fused_tprelu": chain, "lis_residual_mlp": 0, "fused_seed": links + 1})
+
+
 def r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
     """Phase 10: the trainer under the train step's TF32 settings, then the
     fp32 check without TF32, as phase 7's."""
@@ -1525,13 +1579,9 @@ def _r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
     args = TRAINER_ARGS + ["--r_chain_length", "2", "--lambda_r", "0.9", "--save_path", run,
                            "--vis_interval", str(TRAINER_VIS), "--save_interval", str(TRAINER_VIS)]
     cfg = TrainRIterativeConfig.from_args(args)
-    acts, links = generator_plan(cfg.image_size)[1] - 1, cfg.r_chain_length
-    chain = (links + 1) * acts + links * (acts + 1)  # renders and R's of one unroll
-    # A step: the D step's unroll, D on real and on fakes, the joint
-    # unroll and D on its images.
-    per_step = {"fused_tprelu": 2 * chain + 3 * acts, "lis_residual_mlp": 0,
-                "fused_seed": 2 * (links + 1)}
-    per_render = {"fused_tprelu": chain, "lis_residual_mlp": 0, "fused_seed": links + 1}
+    links = cfg.r_chain_length
+    per_step, per_render = r_iterative_launches(cfg)
+    chain = per_render["fused_tprelu"]
     renders = TRAINER_STEPS // TRAINER_VIS
     state, stats, _, counts = counted_run(
         tag, f"CLI, {TRAINER_STEPS} steps and {renders} renders", train_r_iterative,
@@ -1567,6 +1617,265 @@ def _r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
             "variants": variants, "relaunch": resumed, "card": smi}, cfg
 
 
+# --------------------------------------------------------------- evaluation
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "torch_port_fid_golden.json")
+FID_STEPS, FID_INTERVAL, FID_SAMPLES, EVAL_SAMPLES = 20, 10, 1024, 2048
+FEATURE_BATCH = 64
+
+
+def golden_halves(recipe: dict) -> list:
+    """The golden's images, on the card: per half, np.clip(default_rng(seed)
+    .normal(shift, scale, (count, size, size, 3)), -1, 1) in float32."""
+    size = recipe["size"]
+    return [torch.from_numpy(np.clip(np.random.default_rng(h["seed"]).normal(
+        h["shift"], h["scale"], (h["count"], size, size, 3)), -1, 1).astype(np.float32)).cuda()
+        for h in recipe["halves"]]
+
+
+def check_extractor(smi: str) -> dict:
+    """Both feature networks on the card against the golden written from
+    `gea` (`tests/test_torch_port_fid.py --write`): feature means and
+    covariance trace within rtol 1e-4 (on the mean, of the largest
+    magnitude), the proxy-FID between the two halves within rtol 1e-3.
+    Run with TF32 allowed, as the trainers run: the extractor must turn it
+    off itself."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    halves = golden_halves(golden["images"])
+    out = {}
+    with cudnn_tf32():
+        for name in fid.EXTRACTORS:
+            extract, label = fid.make_feature_extractor(golden["images"]["size"], name)
+            feats = [torch.cat([extract(x[i:i + FEATURE_BATCH])
+                                for i in range(0, len(x), FEATURE_BATCH)]).double().cpu().numpy()
+                     for x in halves]
+            stats = [fid.FIDStats.empty(feats[0].shape[1]) for _ in range(3)]
+            stats[0].update(np.concatenate(feats))
+            stats[1].update(feats[0])
+            stats[2].update(feats[1])
+            want = golden[name]
+            mean_err = float(np.abs(stats[0].mean - want["mean"]).max()
+                             / np.abs(want["mean"]).max())
+            trace = float(np.trace(stats[0].cov))
+            fid_halves = fid.frechet_distance(stats[1].mean, stats[1].cov, stats[2].mean,
+                                              stats[2].cov)
+            trace_err = abs(trace / want["cov_trace"] - 1)
+            fid_err = abs(fid_halves / want["fid_halves"] - 1)
+            batch = halves[0][:FEATURE_BATCH]
+            ms = time_ms(lambda: extract(batch))
+            out[name] = {"label": label, "mean_rel_err": mean_err, "cov_trace": trace,
+                         "cov_trace_rel_err": trace_err, "fid_halves": fid_halves,
+                         "fid_rel_err": fid_err, "ms_per_batch": ms,
+                         "batch": list(batch.shape), "card": smi}
+            print(f"[eval] {label} on the card vs gea's golden: feature means {mean_err:.2e} "
+                  f"of the largest (tol 1e-4), covariance trace {trace_err:.2e} (tol 1e-4), "
+                  f"proxy-FID of the halves {fid_halves:.6f} vs {want['fid_halves']:.6f} "
+                  f"({fid_err:.2e}, tol 1e-3); {ms:.4f} ms a batch of {FEATURE_BATCH} "
+                  f"(fp32, no TF32); {smi}", flush=True)
+            if mean_err > 1e-4 or trace_err > 1e-4 or fid_err > 1e-3:
+                raise AssertionError(f"{name} features disagree with gea's golden: {out[name]}")
+    return out
+
+
+def fid_rows(run: str) -> list:
+    with open(os.path.join(run, "fid.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_tracking(tag: str, run: str, fresh) -> dict:
+    """fid.jsonl has an evaluation at FID_INTERVAL and at FID_STEPS, both
+    finite, and best.json names the best one's checkpoint, which restores
+    into `fresh`."""
+    rows = fid_rows(run)
+    best = best_record(run)
+    if ([r["step"] for r in rows] != [FID_INTERVAL, FID_STEPS]
+            or not all(np.isfinite(r["fid"]) for r in rows)
+            or best is None or best["metric"] != min(r["fid"] for r in rows)):
+        raise AssertionError(f"{tag}: fid.jsonl {rows}, best.json {best}")
+    restored = restore_checkpoint(run, fresh, step=-1)
+    if restored.step != best["step"]:
+        raise AssertionError(f"{tag}: best.json {best}, restored step {restored.step}")
+    print(f"[eval] {tag}: fid.jsonl {rows}; best.json {best} restores", flush=True)
+    return {"fid_jsonl": rows, "best": best}
+
+
+def timed_evaluation(tag: str, make_fid_fn, state, per_eval: dict, smi: str) -> dict:
+    """The tracker outside the loop: the wall time of its real-side set-up,
+    then one evaluation (after one warm-up) with its launches, its wall
+    time and the device's idle share under torch.profiler."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fid_fn = make_fid_fn()
+    setup_s = time.perf_counter() - t0
+    fid_fn(state)
+    # The host's share of the wall: the Frechet distance (scipy's sqrtm).
+    frechet_s, frechet_distance = [], fid.frechet_distance
+
+    def timed_frechet(*args):
+        t = time.perf_counter()
+        try:
+            return frechet_distance(*args)
+        finally:
+            frechet_s.append(time.perf_counter() - t)
+
+    fid.frechet_distance = timed_frechet
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        value = fid_fn(state)
+        torch.cuda.synchronize()
+    finally:
+        fid.frechet_distance = frechet_distance
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    if counts != per_eval or not np.isfinite(value):
+        raise AssertionError(f"{tag}: one evaluation launched {counts} != {per_eval}, "
+                             f"fid {value}")
+    walls = []
+
+    def profiled():
+        t = time.perf_counter()
+        fid_fn(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+
+    busy_ms, rows = device_profile(profiled)
+    out = {"real_setup_s": setup_s, "eval_wall_ms": wall_ms, "frechet_ms": 1e3 * sum(frechet_s),
+           "fid": value, "launches_per_eval": counts, "profiled_wall_ms": walls[0],
+           "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / walls[0],
+           "by_category": by_category(rows), "card": smi}
+    print(f"[eval] {tag}: real side {setup_s:.3f} s ({FID_SAMPLES} samples); one evaluation "
+          f"{wall_ms:.1f} ms ({out['frechet_ms']:.1f} ms of it in frechet_distance), fid "
+          f"{value:.4f}, launches {counts}; under torch.profiler "
+          f"{walls[0]:.1f} ms, device busy {busy_ms:.3f} ms, idle share "
+          f"{out['idle_share']:.3f}; {smi}", flush=True)
+    return out
+
+
+def tracked_trainers(tmp: str, g_run: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 11, the trainers: each runs FID_STEPS steps without and with
+    --fid_interval FID_INTERVAL --fid_samples FID_SAMPLES, under the train
+    step's TF32 settings, with exact launches (the steps' and the 2
+    evaluations' renders)."""
+    renders = -(-FID_SAMPLES // BATCH)  # per evaluation
+    r_args = ["--g_path", g_run, "--batch_size", str(BATCH), "--log_interval", "10"]
+    track_args = ["--fid_interval", str(FID_INTERVAL), "--fid_samples", str(FID_SAMPLES)]
+    glis_cfg = TrainGLISConfig.from_args(TRAINER_ARGS + track_args)
+    rsep_cfg = r_separate_config(g_run, r_args + track_args)
+    it_args = TRAINER_ARGS + ["--r_chain_length", "2", "--lambda_r", "0.9"]
+    it_cfg = TrainRIterativeConfig.from_args(it_args + track_args)
+    g_cfg = TrainGLISConfig.load(os.path.join(g_run, "config.json"))
+    # name -> (CLI, its arguments, its launches, a fresh state for the
+    # restore, the tracker of a trained state)
+    trainers = {
+        "train_glis": (train_glis, TRAINER_ARGS, glis_launches(glis_cfg),
+                       lambda s: create_glis_state(glis_cfg),
+                       lambda s: (lambda: train_glis.make_fid_fn(glis_cfg, s.device))),
+        "train_r_separate": (train_r_separate, r_args, r_separate_launches(rsep_cfg),
+                             lambda s: create_r_state(rsep_cfg, s.generator, s.discriminator),
+                             lambda s: (lambda: train_r_separate.make_fid_fn(
+                                 rsep_cfg, g_cfg, s.generator))),
+        "train_r_iterative": (train_r_iterative, it_args, r_iterative_launches(it_cfg),
+                              lambda s: create_r_iterative_state(it_cfg),
+                              lambda s: (lambda: train_r_iterative.make_fid_fn(it_cfg, s.device))),
+    }
+    out = {}
+    with cudnn_tf32():
+        for name, (cli, args, (per_step, per_render), fresh, make) in trainers.items():
+            tag = f"eval {name}"
+            common = args + ["--niter", str(FID_STEPS), "--vis_interval", "0",
+                             "--save_interval", str(FID_STEPS)]
+            _, plain, _, _ = counted_run(
+                tag, f"{FID_STEPS} steps without --fid_interval", cli,
+                common + ["--save_path", os.path.join(tmp, f"{name}_plain")],
+                launches(per_step, FID_STEPS, per_render, 0))
+            run = os.path.join(tmp, f"{name}_fid")
+            state, tracked, text, counts = counted_run(
+                tag, f"{FID_STEPS} steps with --fid_interval {FID_INTERVAL}, 2 evaluations of "
+                f"{renders} renders", cli,
+                common + ["--save_path", run] + track_args,
+                launches(per_step, FID_STEPS, per_render, 2 * renders))
+            for k, n in counts.items():
+                kernel_rows[k].setdefault("launches_eval", {})[f"{name} --fid_interval"] = n
+            tracking = check_tracking(tag, run, fresh(state))
+            ratio = tracked["images_per_sec"] / plain["images_per_sec"]
+            print(f"[eval] {name}: {tracked['images_per_sec']:.1f} img/s with --fid_interval "
+                  f"{FID_INTERVAL} against {plain['images_per_sec']:.1f} without ({ratio:.3f}); "
+                  f"{smi}", flush=True)
+            per_eval = {k: renders * v for k, v in per_render.items()}
+            out[name] = {"run_dir": run, "images_per_sec": tracked["images_per_sec"],
+                         "images_per_sec_without": plain["images_per_sec"],
+                         "rate_ratio": ratio, "launches": counts, **tracking,
+                         "evaluation": timed_evaluation(name, make(state), state, per_eval, smi),
+                         "card": smi}
+            del state
+    return out
+
+
+def finite_numbers(obj) -> bool:
+    if isinstance(obj, dict):
+        return all(finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(finite_numbers(v) for v in obj)
+    return not isinstance(obj, float) or np.isfinite(obj)
+
+
+def eval_clis(tmp: str, tracked: dict, kernel_rows: dict, smi: str) -> dict:
+    """Phase 11, the offline evaluators on phases 8-10's run directories
+    (and the tracked G-LIS run for --step -1), EVAL_SAMPLES samples in
+    batches of BATCH, each with exact launches and finite values."""
+    g_run, r_run, it_run = (os.path.join(tmp, d) for d in ("run", "rsep", "riter"))
+    glis_cfg = TrainGLISConfig.load(os.path.join(g_run, "config.json"))
+    rsep_cfg = TrainRSeparateConfig.load(os.path.join(r_run, "config.json"))
+    it_cfg = TrainRIterativeConfig.load(os.path.join(it_run, "config.json"))
+    acts = generator_plan(glis_cfg.image_size)[1] - 1  # TPReLUs of D's trunk
+    _, render = glis_launches(glis_cfg)
+    _, pair = r_separate_launches(rsep_cfg)
+    _, chain = r_iterative_launches(it_cfg)
+    scored = {**render, "fused_tprelu": render["fused_tprelu"] + acts}
+    batches = -(-EVAL_SAMPLES // BATCH)
+    fid_args = ["--load_path", g_run, "--dataset", "synthetic"]
+    runs = {
+        "compute_fid": (compute_fid, fid_args, render),
+        "compute_fid --d_filter": (compute_fid, fid_args + ["--d_filter"], scored),
+        "compute_fid --r_path": (compute_fid, fid_args + ["--r_path", r_run], pair),
+        "compute_fid --second_opinion": (compute_fid, fid_args + ["--second_opinion"], render),
+        "compute_fid --step -1": (compute_fid, ["--load_path", tracked["train_glis"]["run_dir"],
+                                                "--dataset", "synthetic", "--step", "-1"],
+                                  render),
+        "eval_stages": (eval_stages, ["--load_path", g_run], scored),
+        "eval_chain": (eval_chain, ["--load_path", it_run],
+                       {**chain, "fused_tprelu": chain["fused_tprelu"] + acts}),
+    }
+    out = {}
+    for label, (cli, args, per_batch) in runs.items():
+        want = {k: batches * v for k, v in per_batch.items()}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = cli.main(args + ["--num_samples", str(EVAL_SAMPLES), "--batch_size", str(BATCH)])
+        wall_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        print(f"[eval] {label}: launch counts {counts} (want {want}), {wall_s:.3f} s; {smi}",
+              flush=True)
+        if counts != want or not finite_numbers(result):
+            raise AssertionError(f"{label}: launches {counts} != {want} or non-finite {result}")
+        for k, n in counts.items():
+            kernel_rows[k].setdefault("launches_eval", {})[label] = n
+        out[label] = {"result": result, "wall_s": wall_s, "launches": counts}
+    return out
+
+
+def evaluation(tmp: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 11."""
+    extractor = check_extractor(smi)
+    tracked = tracked_trainers(tmp, os.path.join(tmp, "run"), kernel_rows, smi)
+    return {"extractor": extractor, "trainers": tracked,
+            "clis": eval_clis(tmp, tracked, kernel_rows, smi), "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1575,9 +1884,11 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = nvidia_smi()
     print(f"[device] {smi}", flush=True)
+    import scipy  # frechet_distance needs it; a missing scipy stops the script here
+
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)} "
-          f"x{torch.cuda.device_count()}", flush=True)
+          f"python {sys.version.split()[0]}, scipy {scipy.__version__}, "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1602,6 +1913,7 @@ def main() -> int:
         trained = trainer(tmp, rows, train["images_per_s"], smi)
         r_trainers = {"r_separate": r_separate(tmp, trained["run_dir"], rows, smi),
                       "r_iterative": r_iterative(tmp, rows, smi)}
+        evaluated = evaluation(tmp, rows, smi)
 
     kernels = []
     for name, row in rows.items():
@@ -1612,6 +1924,7 @@ def main() -> int:
             "launches_trainer": row["launches_trainer"],
             "launches_r_separate": row["launches_r_separate"],
             "launches_r_iterative": row["launches_r_iterative"],
+            "launches_eval": row["launches_eval"],
             "launches_per_r_separate_step": row["launches_per_r_separate_step"],
             "launches_per_r_iterative_step": row["launches_per_r_iterative_step"],
             "launches_serving": row["launches_serving"], "max_abs_err": row["max_abs_err"],
@@ -1633,6 +1946,8 @@ def main() -> int:
                       "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"trainer": trained}), flush=True)
     print(json.dumps({"r_trainers": r_trainers, "seconds": time.perf_counter() - t_start}),
+          flush=True)
+    print(json.dumps({"evaluation": evaluated, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -8,7 +8,11 @@ train step (`gea_torch.train`) and its trainer, `python -m
 gea_torch.cli.train_glis` (`gea_torch.data`, `gea_torch.train.runner`,
 `gea_torch.utils`), and the two reverser trainers, `python -m
 gea_torch.cli.train_r_separate` and `train_r_iterative`
-(`gea_torch.models.reverter`, `gea_torch.train.steps_r`). Their three TPU
+(`gea_torch.models.reverter`, `gea_torch.train.steps_r`), and evaluation:
+`gea`'s proxy-FID, KID and precision/recall (`gea_torch.eval.fid`), FID
+tracking in the three trainers (`--fid_interval`) and the evaluators
+`python -m gea_torch.cli.compute_fid`, `eval_stages` and `eval_chain`.
+Their three TPU
 kernels are hand-written Hopper kernels in `gea_torch.ops`, each a
 `torch.autograd.Function`.
 

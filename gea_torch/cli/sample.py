@@ -1,6 +1,7 @@
 """The cross-tool checkpoint contract of `gea/cli/sample.py`: rebuild a
-G-LIS run's generator and discriminator from its run directory. R-separate
-reads its frozen G (and D) through these.
+G-LIS run's generator (or its EMA shadow) and discriminator from its run
+directory. R-separate reads its frozen G (and D) through these, and the
+evaluators (`compute_fid`, `eval_stages`) their G and D.
 
 They read a run directory of the port's G-LIS trainer: `config.json` and
 `checkpoints/<step>/state.pt`. `gea`'s orbax run directories are not read.
@@ -34,13 +35,22 @@ def read_run(load_path: str, step: Optional[int] = None) -> Tuple[TrainGLISConfi
 
 
 def load_generator(load_path: str, step: Optional[int] = None, device="cuda",
-                   restored: Optional[dict] = None) -> Tuple[GeneratorLIS, TrainGLISConfig]:
+                   restored: Optional[dict] = None,
+                   use_ema: bool = False) -> Tuple[GeneratorLIS, TrainGLISConfig]:
     """(the run's G with the weights of `step`, in inference mode, and the
-    run's config). `restored` is a state_dict already read from the run."""
+    run's config). `restored` is a state_dict already read from the run.
+    `use_ema` takes the EMA shadow of G's parameters (runs trained with
+    --g_ema > 0)."""
     cfg, ckpt = read_run(load_path, step) if restored is None else (
         TrainGLISConfig.load(os.path.join(load_path, "config.json")), restored)
+    weights = ckpt["generator"]
+    if use_ema:
+        if not ckpt.get("g_ema"):
+            raise SystemExit(f"--use_ema: checkpoint under {load_path!r} has no EMA params "
+                             "(train with --g_ema > 0)")
+        weights = {**weights, **ckpt["g_ema"]}
     g = GeneratorLIS(cfg, device=device)
-    g.load_state_dict(ckpt["generator"], strict=True)
+    g.load_state_dict(weights, strict=True)
     return g.eval(), cfg
 
 

@@ -17,6 +17,10 @@ then its resume:
         --vis_rows 2 --save_path "$RUN"
     # the same with --niter 9 prints "resumed from ... at step 6"
 
+With `--fid_interval N` the run scores the final LIS stage's proxy-FID
+every N steps (`make_fid_fn`), logs it to <run>/fid.jsonl and pins the best
+checkpoint in best.json; `--stop_patience` ends it early.
+
 The flags are `gea`'s, plus `--device`; flags the port does not implement
 yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
 """
@@ -28,7 +32,9 @@ from typing import Optional
 
 import torch
 
+from gea_torch.cli.compute_fid import Noise, real_batch_iter, seeded_noise
 from gea_torch.config import TrainGLISConfig, refuse_unported, resolve_device
+from gea_torch.eval.fid import OnlineFID
 from gea_torch.train.runner import (
     TrainLoop,
     check_batch,
@@ -62,6 +68,34 @@ def make_vis_fn(cfg: TrainGLISConfig, generator, run_dir: str):
     return vis
 
 
+def make_fid_fn(cfg: TrainGLISConfig, device, noise: Noise = seeded_noise):
+    """In-training proxy-FID of the final LIS stage (--fid_interval): the
+    real side's moments once, from the iterator the offline `compute_fid`
+    reads (seed ^ 0xF1D), and the fake side rendered from the live G at
+    the fixed noise seed seed ^ 0xFAD at every call. With --g_ema > 0 it
+    scores the EMA shadow, the copy a user samples with --use_ema."""
+    online = OnlineFID(real_batch_iter(cfg, cfg.seed ^ 0xF1D, device), cfg.image_size,
+                       num_samples=cfg.fid_samples, extractor="auto", device=device)
+    print(f"[gea_torch] --fid_interval {cfg.fid_interval}: tracking {online.label} over "
+          f"{cfg.fid_samples} samples", flush=True)
+
+    def fid_fn(state) -> float:
+        g, weights = state.generator, (state.g_ema if cfg.g_ema > 0 else {})
+        draw = noise(g, cfg.seed ^ 0xFAD)
+
+        def fakes():
+            while True:
+                z, sn = draw(cfg.batch_size)
+                with torch.no_grad():
+                    images = torch.func.functional_call(
+                        g, weights, (z, sn), {"render_all_stages": True})[0][-1]
+                yield images
+
+        return online.score(fakes())
+
+    return fid_fn
+
+
 def param_count(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 
@@ -79,9 +113,10 @@ def run(cfg: TrainGLISConfig):
           f"{cfg.n_stages}")
     state, start_step = maybe_resume(cfg, state)
     data = input_iterator(cfg, device, cfg.seed, start_step=start_step)
+    fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 else None
     loop = TrainLoop(cfg, run_dir, state, build_glis_train_step(cfg), data,
                      make_input_fn(cfg, device),
-                     vis_fn=make_vis_fn(cfg, state.generator, run_dir))
+                     vis_fn=make_vis_fn(cfg, state.generator, run_dir), fid_fn=fid_fn)
     try:
         final_state = loop.run(start_step)
     finally:

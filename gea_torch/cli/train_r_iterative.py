@@ -20,6 +20,9 @@ A tiny run on the CPU in a fresh directory, then its resume:
         --vis_rows 2 --save_path "$RIT"
     # the same with --niter 6 prints "resumed from ... at step 4"
 
+With `--fid_interval N` the run scores the proxy-FID of the chain's end
+G(z_T) every N steps (`make_fid_fn`) and pins the best joint G/R snapshot.
+
 The flags are `gea`'s, plus `--device`; flags the port does not implement
 yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
 """
@@ -31,8 +34,10 @@ from typing import Optional
 
 import torch
 
+from gea_torch.cli.compute_fid import Noise, real_batch_iter, seeded_noise
 from gea_torch.cli.train_glis import param_count
 from gea_torch.config import TrainRIterativeConfig, refuse_unported, resolve_device
+from gea_torch.eval.fid import OnlineFID
 from gea_torch.models.reverter import iterative_chain
 from gea_torch.train.runner import (
     TrainLoop,
@@ -68,6 +73,30 @@ def make_vis_fn(cfg: TrainRIterativeConfig, generator, run_dir: str):
     return vis
 
 
+def make_fid_fn(cfg: TrainRIterativeConfig, device, noise: Noise = seeded_noise):
+    """--fid_interval for R-iterative: proxy-FID of the end of the
+    correction chain, G(z_T), against the training data."""
+    online = OnlineFID(real_batch_iter(cfg, cfg.seed ^ 0xF1D, device), cfg.image_size,
+                       num_samples=cfg.fid_samples, device=device)
+    print(f"[gea_torch] --fid_interval {cfg.fid_interval}: tracking chain-end {online.label} "
+          f"over {cfg.fid_samples} samples", flush=True)
+
+    def fid_fn(state) -> float:
+        draw = noise(state.generator, cfg.seed ^ 0xFAD)
+
+        def fakes():
+            while True:
+                z, sn = draw(cfg.batch_size)
+                with torch.no_grad():
+                    images = iterative_chain(state.generator, state.reverter, z, sn,
+                                             cfg.r_chain_length)[-1]
+                yield images
+
+        return online.score(fakes())
+
+    return fid_fn
+
+
 def run(cfg: TrainRIterativeConfig):
     """Train G, D and R; returns (state, stats) as `train_glis.run` does."""
     refuse_unported(cfg)
@@ -80,10 +109,11 @@ def run(cfg: TrainRIterativeConfig):
           f"device: {device}, chain links/step: {cfg.r_chain_length}")
     state, start_step = maybe_resume(cfg, state)
     data = input_iterator(cfg, device, cfg.seed, start_step=start_step)
+    fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 else None
     loop = TrainLoop(cfg, run_dir, state, build_r_iterative_step(cfg), data,
                      make_input_fn(cfg, device),
                      vis_fn=make_vis_fn(cfg, state.generator, run_dir),
-                     loss_keys=("loss_d", "loss_g", "loss_r_sim"))
+                     loss_keys=("loss_d", "loss_g", "loss_r_sim"), fid_fn=fid_fn)
     try:
         final_state = loop.run(start_step)
     finally:

@@ -18,6 +18,10 @@ A tiny run on the CPU, against the tiny G-LIS run of
         --save_interval 2 --vis_rows 2 --save_path "$RSEP"
     # the same with --niter 6 prints "resumed from ... at step 4"
 
+With `--fid_interval N` the run scores the proxy-FID of the corrected
+samples G(blend(z, R(G(z)), --fid_correction_strength)) every N steps
+against the G run's dataset (`make_fid_fn`) and pins the best R snapshot.
+
 The flags are `gea`'s, plus `--device`; flags the port does not implement
 yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
 """
@@ -29,9 +33,12 @@ from typing import Optional
 
 import torch
 
+from gea_torch.cli.compute_fid import Noise, real_batch_iter, seeded_noise
 from gea_torch.cli.sample import load_discriminator, load_generator, read_run
 from gea_torch.cli.train_glis import param_count
 from gea_torch.config import TrainRSeparateConfig, refuse_unported, resolve_device
+from gea_torch.eval.fid import OnlineFID
+from gea_torch.models.reverter import corrected_render
 from gea_torch.train.runner import TrainLoop, check_batch, maybe_resume, no_input, prepare_run
 from gea_torch.train.state import create_r_state
 from gea_torch.train.steps_r import build_r_separate_step
@@ -69,6 +76,34 @@ def make_vis_fn(cfg: TrainRSeparateConfig, generator, run_dir: str):
     return vis
 
 
+def make_fid_fn(cfg: TrainRSeparateConfig, g_cfg, generator, noise: Noise = seeded_noise):
+    """Corrected-sample proxy-FID (--fid_interval): G(blend(z, R(G(z))))
+    with the sampler's blend (strength --fid_correction_strength, shell
+    renorm) against the G run's dataset, so that the tracker follows
+    whether R's correction improves and pins the best R snapshot."""
+    data_cfg = g_cfg.replace(batch_size=cfg.batch_size)
+    online = OnlineFID(real_batch_iter(data_cfg, cfg.seed ^ 0xF1D, generator.device),
+                       cfg.image_size, num_samples=cfg.fid_samples, device=generator.device)
+    print(f"[gea_torch] --fid_interval {cfg.fid_interval}: tracking corrected-sample "
+          f"{online.label} over {cfg.fid_samples} samples (strength "
+          f"{cfg.fid_correction_strength})", flush=True)
+
+    def fid_fn(state) -> float:
+        draw = noise(generator, cfg.seed ^ 0xFAD)
+
+        def fakes():
+            while True:
+                z, sn = draw(cfg.batch_size)
+                with torch.no_grad():
+                    images = corrected_render(generator, state.reverter, z, sn,
+                                              cfg.fid_correction_strength)
+                yield images
+
+        return online.score(fakes())
+
+    return fid_fn
+
+
 def run(cfg: TrainRSeparateConfig):
     """Train R; returns (state, stats) as `train_glis.run` does. The state
     holds the frozen G and D it trained against."""
@@ -97,9 +132,10 @@ def run(cfg: TrainRSeparateConfig):
           f"{param_count(generator):,}  device: {device}")
     state, start_step = maybe_resume(cfg, state)
     data = no_input()
+    fid_fn = make_fid_fn(cfg, g_cfg, generator) if cfg.fid_interval > 0 else None
     loop = TrainLoop(cfg, run_dir, state, build_r_separate_step(cfg), data,
                      lambda batch, step: batch, vis_fn=make_vis_fn(cfg, generator, run_dir),
-                     loss_keys=("loss_r",))
+                     loss_keys=("loss_r",), fid_fn=fid_fn)
     final_state = loop.run(start_step)
     stats = {**loop.meter.stats(), **loop.timings(), "metrics": loop.last_metrics}
     print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s")

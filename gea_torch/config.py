@@ -168,13 +168,19 @@ class TrainGLISConfig(ModelConfig, DataConfig):
     stage_weight_initial: float = _flag(
         0.2, "relative adversarial-loss weight of non-final LIS stages; the final "
         "stage always has weight 1.0 before normalization")
-    fid_interval: int = _flag(0, "proxy-FID every N steps (not ported yet)")
-    fid_samples: int = _flag(1024, "sample count per --fid_interval evaluation (not ported yet)")
+    fid_interval: int = _flag(
+        0, "compute proxy-FID of the final LIS stage against the training data every N "
+        "steps, log to <run>/fid.jsonl, and keep the best-scoring checkpoint pinned "
+        "(best.json; load it anywhere with --step -1). 0 disables")
+    fid_samples: int = _flag(1024, "sample count per --fid_interval evaluation (real and fake)")
     gan_loss: str = _flag(
         "bce", "GAN objective: BCE, hinge, or WGAN with gradient penalty",
         choices=("bce", "hinge", "wgan-gp"))
     gp_weight: float = _flag(10.0, "gradient-penalty weight for --gan_loss wgan-gp")
-    stop_patience: int = _flag(0, "early stopping on FID (not ported yet)")
+    stop_patience: int = _flag(
+        0, "early stopping: end the run after this many consecutive --fid_interval "
+        "evaluations without a new best FID (the best snapshot stays pinned for --step -1). "
+        "0 disables; requires --fid_interval > 0")
     g_ema: float = _flag(
         0.0, "decay for an exponential moving average of G's params; 0 disables")
     seed: int = _flag(42, "PRNG seed")
@@ -228,8 +234,11 @@ class TrainRConfig(ModelConfig, DataConfig):
     lambda_r: float = _flag(
         0.9, "weight of the z-similarity penalty ||R(G(z)) - z||^2 keeping the "
         "corrected code close to the original")
-    fid_interval: int = _flag(0, "proxy-FID every N steps (not ported yet)")
-    fid_samples: int = _flag(1024, "sample count per --fid_interval evaluation (not ported yet)")
+    fid_interval: int = _flag(
+        0, "track proxy-FID every N steps and pin the best checkpoint (best.json; --step -1): "
+        "R-separate scores CORRECTED samples G(blend(z, R(G(z)))), R-iterative the end of the "
+        "correction chain. 0 disables")
+    fid_samples: int = _flag(1024, "sample count per --fid_interval evaluation (real and fake)")
     seed: int = _flag(42, "PRNG seed")
     save_path: str = _flag("runs/r", "experiment directory for outputs")
     load_path: str = _flag("", "resume this R run from its directory")
@@ -284,7 +293,8 @@ class TrainRSeparateConfig(TrainRConfig):
         0.0, "defective-z mining in [0, 1]: re-weight the per-sample reconstruction "
         "loss toward samples the frozen D scores as fake")
     fid_correction_strength: float = _flag(
-        0.3, "blend strength of the correction scored by --fid_interval (not ported yet)")
+        0.3, "blend strength of the correction scored by --fid_interval tracking (match "
+        "the --correction_strength you will sample with)")
 
 
 @dataclass(frozen=True)
@@ -297,12 +307,9 @@ class TrainRIterativeConfig(TrainRConfig):
 
 
 # Flags that the port does not implement yet, each with the values it
-# accepts besides its default, and why it refuses the others; one list per
-# trainer's config.
+# accepts besides its default, and why it refuses the others; the three
+# trainers' configs share the list.
 UNPORTED = {
-    "fid_interval": ((), "needs the port of gea/eval/fid.py"),
-    "fid_samples": ((), "needs the port of gea/eval/fid.py"),
-    "stop_patience": ((), "needs the port of gea/eval/fid.py"),
     "multihost": ((), "needs data parallelism"),
     "num_devices": ((1,), "needs data parallelism"),
     "model_shards": ((), "needs tensor parallelism"),
@@ -316,12 +323,6 @@ UNPORTED = {
     "lsun_classes": ((), "needs the LSUN reader"),
     "norm": (("none",), "needs norm=batch in the models"),
 }
-UNPORTED_R = {k: v for k, v in UNPORTED.items() if k != "stop_patience"}
-UNPORTED_BY_CONFIG = {
-    TrainGLISConfig: UNPORTED,
-    TrainRSeparateConfig: UNPORTED_R,
-    TrainRIterativeConfig: UNPORTED_R,
-}
 
 
 def refuse_unported(cfg: BaseConfig) -> None:
@@ -331,7 +332,7 @@ def refuse_unported(cfg: BaseConfig) -> None:
     defaults = {f.name: f.default for f in dataclasses.fields(type(cfg))}
     bad = [
         f"--{name} {getattr(cfg, name)} ({why})"
-        for name, (ok, why) in UNPORTED_BY_CONFIG[type(cfg)].items()
+        for name, (ok, why) in UNPORTED.items()
         if getattr(cfg, name) != defaults[name] and getattr(cfg, name) not in ok
     ]
     if cfg.dataset == "lsun":

@@ -75,12 +75,25 @@ def blend_correction(z: torch.Tensor, z_hat: torch.Tensor, strength: float = 0.3
     return z2
 
 
+def corrected_render(generator, reverter: Reverter, z: torch.Tensor,
+                     spatial_noise: Optional[torch.Tensor], strength: float = 0.3,
+                     shell_renorm: bool = True, steps: int = 1) -> torch.Tensor:
+    """R-separate's correction applied `steps` times, z <- blend(z,
+    R(G(z))), then the final stage of G(z) in the compute dtype: the
+    corrected samples that `compute_fid --r_path` and the R-separate
+    trainer's `--fid_interval` score."""
+    for _ in range(steps):
+        images = generator(z, spatial_noise, render_all_stages=True)[0]
+        z = blend_correction(z, reverter(images[-1]), strength, shell_renorm)
+    return generator(z, spatial_noise, render_all_stages=True)[0][-1]
+
+
 def iterative_chain(generator, reverter: Reverter, z0: torch.Tensor,
                     spatial_noise: Optional[torch.Tensor], links: int) -> torch.Tensor:
     """The unrolled chain z_t = z_{t-1} + R(G(z_{t-1})) of a single-stage
     generator (r_iterations=0): the per-link images (links + 1, B, H, W, 3)
     in the compute dtype. Shared by the R-iterative trainer's sample grids
-    and, later, its sampler."""
+    and `--fid_interval`, and `eval_chain`."""
     z = z0
     imgs = [generator(z, spatial_noise)[0][0]]
     for _ in range(links):

@@ -1,8 +1,9 @@
 """The trainer's host loop (port of `gea/train/runner.py` for one process
 and one device): the run directory, the input stream, resume, and
 `TrainLoop` with its periodic side effects (losses on stdout, sample
-grids, the loss plot, checkpoints with retention) and its guards (NaN/Inf
-abort, host-RSS budget).
+grids, the loss plot, checkpoints with retention, `--fid_interval`
+tracking of the best snapshot with `--stop_patience`) and its guards
+(NaN/Inf abort, host-RSS budget).
 
 Per-step randomness is keyed by the global step, so a resumed run draws
 what a run never interrupted would: the data stream fast-forwards to the
@@ -15,6 +16,7 @@ the train state's own generator, whose state the checkpoint keeps.
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import statistics
 import time
@@ -28,7 +30,9 @@ from gea_torch.data.ondevice import preprocess_batch, synthetic_batch
 from gea_torch.data.pipeline import device_crop_size, make_dataset
 from gea_torch.data.prefetch import device_prefetch
 from gea_torch.utils.checkpoint import (
+    best_record,
     latest_step,
+    record_best_step,
     restore_checkpoint,
     save_checkpoint,
     wait_for_checkpoints,
@@ -160,7 +164,14 @@ class TrainLoop:
     loss_d, loss_g and loss_r_sim).
     Metrics are 0-d tensors on the device, read on the host only at log
     intervals; the host waits for the device once more, when the warm-up
-    ends."""
+    ends.
+
+    `fid_fn(state) -> float` (`--fid_interval`) scores the current model at
+    every crossed multiple of fid_interval and at niter: the loop appends
+    to <run>/fid.jsonl, plots plots/fid.png, saves each new best and
+    protects it from retention, points best.json at it once its save is
+    durable, and with `--stop_patience` ends the run after that many
+    evaluations without a new best."""
 
     def __init__(
         self,
@@ -172,6 +183,7 @@ class TrainLoop:
         input_fn: Callable[[Any, int], torch.Tensor],
         vis_fn: Optional[Callable[[Any, int], None]] = None,
         loss_keys: Tuple[str, ...] = ("loss_d", "loss_g"),
+        fid_fn: Optional[Callable[[Any], float]] = None,
     ):
         self.cfg = cfg
         self.run_dir = run_dir
@@ -182,6 +194,17 @@ class TrainLoop:
         self.vis_fn = vis_fn
         self.loss_keys = loss_keys
         self.plotter = LossPlotter()
+        self.fid_fn = fid_fn
+        self._fid_plotter = LossPlotter()
+        self._best_fid = float("inf")
+        self._best_step: Optional[int] = None
+        # The latest best, saved asynchronously, that best.json does not
+        # point at yet: (step, fid). Committed once its save is durable.
+        self._pending_best: Optional[Tuple[int, float]] = None
+        # The step best.json points at now. Retention must protect it and
+        # the pending best, or best.json could name a deleted directory.
+        self._committed_best_step: Optional[int] = None
+        self._evals_since_best = 0
         self.meter = ThroughputMeter(cfg.batch_size)
         self.last_metrics: Dict[str, float] = {}
         # Host seconds per loop iteration, and of those, waiting for input.
@@ -199,17 +222,64 @@ class TrainLoop:
         return out
 
     def _save(self, step: int) -> None:
+        """An asynchronous save with retention that spares the best
+        snapshots; the save in flight before it is then durable."""
         save_checkpoint(self.run_dir, step, self.state, keep=self.cfg.keep_checkpoints,
-                        async_save=True)
+                        async_save=True, protect=(self._committed_best_step, self._best_step))
+        self._commit_pending_best()
 
     def _save_and_keep_all(self, step: int) -> None:
         """The guards' save (post-mortem, RSS): synchronous and pruning
         nothing, so a NaN state never evicts the finite checkpoints."""
         save_checkpoint(self.run_dir, step, self.state)
+        self._commit_pending_best()
+
+    def _commit_pending_best(self) -> None:
+        """Point best.json at the last best-save. Only after that save is
+        known durable (every later save, and the final wait, waits for the
+        one in flight): a crash never leaves best.json naming a missing
+        directory."""
+        if self._pending_best is not None:
+            step, fid = self._pending_best
+            record_best_step(self.run_dir, step, fid, "fid")
+            self._committed_best_step = step
+            self._pending_best = None
+
+    def _track_fid(self, step: int) -> Tuple[bool, bool]:
+        """One evaluation: (saved as a new best, stop early)."""
+        fid = float(self.fid_fn(self.state))
+        is_best = fid < self._best_fid
+        self._evals_since_best = 0 if is_best else self._evals_since_best + 1
+        patience = getattr(self.cfg, "stop_patience", 0)
+        stop = patience > 0 and self._evals_since_best >= patience
+        if stop:
+            print(f"[gea_torch] early stop at iter {step}: no new best in {patience} "
+                  f"evaluations (best {self._best_fid:.3f} @ {self._best_step})", flush=True)
+        print(f"[gea_torch] iter {step}: fid={fid:.3f}" + (
+            " (new best)" if is_best else f" (best {self._best_fid:.3f} @ {self._best_step})"),
+            flush=True)
+        with open(os.path.join(self.run_dir, "fid.jsonl"), "a") as f:
+            f.write(json.dumps({"step": step, "fid": round(fid, 4)}) + "\n")
+        self._fid_plotter.add(step, fid=fid)
+        self._fid_plotter.plot(os.path.join(self.run_dir, "plots", "fid.png"), ylabel="proxy-FID")
+        if is_best:
+            # The save runs in the background; best.json points at it at
+            # the next moment it is known durable.
+            self._save(step)
+            self._best_fid, self._best_step = fid, step
+            self._pending_best = (step, fid)
+        return is_best, stop
 
     def run(self, start_step: int):
         cfg = self.cfg
         rss_budget = resolve_rss_budget_gb(cfg.max_host_rss_gb)
+        if self.fid_fn is not None and (cfg.load_path or start_step > 0):
+            # A resumed run goes on comparing against its recorded best; a
+            # fresh run into a reused save_path does not adopt a stale one.
+            prior = best_record(self.run_dir)
+            if prior is not None:
+                self._best_fid = float(prior.get("metric", float("inf")))
+                self._best_step = self._committed_best_step = int(prior["step"])
         it = start_step
         while it < cfg.niter:
             # Host-RSS guard: checkpoint and exit for a clean auto-resume.
@@ -260,9 +330,16 @@ class TrainLoop:
                 self.vis_fn(self.state, it)
                 self.plotter.plot(os.path.join(self.run_dir, "plots", "loss.png"))
 
-            if crossed(cfg.save_interval) or it == cfg.niter:
+            saved_for_best = stop_early = False
+            if (self.fid_fn is not None and cfg.fid_interval > 0
+                    and (crossed(cfg.fid_interval) or it == cfg.niter)):
+                saved_for_best, stop_early = self._track_fid(it)
+            if (crossed(cfg.save_interval) or it == cfg.niter or stop_early) and not saved_for_best:
                 self._save(it)
             self.step_s.append(time.perf_counter() - t0)
+            if stop_early:
+                break
 
         wait_for_checkpoints()
+        self._commit_pending_best()
         return self.state

@@ -34,7 +34,7 @@ from gea.train.state import GANTrainState
 from gea.train.state import make_optimizer as jax_make_optimizer
 from gea.train.steps_r import build_r_iterative_step as jax_build_r_iterative_step
 from gea_torch.cli import train_r_iterative
-from gea_torch.config import UNPORTED_R, TrainRIterativeConfig, TrainRSeparateConfig
+from gea_torch.config import UNPORTED, TrainRIterativeConfig, TrainRSeparateConfig
 from gea_torch.interop import (
     init_discriminator_params,
     init_generator_params,
@@ -221,13 +221,14 @@ def test_link_weights_and_staged_loss_match_gea(rng):
 
 @pytest.mark.parametrize("cls", [TrainRIterativeConfig, TrainRSeparateConfig])
 def test_r_configs_refuse_unported_flags(cls):
-    """Each R config refuses every flag on its list (the G-LIS list less
-    --stop_patience, which the R trainers do not have) and --dataset lsun."""
+    """Each R config refuses every flag on the list (which G-LIS shares)
+    and --dataset lsun, and accepts the FID flags."""
     from gea_torch.config import refuse_unported
 
-    assert set(UNPORTED_R) == {f.name for f in dataclasses.fields(cls)} & set(UNPORTED_R)
-    assert "stop_patience" not in UNPORTED_R
-    bad = {"fid_interval": 5, "multihost": True, "num_devices": 2, "steps_per_dispatch": 2,
+    assert set(UNPORTED) <= {f.name for f in dataclasses.fields(cls)}
+    assert not {"fid_interval", "fid_samples", "stop_patience"} & set(UNPORTED)
+    refuse_unported(cls(fid_interval=5, fid_samples=64))
+    bad = {"multihost": True, "num_devices": 2, "steps_per_dispatch": 2,
            "norm": "batch", "data_backend": "native", "use_pallas": True, "dataset": "lsun"}
     for name, value in bad.items():
         with pytest.raises(SystemExit, match=name if name != "dataset" else "lsun"):

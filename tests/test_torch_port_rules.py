@@ -48,7 +48,11 @@ def test_import_without_cuda_builds_nothing():
         "import gea_torch.utils.meters, gea_torch.utils.hostmem;"
         "import gea_torch.models.reverter, gea_torch.train.steps_r, gea_torch.cli.sample;"
         "import gea_torch.cli.train_r_separate, gea_torch.cli.train_r_iterative;"
+        "import gea_torch.eval, gea_torch.eval.fid, gea_torch.cli.compute_fid;"
+        "import gea_torch.cli.eval_stages, gea_torch.cli.eval_chain;"
+        "import gea_torch.cli.sample_r_separate;"
         "assert 'PIL' not in sys.modules and 'matplotlib' not in sys.modules;"
+        "assert 'scipy' not in sys.modules;"
         "from gea_torch.ops import build;"
         "assert build._LIBS == {} and not build.BUILD_DIR.joinpath('x').exists();"
         "assert 'triton' not in sys.modules and 'jax' not in sys.modules;"
@@ -130,6 +134,25 @@ def test_r_clis_on_default_device_need_cuda(monkeypatch, tmp_path, cli):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(args)
+
+
+@pytest.mark.parametrize("cli", ["compute_fid", "eval_stages", "eval_chain"])
+def test_eval_clis_on_default_device_need_cuda(monkeypatch, tmp_path, cli):
+    """Without --device cpu the evaluators raise on a host without CUDA,
+    before they read the run directory."""
+    import importlib
+
+    mod = importlib.import_module(f"gea_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(["--load_path", str(tmp_path / "missing")])
+
+
+def test_new_port_files_are_checked():
+    """The import rule above covers the evaluation modules."""
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"gea_torch/eval/fid.py", "gea_torch/cli/compute_fid.py", "gea_torch/cli/eval_stages.py",
+            "gea_torch/cli/eval_chain.py", "gea_torch/cli/sample_r_separate.py"} <= names
 
 
 def test_chip_smoke_refuses_without_cuda():

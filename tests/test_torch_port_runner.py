@@ -320,7 +320,6 @@ def test_restore_refuses_another_schedule(tmp_path):
 
 
 REFUSED = [
-    ["--fid_interval", "10"], ["--fid_samples", "8"], ["--stop_patience", "2"],
     ["--multihost"], ["--num_devices", "2"], ["--model_shards", "2"], ["--tp_min_width", "8"],
     ["--steps_per_dispatch", "4"], ["--debug_checks"], ["--tensorboard"],
     ["--profile_dir", "prof"], ["--use_pallas"], ["--data_backend", "native"],
