@@ -93,13 +93,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tracked G-LIS run), `eval_stages` on phase 8's run and `eval_chain` on
    phase 10's, 2048 samples each in batches of 64, with exact launches and
    finite values;
-12. print one JSON line of the serving results, one of the training
+12. the demo data and the samplers: (a) `gea_torch.cli.make_demo_data`
+   writes demo20k's first 1,251 images (`--size 200 --seed 0 --quality 92
+   --style diverse`, timed); where pillow and libjpeg are those of
+   `data/demo20k/MANIFEST.json`, the sha256 of img00000.jpg and
+   img01250.jpg must be the manifest's, else both versions are printed and
+   the script says the hash check did not run; (b) `train_glis` in-process
+   on them at flagship width, batch 64, `--data_cache --g_ema 0.999
+   --fid_interval 20`, 40 steps and a save at 40, with exact launches;
+   (c) every sampler, with exact launches and its images/s with and
+   without the PNG/GIF writes: `sample` on (b)'s run (plain, `--d_filter`,
+   `--d_threshold` on its fill path, `--save_gif`, `--use_ema`, `--step -1`,
+   `--d_filter_step -1`), `sample_interpolations` (slerp, lerp),
+   `sample_r_separate` on phase 9's run, `sample_r_iterative` on phase 10's
+   (its chain length and 3); `info` on the four runs (parameter counts of
+   the modules each holds); `convert_checkpoint` export and `--from_torch`
+   re-import of (b)'s run and phase 10's, each rendering the same images
+   bit for bit; (d) the flagship fp32 render and D's logits, without TF32
+   and with the kernels, against the golden written from `gea`
+   (`tests/torch_port_render_golden.json`, atol 1e-4);
+13. print one JSON line of the serving results, one of the training
    results, one of the trainer's, one of the R trainers', one of the
-   evaluation's, one of per-kernel results (per train step; `launches`
-   counts phase 7's timed steps, `launches_trainer` the trainer's first
-   run, `launches_r_separate` and `launches_r_iterative` the R trainers'
-   first runs, `launches_eval` phase 11's tracked runs and evaluators), the
-   card's name and power limit, and last `{"ok": true, "device": {...}}`.
+   evaluation's, one of the samplers', one of per-kernel results (per train
+   step; `launches` counts phase 7's timed steps, `launches_trainer` the
+   trainer's first run, `launches_r_separate` and `launches_r_iterative`
+   the R trainers' first runs, `launches_eval` phase 11's tracked runs and
+   evaluators, `launches_samplers` phase 12's runs), the card's name and
+   power limit, and last `{"ok": true, "device": {...}}`.
 
 Phases 3-5 also hold each kernel against its plain version (forward and
 gradients) at the shapes only the R trainers give it: TPReLU on R's head,
@@ -112,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -127,8 +148,15 @@ import torch
 from gea_torch import FLAGSHIP, ops
 from gea_torch.cli import (
     compute_fid,
+    convert_checkpoint,
     eval_chain,
     eval_stages,
+    info,
+    make_demo_data,
+    sample,
+    sample_interpolations,
+    sample_r_iterative,
+    sample_r_separate,
     train_glis,
     train_r_iterative,
     train_r_separate,
@@ -142,6 +170,7 @@ from gea_torch.config import (
 )
 from gea_torch.data.pipeline import SyntheticDataset
 from gea_torch.eval import fid
+from gea_torch.models import Discriminator, GeneratorLIS, Reverter
 from gea_torch.interop import (
     discriminator_from_jax_params,
     generator_from_jax_params,
@@ -1876,6 +1905,275 @@ def evaluation(tmp: str, kernel_rows: dict, smi: str) -> dict:
             "clis": eval_clis(tmp, tracked, kernel_rows, smi), "card": smi}
 
 
+# ---------------------------------------------------------------- samplers
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DEMO_MANIFEST = os.path.join(REPO, "data", "demo20k", "MANIFEST.json")
+RENDER_GOLDEN = os.path.join(REPO, "tests", "torch_port_render_golden.json")
+# demo20k's first images, which hold its spot hashes img00000 and img01250.
+DEMO_COUNT, DEMO_SPOTS = 1251, ("img00000.jpg", "img01250.jpg")
+DEMO_ARGS = ["--size", "200", "--seed", "0", "--quality", "92", "--style", "diverse"]
+IMAGE_STEPS, IMAGE_FID_INTERVAL = 40, 20
+WRITERS = ("save_stage_grids", "save_stage_gif", "write_png")
+GOLDEN_TOL = 1e-4  # fp32 without TF32, with the kernels; the CPU holds 1e-5
+
+
+def demo_data(tmp: str, smi: str) -> dict:
+    """Phase 12(a): the port's make_demo_data writes demo20k's first
+    DEMO_COUNT images; their spot hashes must be the manifest's wherever
+    pillow and libjpeg are the manifest's."""
+    folder = os.path.join(tmp, "demo20k")
+    t0 = time.perf_counter()
+    make_demo_data.main(["--out", folder, "--count", str(DEMO_COUNT)] + DEMO_ARGS)
+    seconds = time.perf_counter() - t0
+    with open(DEMO_MANIFEST) as f:
+        manifest = json.load(f)
+    versions = make_demo_data.library_versions()
+    same_libs = all(versions[k] == manifest["versions"][k] for k in ("pillow", "libjpeg"))
+    equal = {}
+    for name in DEMO_SPOTS:
+        with open(os.path.join(folder, name), "rb") as f:
+            equal[name] = hashlib.sha256(f.read()).hexdigest() == manifest["sha256_spot_check"][name]
+    print(f"[samplers] make_demo_data: {DEMO_COUNT} images in {seconds:.3f} s "
+          f"({DEMO_COUNT / seconds:.1f} images/s, one host thread); pillow/libjpeg here "
+          f"{versions['pillow']}/{versions['libjpeg']}, the manifest's "
+          f"{manifest['versions']['pillow']}/{manifest['versions']['libjpeg']}", flush=True)
+    if same_libs:
+        print(f"[samplers] spot hashes against data/demo20k/MANIFEST.json: {equal}", flush=True)
+        if not all(equal.values()):
+            raise AssertionError(f"demo images differ from the manifest's hashes: {equal}")
+    else:
+        print(f"[samplers] the hash check did NOT run: pillow/libjpeg {versions} differ from the "
+              f"manifest's {manifest['versions']} (equal anyway: {equal})", flush=True)
+    return {"folder": folder, "count": DEMO_COUNT, "seconds": seconds,
+            "images_per_s": DEMO_COUNT / seconds, "versions": versions,
+            "manifest_versions": manifest["versions"], "hash_check_ran": same_libs,
+            "spot_hashes_equal": equal, "card": smi}
+
+
+def image_run(tmp: str, folder: str, kernel_rows: dict, smi: str) -> tuple:
+    """Phase 12(b): train_glis in-process on the demo images, flagship,
+    batch 64, --data_cache --g_ema 0.999 --fid_interval 20, 40 steps and a
+    save at 40, with exact launches (the steps' and 2 evaluations' renders),
+    under the train step's TF32 settings. (run directory, summary)."""
+    run = os.path.join(tmp, "demo_run")
+    args = TRAINER_ARGS + [
+        "--dataset", "folder", "--dataroot", folder, "--synthetic_on_device", "false",
+        "--data_cache", "true", "--g_ema", "0.999", "--fid_interval", str(IMAGE_FID_INTERVAL),
+        "--niter", str(IMAGE_STEPS), "--vis_interval", "0", "--save_interval", str(IMAGE_STEPS),
+        "--save_path", run]
+    cfg = TrainGLISConfig.from_args(args)
+    per_step, per_render = glis_launches(cfg)
+    renders = 2 * -(-cfg.fid_samples // BATCH)
+    with cudnn_tf32():
+        _, stats, _, counts = counted_run(
+            "samplers", f"train_glis on the demo images, {IMAGE_STEPS} steps and 2 evaluations",
+            train_glis, args, launches(per_step, IMAGE_STEPS, per_render, renders))
+    for k, n in counts.items():
+        kernel_rows[k].setdefault("launches_samplers", {})["train_glis on demo images"] = n
+    rows = fid_rows(run)
+    if ([r["step"] for r in rows] != [IMAGE_FID_INTERVAL, IMAGE_STEPS]
+            or not all(np.isfinite(r["fid"]) for r in rows)
+            or not all(np.isfinite(v) for v in stats["metrics"].values())):
+        raise AssertionError(f"image run: fid.jsonl {rows}, metrics {stats['metrics']}")
+    print(f"[samplers] image run: {stats['images_per_sec']:.1f} img/s (meter), fid.jsonl {rows}, "
+          f"best.json {best_record(run)}; {smi}", flush=True)
+    return run, {"images_per_sec": stats["images_per_sec"], "metrics": stats["metrics"],
+                 "fid_jsonl": rows, "best": best_record(run), "launches": counts, "card": smi}
+
+
+def timed_cli(module, args: list) -> tuple:
+    """`module.main(args)` with the launch counters zeroed just before and
+    read just after, and the time spent in its grid and GIF writers summed:
+    (wall s, write s, launch counts, printed text)."""
+    write_s = [0.0]
+    originals = {n: getattr(module, n) for n in WRITERS if hasattr(module, n)}
+
+    def timed(fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                write_s[0] += time.perf_counter() - t
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, timed(fn))
+    tee = Tee(sys.stdout)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            module.main(args)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+    return time.perf_counter() - t0, write_s[0], ops.launch_counts(), tee.buf.getvalue()
+
+
+def rendered(module, args: list) -> list:
+    """The stage images each save_stage_grids call of `module.main(args)`
+    is handed; nothing is written."""
+    grids, original = [], module.save_stage_grids
+    module.save_stage_grids = lambda images, *a, **k: grids.append(images)
+    try:
+        module.main(args)
+    finally:
+        module.save_stage_grids = original
+    return grids
+
+
+def sampler_clis(tmp: str, demo_run: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 12(c): every sampler on the image run (b) and on phases
+    8-10's run directories, each with exact launches and its images/s with
+    and without the PNG/GIF writes (the wall of the CLI call, the load of
+    the run included); info on the four runs; the convert round trip."""
+    g_run, r_run, it_run = (os.path.join(tmp, d) for d in ("run", "rsep", "riter"))
+    cfg = TrainGLISConfig.load(os.path.join(demo_run, "config.json"))
+    rsep_cfg = TrainRSeparateConfig.load(os.path.join(r_run, "config.json"))
+    it_cfg = TrainRIterativeConfig.load(os.path.join(it_run, "config.json"))
+    acts = generator_plan(cfg.image_size)[1] - 1  # TPReLUs of a render, of D's trunk
+    _, render = glis_launches(cfg)
+    scored = {**render, "fused_tprelu": render["fused_tprelu"] + acts}
+
+    def times(per: dict, n: int) -> dict:
+        return {k: n * v for k, v in per.items()}
+
+    def correction(steps: int) -> dict:
+        # steps + 1 renders and steps R calls (trunk + head) a batch.
+        return {"fused_tprelu": (steps + 1) * acts + steps * (acts + 1),
+                "lis_residual_mlp": (steps + 1) * rsep_cfg.r_iterations, "fused_seed": steps + 1}
+
+    def chain(links: int) -> dict:
+        return r_iterative_launches(it_cfg.replace(r_chain_length=links))[1]
+
+    demo = ["--load_path", demo_run]
+    threshold = ["--d_filter", "--d_threshold", "0.9999"]
+    # label -> (CLI, arguments, images, launches)
+    calls = {
+        "sample": (sample, demo + ["--count", "256"], 256, times(render, 4)),
+        "sample --d_filter": (sample, demo + ["--count", "256", "--d_filter"], 256,
+                              times(scored, 4)),
+        "sample --d_threshold 0.9999 (fill)": (
+            sample, demo + ["--count", "64"] + threshold, 64,
+            times(scored, sample.THRESHOLD_ROUNDS)),
+        "sample --save_gif": (sample, demo + ["--save_gif"], 64, render),
+        "sample --use_ema": (sample, demo + ["--use_ema"], 64, render),
+        "sample --step -1": (sample, demo + ["--step", "-1"], 64, render),
+        "sample --d_filter --d_filter_step -1": (
+            sample, demo + ["--d_filter", "--d_filter_step", "-1"], 64, scored),
+        "sample_interpolations slerp": (sample_interpolations, demo, 64, render),
+        "sample_interpolations lerp": (sample_interpolations, demo + ["--interp_mode", "lerp"],
+                                       64, render),
+        "sample_r_separate": (sample_r_separate, ["--load_path", r_run], 64, correction(2)),
+        "sample_r_iterative": (sample_r_iterative, ["--load_path", it_run], 64,
+                               chain(it_cfg.r_chain_length)),
+        "sample_r_iterative --chain_length 3": (
+            sample_r_iterative, ["--load_path", it_run, "--chain_length", "3"], 64, chain(3)),
+    }
+    out = {}
+    for i, (label, (cli, args, n, want)) in enumerate(calls.items()):
+        wall, write_s, counts, text = timed_cli(
+            cli, args + ["--save_path_samples", os.path.join(tmp, "samples", str(i))])
+        fill = "filling" in text
+        print(f"[samplers] {label}: launch counts {counts} (want {want}); {n} images in "
+              f"{wall:.3f} s = {n / wall:.1f} images/s with the writes ({write_s:.3f} s of "
+              f"them), {n / (wall - write_s):.1f} without; {smi}", flush=True)
+        if counts != want or fill != ("fill" in label):
+            raise AssertionError(f"{label}: launches {counts} != {want}, fill notice {fill}")
+        for k, c in counts.items():
+            kernel_rows[k].setdefault("launches_samplers", {})[label] = c
+        out[label] = {"images": n, "wall_s": wall, "write_s": write_s,
+                      "images_per_s": n / wall, "images_per_s_without_writes": n / (wall - write_s),
+                      "launches": counts}
+
+    # info on the four runs: parameter counts of the modules each holds.
+    def n_params(*modules):
+        return sum(p.numel() for m in modules for p in m.parameters())
+
+    it_g = generator_config(it_cfg)
+    want_params = {
+        demo_run: (n_params(GeneratorLIS(cfg)), n_params(Discriminator(cfg)), 0),
+        g_run: (n_params(GeneratorLIS(cfg)), n_params(Discriminator(cfg)), 0),
+        r_run: (0, 0, n_params(Reverter(rsep_cfg))),
+        it_run: (n_params(GeneratorLIS(it_g)), n_params(Discriminator(it_cfg)),
+                 n_params(Reverter(it_cfg))),
+    }
+    infos = {}
+    for run, want in want_params.items():
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = info.main(["--load_path", run])
+        got = tuple(summary["params"][k] for k in ("params_g", "params_d", "params_r"))
+        if got != want or any(ops.launch_counts().values()):
+            raise AssertionError(f"info {run}: params {got} != {want}")
+        infos[os.path.basename(run)] = {k: summary.get(k) for k in ("params", "step", "best")}
+    print(f"[samplers] info: {infos}", flush=True)
+
+    # The bridge: export, re-import, and the same images bit for bit.
+    trips = {}
+    for name, run, cli in (("demo_run", demo_run, sample), ("riter", it_run, sample_r_iterative)):
+        pt, back = os.path.join(tmp, f"{name}.pt"), os.path.join(tmp, f"{name}_imported")
+        convert_checkpoint.main(["--load_path", run, "--out", pt])
+        convert_checkpoint.main(["--from_torch", pt, "--out_run", back])
+        a, b = (rendered(cli, ["--load_path", r, "--save_path_samples",
+                               os.path.join(tmp, "trip")]) for r in (run, back))
+        if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name}: the re-imported run renders other images")
+        trips[name] = {"bytes": os.path.getsize(pt), "batches": len(a), "bitwise": True}
+    print(f"[samplers] convert_checkpoint export -> --from_torch: the same images bit for bit "
+          f"{trips}", flush=True)
+    return {"clis": out, "info": infos, "convert": trips, "card": smi}
+
+
+def render_golden(smi: str) -> dict:
+    """Phase 12(d): the flagship fp32 render and D's logits on the card,
+    without TF32 and with the kernels, against the golden written from
+    `gea` (`tests/test_torch_port_samplers.py --write`) within GOLDEN_TOL."""
+    with open(RENDER_GOLDEN) as f:
+        golden = json.load(f)
+    recipe = golden["recipe"]
+    cfg = FLAGSHIP.replace(dtype="float32")
+    z = np.random.default_rng(7).standard_normal((recipe["batch"], cfg.code_size))
+    pixels = np.random.default_rng(5).integers(0, (80, 80, 3), size=(24, 3))
+    g = generator_from_jax_params(init_generator_params(cfg, recipe["g_seed"]), cfg)
+    d = discriminator_from_jax_params(init_discriminator_params(cfg, recipe["d_seed"]), cfg)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        images = g.render(torch.from_numpy(z.astype(np.float32)).cuda())[0]
+        s, b = images.shape[:2]
+        logits = d(images.reshape(s * b, *images.shape[2:])).reshape(s, b)
+    counts = ops.launch_counts()
+    images = images.cpu().double().numpy()
+    y, x, c = pixels.T
+    got = {"mean": images.mean(axis=(2, 3, 4)), "std": images.std(axis=(2, 3, 4)),
+           "pixels": images[:, :, y, x, c], "d_logits": logits.cpu().double().numpy()}
+    errs = {k: float(np.abs(v - np.asarray(golden[k])).max()) for k, v in got.items()}
+    acts = generator_plan(cfg.image_size)[1] - 1
+    want = {"fused_tprelu": 2 * acts, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1}
+    print(f"[samplers] flagship fp32 render + D vs gea's golden: max |err| {errs} (tol "
+          f"{GOLDEN_TOL}); launches {counts} (want {want}); {smi}", flush=True)
+    if max(errs.values()) > GOLDEN_TOL or counts != want:
+        raise AssertionError(f"render golden: errors {errs}, launches {counts}")
+    return {"max_abs_err": errs, "tol": GOLDEN_TOL, "launches": counts, "card": smi}
+
+
+def samplers(tmp: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 12."""
+    t0 = time.perf_counter()
+    data = demo_data(tmp, smi)
+    run, trained = image_run(tmp, data["folder"], kernel_rows, smi)
+    clis = sampler_clis(tmp, run, kernel_rows, smi)
+    golden = render_golden(smi)
+    seconds = time.perf_counter() - t0
+    print(f"[samplers] phase 12 in {seconds:.1f} s", flush=True)
+    return {"demo_data": data, "image_run": trained, **clis, "render_golden": golden,
+            "seconds": seconds, "card": smi}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1914,6 +2212,7 @@ def main() -> int:
         r_trainers = {"r_separate": r_separate(tmp, trained["run_dir"], rows, smi),
                       "r_iterative": r_iterative(tmp, rows, smi)}
         evaluated = evaluation(tmp, rows, smi)
+        sampled = samplers(tmp, rows, smi)
 
     kernels = []
     for name, row in rows.items():
@@ -1925,6 +2224,7 @@ def main() -> int:
             "launches_r_separate": row["launches_r_separate"],
             "launches_r_iterative": row["launches_r_iterative"],
             "launches_eval": row["launches_eval"],
+            "launches_samplers": row["launches_samplers"],
             "launches_per_r_separate_step": row["launches_per_r_separate_step"],
             "launches_per_r_iterative_step": row["launches_per_r_iterative_step"],
             "launches_serving": row["launches_serving"], "max_abs_err": row["max_abs_err"],
@@ -1948,6 +2248,8 @@ def main() -> int:
     print(json.dumps({"r_trainers": r_trainers, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"evaluation": evaluated, "seconds": time.perf_counter() - t_start}),
+          flush=True)
+    print(json.dumps({"samplers": sampled, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -28,35 +28,23 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
-from gea_torch.cli.sample import load_discriminator, load_generator, read_run
+from gea_torch.cli.sample import (
+    Noise,
+    load_discriminator,
+    load_generator,
+    read_run,
+    seeded_noise,
+)
 from gea_torch.config import resolve_device
 from gea_torch.data.ondevice import preprocess_batch
 from gea_torch.data.pipeline import device_crop_size, make_dataset
 from gea_torch.eval.fid import MetricBundle
 from gea_torch.models.reverter import corrected_render
-
-Draw = Callable[[int], Tuple[torch.Tensor, Optional[torch.Tensor]]]
-Noise = Callable[..., Draw]
-
-
-def seeded_noise(generator, seed: int) -> Draw:
-    """n -> (z (n, code), spatial noise or None), standard normal on the
-    generator's device, drawn from one `torch.Generator` seeded with
-    `seed`."""
-    dev = generator.device
-    gen = torch.Generator(dev).manual_seed(seed)
-
-    def draw(n: int):
-        z = torch.randn((n, generator.cfg.code_size), generator=gen, device=dev)
-        shape = generator.spatial_noise_shape(n)
-        return z, (torch.randn(shape, generator=gen, device=dev) if shape else None)
-
-    return draw
 
 
 def fake_batch_iter(generator, batch_size: int, seed: int,

@@ -1,5 +1,6 @@
 """Configuration of the PyTorch port (a copy of `gea/config.py`'s
-`BaseConfig`, `ModelConfig`, `DataConfig`, `TrainGLISConfig` and the
+`BaseConfig`, `ModelConfig`, `DataConfig`, `TrainGLISConfig`, the
+samplers' `SampleConfig` and `SampleInterpolationsConfig`, and the
 reverser trainers' `TrainRConfig`, `TrainRSeparateConfig` and
 `TrainRIterativeConfig`, with `gea`'s flag names, defaults and choices),
 `stage_weights`, the flags the port does not implement yet, and device
@@ -43,7 +44,12 @@ class BaseConfig:
     @classmethod
     def load(cls: Type[T], path: str) -> T:
         with open(path) as f:
-            raw = json.load(f)
+            return cls.load_dict(json.load(f))
+
+    @classmethod
+    def load_dict(cls: Type[T], raw: dict) -> T:
+        """The config of a parsed config.json; keys that are no field of
+        `cls` are dropped."""
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in raw.items() if k in names})
 
@@ -220,6 +226,53 @@ class TrainGLISConfig(ModelConfig, DataConfig):
 
 
 @dataclass(frozen=True)
+class SampleConfig(ModelConfig, BaseConfig):
+    """Per-stage sample grids from a trained G-LIS run (`gea.cli.sample`).
+    G and D are rebuilt from the run's own config.json: the model flags
+    inherited here select nothing."""
+
+    load_path: str = _flag("", "experiment directory of the trained run")
+    save_path_samples: str = _flag("", "output directory for sample PNGs")
+    count: int = _flag(64, "number of samples to generate")
+    batch_size: int = _flag(64, "generation batch size")
+    seed: int = _flag(0, "PRNG seed for the noise batch")
+    grid_rows: int = _flag(8, "rows of each output grid")
+    d_filter: bool = _flag(
+        False, "error-avoidance resampling: render oversample*batch candidates, score the "
+        "final LIS stage with the run's discriminator and keep only the best batch")
+    oversample: int = _flag(4, "candidate multiplier for --d_filter resampling")
+    d_threshold: float = _flag(
+        0.0, "with --d_filter: absolute-quality rejection sampling: keep only candidates "
+        "whose final-stage D score (sigmoid) is >= this, rendering more candidate batches "
+        "until the count is filled (instead of relative top-k); 0 keeps the top-k behavior. "
+        "The probability reading only holds for --gan_loss bce runs (the sampler warns)")
+    d_filter_step: int = _flag(
+        0, "with --d_filter: score with the discriminator from THIS checkpoint step instead "
+        "of the sampled one (0 = same step as --step, -1 = the best-FID snapshot from "
+        "best.json)")
+    step: int = _flag(
+        0, "checkpoint step to load (0 = latest, -1 = best-FID snapshot from --fid_interval "
+        "tracking)")
+    save_gif: bool = _flag(
+        False, "also write an animated GIF cycling through the LIS stages")
+    use_ema: bool = _flag(
+        False, "sample from the EMA copy of G's params (runs trained with --g_ema > 0); "
+        "fails loudly if the checkpoint has no EMA params")
+    device: str = _flag("cuda", "device to sample on: cuda, or cpu for the plain PyTorch "
+                        "versions of the kernels")
+
+
+@dataclass(frozen=True)
+class SampleInterpolationsConfig(SampleConfig):
+    """Interpolation walks between noise vectors, rendered per LIS stage
+    (`gea.cli.sample_interpolations`)."""
+
+    interp_points: int = _flag(8, "number of interpolation steps per pair")
+    interp_pairs: int = _flag(8, "number of (z_a, z_b) pairs to walk")
+    interp_mode: str = _flag("slerp", "interpolation mode", choices=("slerp", "lerp"))
+
+
+@dataclass(frozen=True)
 class TrainRConfig(ModelConfig, DataConfig):
     """Flags shared by the two reverser trainers (`gea`'s `TrainRConfig`)."""
 
@@ -328,14 +381,16 @@ UNPORTED = {
 def refuse_unported(cfg: BaseConfig) -> None:
     """SystemExit naming every flag set to a value the port does not
     implement; none is silently ignored. The defaults are those of the
-    config's own class."""
+    config's own class, and a config checks the flags it has: the
+    trainers' have every one, the samplers' `norm` alone."""
     defaults = {f.name: f.default for f in dataclasses.fields(type(cfg))}
     bad = [
         f"--{name} {getattr(cfg, name)} ({why})"
         for name, (ok, why) in UNPORTED.items()
-        if getattr(cfg, name) != defaults[name] and getattr(cfg, name) not in ok
+        if name in defaults and getattr(cfg, name) != defaults[name]
+        and getattr(cfg, name) not in ok
     ]
-    if cfg.dataset == "lsun":
+    if getattr(cfg, "dataset", None) == "lsun":
         bad.append("--dataset lsun (needs the LSUN reader)")
     if bad:
         raise SystemExit("not implemented in gea_torch yet: " + "; ".join(bad))

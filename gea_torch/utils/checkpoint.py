@@ -133,6 +133,16 @@ def _write(root: str, step: int, host: dict) -> None:
     os.replace(tmp, final)
 
 
+def write_modules(run_dir: str, step: int, modules: dict) -> None:
+    """Write a checkpoint of `step` that holds just module state_dicts
+    ({"generator": ..., ...}; what `gea_torch.cli.convert_checkpoint
+    --from_torch` imports), which the samplers and evaluators read but no
+    trainer resumes from."""
+    root = _ckpt_root(run_dir)
+    os.makedirs(root, exist_ok=True)
+    _write(root, step, _to_host({"step": int(step), **modules}))
+
+
 def _steps_on_disk(root: str) -> list:
     return sorted(int(d) for d in os.listdir(root) if re.fullmatch(r"\d+", d))
 

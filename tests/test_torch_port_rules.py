@@ -50,7 +50,9 @@ def test_import_without_cuda_builds_nothing():
         "import gea_torch.cli.train_r_separate, gea_torch.cli.train_r_iterative;"
         "import gea_torch.eval, gea_torch.eval.fid, gea_torch.cli.compute_fid;"
         "import gea_torch.cli.eval_stages, gea_torch.cli.eval_chain;"
-        "import gea_torch.cli.sample_r_separate;"
+        "import gea_torch.cli.sample_r_separate, gea_torch.cli.sample_r_iterative;"
+        "import gea_torch.cli.sample_interpolations, gea_torch.cli.info;"
+        "import gea_torch.cli.convert_checkpoint, gea_torch.cli.make_demo_data;"
         "assert 'PIL' not in sys.modules and 'matplotlib' not in sys.modules;"
         "assert 'scipy' not in sys.modules;"
         "from gea_torch.ops import build;"
@@ -148,11 +150,28 @@ def test_eval_clis_on_default_device_need_cuda(monkeypatch, tmp_path, cli):
         mod.main(["--load_path", str(tmp_path / "missing")])
 
 
+@pytest.mark.parametrize("cli", ["sample", "sample_interpolations", "sample_r_separate",
+                                 "sample_r_iterative"])
+def test_samplers_on_default_device_need_cuda(monkeypatch, tmp_path, cli):
+    """Without --device cpu the samplers raise on a host without CUDA,
+    before they read the run directory."""
+    import importlib
+
+    mod = importlib.import_module(f"gea_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(["--load_path", str(tmp_path / "missing")])
+
+
 def test_new_port_files_are_checked():
-    """The import rule above covers the evaluation modules."""
+    """The import rule above covers the evaluation modules, the samplers
+    and the remaining CLIs."""
     names = {str(p.relative_to(ROOT)) for p in _port_files()}
     assert {"gea_torch/eval/fid.py", "gea_torch/cli/compute_fid.py", "gea_torch/cli/eval_stages.py",
-            "gea_torch/cli/eval_chain.py", "gea_torch/cli/sample_r_separate.py"} <= names
+            "gea_torch/cli/eval_chain.py", "gea_torch/cli/sample_r_separate.py",
+            "gea_torch/cli/sample.py", "gea_torch/cli/sample_interpolations.py",
+            "gea_torch/cli/sample_r_iterative.py", "gea_torch/cli/info.py",
+            "gea_torch/cli/convert_checkpoint.py", "gea_torch/cli/make_demo_data.py"} <= names
 
 
 def test_chip_smoke_refuses_without_cuda():
