@@ -25,8 +25,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of the tiles; the LIS link at a batch that is not a multiple of its row
    tile and at widths below one tile;
 6. build flagship-width G and D from seeded random params in `gea`'s tree
-   layout and run `ServingModel.sample_filtered(64, oversample=4,
-   batch_size=64)` in bf16 with the launch counters zeroed just before and
+   layout and run `ServingModel.from_modules(G, D).sample_filtered(64,
+   oversample=4, batch_size=64)` in bf16 with the launch counters zeroed just before and
    read just after; check the outputs, the launch counts, and an fp32
    render with kernels against the same render with plain versions; with
    torch.profiler, the device's busy share of a call and the device time of
@@ -112,14 +112,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bit for bit; (d) the flagship fp32 render and D's logits, without TF32
    and with the kernels, against the golden written from `gea`
    (`tests/torch_port_render_golden.json`, atol 1e-4);
-13. print one JSON line of the serving results, one of the training
+13. export and serving, on the run directories of phases 9, 10 and 12(b),
+   in bf16 (as trained) and in fp32 without TF32 (the same checkpoints
+   under a float32 config): `gea_torch.cli.export_model` in-process with
+   `--all_stages 1 --with_scores 1`, `--step -1 --use_ema`, `--batch 64`,
+   `--r_path` (phase 9's run) and `--ri_path` (phase 10's, at its chain
+   length and at 3 links), each with its selfcheck, its wall time, the
+   artifact's MB and `serve.load`'s time; each artifact's render of 64 codes
+   (numpy, seed 0) against the live `ServingModel.from_modules` render of
+   the same options (fp32: uint8 within 1 level, scores within 1e-5; bf16:
+   the selfcheck's band), and one call of each with the launch counters
+   zeroed just before and read just after: the artifact must launch
+   exactly what the live call launches, per kernel, and what the path
+   needs; then, on the bf16 scored artifact with every stage, the device
+   time of one render + score beside the live function's (turns artifact,
+   live, artifact, live), `sample_filtered(64, oversample=4,
+   batch_size=64)` candidates/s and idle share beside phase 6's live
+   figures, `stream` images/s at depth 1 and 8 over 32 batches of 64; the
+   scored artifacts loaded with device="cpu" render a batch of 3 within the
+   selfcheck's band of the card's render; `python -m gea_torch.serve
+   --d_filter 1` in its own process on the `--use_ema` artifact (wall time,
+   files); `gea_torch.serve_http` on 127.0.0.1 with 16 client threads of 8
+   `{"count": 4}` requests and one `{"count": 16, "oversample": 4}` each,
+   every response checked, requests/s, p50/p99 latency and the realized
+   batch sizes from /stats;
+14. print one JSON line of the serving results, one of the training
    results, one of the trainer's, one of the R trainers', one of the
-   evaluation's, one of the samplers', one of per-kernel results (per train
-   step; `launches` counts phase 7's timed steps, `launches_trainer` the
-   trainer's first run, `launches_r_separate` and `launches_r_iterative`
-   the R trainers' first runs, `launches_eval` phase 11's tracked runs and
-   evaluators, `launches_samplers` phase 12's runs), the card's name and
-   power limit, and last `{"ok": true, "device": {...}}`.
+   evaluation's, one of the samplers', one of export and serving, one of
+   per-kernel results (per train step; `launches` counts phase 7's timed
+   steps, `launches_trainer` the trainer's first run,
+   `launches_r_separate` and `launches_r_iterative` the R trainers' first
+   runs, `launches_eval` phase 11's tracked runs and evaluators,
+   `launches_samplers` phase 12's runs, `launches_serving` phase 6's live
+   `sample_filtered` and one call of each of phase 13's artifacts), the
+   card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Phases 3-5 also hold each kernel against its plain version (forward and
 gradients) at the shapes only the R trainers give it: TPReLU on R's head,
@@ -145,12 +171,13 @@ import time
 import numpy as np
 import torch
 
-from gea_torch import FLAGSHIP, ops
+from gea_torch import FLAGSHIP, ops, serve, serve_http
 from gea_torch.cli import (
     compute_fid,
     convert_checkpoint,
     eval_chain,
     eval_stages,
+    export_model,
     info,
     make_demo_data,
     sample,
@@ -192,6 +219,7 @@ from gea_torch.train.runner import input_iterator, make_input_fn
 from gea_torch.train.state import generator_config
 from gea_torch.utils.checkpoint import (
     best_record,
+    record_best_step,
     restore_checkpoint,
     save_checkpoint,
     state_dict,
@@ -600,8 +628,8 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
 def serving(cfg, kernel_rows: dict) -> dict:
     g_params = init_generator_params(cfg, seed=0)
     d_params = init_discriminator_params(cfg, seed=1)
-    model = ServingModel(generator_from_jax_params(g_params, cfg),
-                         discriminator_from_jax_params(d_params, cfg))
+    model = ServingModel.from_modules(generator_from_jax_params(g_params, cfg),
+                                      discriminator_from_jax_params(d_params, cfg))
 
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -619,7 +647,7 @@ def serving(cfg, kernel_rows: dict) -> dict:
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     for name, n in counts.items():
-        kernel_rows[name]["launches_serving"] = n
+        kernel_rows[name]["launches_serving"] = {"sample_filtered, live modules": n}
 
     s = cfg.image_size
     expect = {"images": ((COUNT, s, s, 3), np.uint8),
@@ -650,14 +678,16 @@ def serving(cfg, kernel_rows: dict) -> dict:
     # Device time of one render + score of a batch, kernels vs plain versions.
     z = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (BATCH, cfg.code_size)).astype(np.float32)).cuda()
-    plain = ServingModel(
+    plain = ServingModel.from_modules(
         generator_from_jax_params(g_params, cfg, use_kernels=False),
         discriminator_from_jax_params(d_params, cfg, use_kernels=False))
 
     def render_fn(m):
+        g, d = m.exported.generator, m.exported.discriminator
+
         def run():
-            imgs, _ = m.generator.render(z)
-            return m.discriminator(imgs[-1])
+            imgs, _ = g.render(z)
+            return d(imgs[-1])
         return run
 
     # Device busy share of one call, and where one render + score spends it.
@@ -667,8 +697,8 @@ def serving(cfg, kernel_rows: dict) -> dict:
         render_profiled_ms, top = device_profile(render_fn(model))
         render_ms = time_ms(render_fn(model), RENDER_SPIN_CYCLES)
         render_plain_ms = time_ms(render_fn(plain), RENDER_SPIN_CYCLES)
-        bf16_k, _ = model.generator.render(z)
-        bf16_p, _ = plain.generator.render(z)
+        bf16_k, _ = model.exported.generator.render(z)
+        bf16_p, _ = plain.exported.generator.render(z)
         bf16_diff = (bf16_k - bf16_p).abs().max().item()
 
     result = {
@@ -2174,6 +2204,347 @@ def samplers(tmp: str, kernel_rows: dict, smi: str) -> dict:
             "seconds": seconds, "card": smi}
 
 
+# ------------------------------------------------------- export and serving
+
+SERVE_DEVICE = "cuda"  # the device phase 13's artifacts are exported and served on
+STREAM_BATCHES = 32
+HTTP_CLIENTS, HTTP_REQUESTS = 16, 8
+
+
+def fp32_copy(src: str, dst: str, config_cls, **overrides) -> str:
+    """A run directory that reads `src`'s checkpoints (a symlink) under its
+    config in float32 (and `overrides`), with its best.json."""
+    os.makedirs(dst)
+    cfg = config_cls.load(os.path.join(src, "config.json"))
+    cfg.replace(dtype="float32", **overrides).save(os.path.join(dst, "config.json"))
+    os.symlink(os.path.join(src, "checkpoints"), os.path.join(dst, "checkpoints"))
+    record = best_record(src)
+    if record is not None:
+        record_best_step(dst, record["step"], record["metric"], record["label"])
+    return dst
+
+
+def artifact_launches(kind: str, cfg, links: int = 0) -> dict:
+    """Launches of one scored render of an artifact of `kind`: the stages'
+    renders (and R's calls) and D's trunk on the final stage."""
+    acts = generator_plan(cfg.image_size)[1] - 1
+    if kind == "glis":
+        per = glis_launches(cfg)[1]
+    elif kind == "r_path":
+        per = r_separate_launches(cfg)[1]  # one correction step
+    else:
+        per = r_iterative_launches(cfg.replace(r_chain_length=links))[1]
+    return {**per, "fused_tprelu": per["fused_tprelu"] + acts}
+
+
+def export_variant(tmp: str, label: str, args: list, want: dict, bf16: bool,
+                   kernel_rows: dict, smi: str) -> dict:
+    """export_model (with its selfcheck) timed, the artifact's size and load
+    time, its render of 64 codes against the live render of the same
+    options, and the launches of one call of each, counted apart."""
+    out = os.path.join(tmp, "exports", label.replace(" ", "_"))
+    argv = args + ["--out", out, "--device", SERVE_DEVICE]
+    t0 = time.perf_counter()
+    manifest = export_model.main(argv)
+    export_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(out, serve.ARTIFACT))
+    t0 = time.perf_counter()
+    model = serve.load(out, device=SERVE_DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    live = export_model.live_model(export_model.parse(argv))[0]
+    z = np.random.default_rng(0).standard_normal((BATCH, model.code_size)).astype(np.float32)
+    counts = {}
+    for who, m in (("live", live), ("artifact", model)):
+        m(z)  # warm: the first call of a program pays its set-up
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        counts[who] = (m(z), ops.launch_counts())
+    (want_out, live_counts), (got, art_counts) = counts["live"], counts["artifact"]
+    if not (art_counts == live_counts == want):
+        raise AssertionError(f"{label}: launches artifact {art_counts}, live {live_counts}, "
+                             f"want {want}")
+    for k, n in art_counts.items():
+        kernel_rows[k]["launches_serving"][f"artifact {label}"] = n
+    diff = np.abs(got["images"].astype(int) - want_out["images"].astype(int))
+    frac = float((diff > 1).mean())
+    score_err = float(np.abs(got["scores"] - want_out["scores"]).max()) if "scores" in got else 0.0
+    ok = (diff.max() <= 3 and frac <= 0.01) if bf16 else (diff.max() <= 1 and score_err <= 1e-5)
+    print(f"[export] {label}: export + selfcheck {export_s:.3f} s, {nbytes / 1e6:.3f} MB, load "
+          f"{load_s:.3f} s; vs live at batch {BATCH}: max uint8 diff {diff.max()}, "
+          f"{frac:.4%} beyond 1 level, scores max |diff| {score_err:.3e}; launches {art_counts} "
+          f"(live {live_counts}); {smi}", flush=True)
+    if not ok or not np.isfinite(got.get("scores", np.zeros(1))).all():
+        raise AssertionError(f"{label}: the artifact's render differs from the live one")
+    return {"dir": out, "model": model, "live": live, "summary": {
+        "export_s": export_s, "mb": nbytes / 1e6, "load_s": load_s,
+        "max_uint8_diff": int(diff.max()), "frac_beyond_1": frac, "scores_max_abs": score_err,
+        "launches": art_counts, "outputs": manifest["outputs"]}}
+
+
+def export_variants(tmp: str, kernel_rows: dict, smi: str) -> dict:
+    """Every export of phase 13, in bf16 (the runs as trained) and in fp32
+    (the same checkpoints under a float32 config)."""
+    demo, rsep, riter = (os.path.join(tmp, d) for d in ("demo_run", "rsep", "riter"))
+    r_cfg = TrainRSeparateConfig.load(os.path.join(rsep, "config.json"))
+    r_g_cfg = TrainGLISConfig.load(os.path.join(r_cfg.g_path, "config.json"))
+    g_fp32 = fp32_copy(r_cfg.g_path, os.path.join(tmp, "fp32_run"), TrainGLISConfig)
+    runs = {"bf16": (demo, rsep, riter), "fp32": (
+        fp32_copy(demo, os.path.join(tmp, "fp32_demo_run"), TrainGLISConfig),
+        fp32_copy(rsep, os.path.join(tmp, "fp32_rsep"), TrainRSeparateConfig, g_path=g_fp32),
+        fp32_copy(riter, os.path.join(tmp, "fp32_riter"), TrainRIterativeConfig))}
+    g_cfg = TrainGLISConfig.load(os.path.join(demo, "config.json"))
+    it_cfg = TrainRIterativeConfig.load(os.path.join(riter, "config.json"))
+    links = it_cfg.r_chain_length
+    out = {}
+    for dt, (d, r, i) in runs.items():
+        variants = {
+            "all_stages with_scores": (["--load_path", d, "--all_stages", "1",
+                                        "--with_scores", "1"], artifact_launches("glis", g_cfg)),
+            "step -1 use_ema": (["--load_path", d, "--step", "-1", "--use_ema"],
+                                artifact_launches("glis", g_cfg)),
+            "batch 64": (["--load_path", d, "--batch", str(BATCH)],
+                         artifact_launches("glis", g_cfg)),
+            "r_path": (["--r_path", r], artifact_launches("r_path", r_g_cfg)),
+            f"ri_path {links} links": (["--ri_path", i],
+                                       artifact_launches("ri_path", it_cfg, links)),
+            "ri_path 3 links": (["--ri_path", i, "--chain_links", "3"],
+                                artifact_launches("ri_path", it_cfg, 3)),
+        }
+        for label, (args, want) in variants.items():
+            out[f"{label} {dt}"] = export_variant(tmp, f"{label} {dt}", args, want,
+                                                  dt == "bf16", kernel_rows, smi)
+    return out
+
+
+def filtered_s(model) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.sample_filtered(COUNT, seed=1, oversample=OVERSAMPLE, batch_size=BATCH)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def serving_times(art: dict, live_serve: dict, smi: str) -> dict:
+    """The bf16 scored artifact with every stage: one render + score's device
+    time beside the live ServeFunction's, sample_filtered's rate and idle
+    share beside the live function's (in turns, the host drifts between
+    phases) and phase 6's, and stream at depth 1 and 8."""
+    model, live = art["model"], art["live"]
+    z = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (BATCH, model.code_size)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        times = {}
+        for who, fn in (("artifact", model._fn), ("live", live._fn), ("artifact again", model._fn),
+                        ("live again", live._fn)):
+            times[who] = time_ms(lambda: fn(z), RENDER_SPIN_CYCLES)
+        profiled_ms, top = device_profile(lambda: model._fn(z))
+        # Host time to enqueue one render (synchronized after each), in turns.
+        enqueue = {"artifact": [], "live": []}
+        for who, fn in (("artifact", model._fn), ("live", live._fn)) * 2:
+            spans = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(z)
+                spans.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            enqueue[who].append(statistics.median(spans) * 1e3)
+    walls = {"artifact": [], "live": []}
+    for who in ("artifact", "live", "live", "artifact") * 2:
+        walls[who].append(filtered_s(model if who == "artifact" else live))
+    wall = statistics.median(walls["artifact"])
+    live_wall = statistics.median(walls["live"])
+    busy_ms, _ = device_profile(
+        lambda: model.sample_filtered(COUNT, seed=1, oversample=OVERSAMPLE, batch_size=BATCH))
+    live_busy_ms, _ = device_profile(
+        lambda: live.sample_filtered(COUNT, seed=1, oversample=OVERSAMPLE, batch_size=BATCH))
+    rng = np.random.default_rng(1)
+    zs = [rng.standard_normal((BATCH, model.code_size)).astype(np.float32)
+          for _ in range(STREAM_BATCHES)]
+    stream = {1: [], 8: []}
+    for depth in (1, 8, 8, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = sum(o["images"].shape[0] for o in model.stream(iter(zs), depth=depth))
+        stream[depth].append(n / (time.perf_counter() - t0))
+    # Pinned host memory the caching allocator could not reuse, by depth.
+    host_allocs = {}
+    for depth in (1, 8):
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            sum(o["images"].shape[0] for o in model.stream(iter(zs), depth=depth))
+        row = [e for e in prof.key_averages() if e.key == "cudaHostAlloc"]
+        host_allocs[str(depth)] = {"calls": row[0].count if row else 0,
+                                   "ms": row[0].self_cpu_time_total / 1e3 if row else 0.0}
+    result = {
+        "render_score_ms": times, "render_score_profiled_ms": profiled_ms,
+        "render_enqueue_host_ms": enqueue,
+        "render_score_by_category": by_category(top),
+        "live_phase6_render_score_ms": live_serve["render_score_ms"],
+        "sample_filtered_s": wall, "candidates_per_s": COUNT * OVERSAMPLE / wall,
+        "sample_filtered_device_busy_ms": busy_ms,
+        "sample_filtered_device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+        "live_candidates_per_s": COUNT * OVERSAMPLE / live_wall,
+        "live_idle_share": 1.0 - live_busy_ms / (live_wall * 1e3),
+        "sample_filtered_walls_s": walls,
+        "live_phase6_candidates_per_s": live_serve["candidates_per_s"],
+        "live_phase6_idle_share": live_serve["sample_filtered_device_idle_share"],
+        "stream_images_per_s": {str(d): v for d, v in stream.items()},
+        "stream_cuda_host_alloc": host_allocs, "card": smi}
+    print(f"[serving] one render + score of {BATCH} codes (every stage, uint8): artifact "
+          f"{times['artifact']:.4f} / {times['artifact again']:.4f} ms, live ServeFunction "
+          f"{times['live']:.4f} / {times['live again']:.4f} ms (phase 6's G.render + D: "
+          f"{live_serve['render_score_ms']:.4f} ms); profiled {profiled_ms:.4f} ms; host time to "
+          f"enqueue it (median of 20, turns A L A L): {enqueue}; {smi}", flush=True)
+    print(f"[serving] sample_filtered({COUNT}, oversample={OVERSAMPLE}, batch_size={BATCH}), "
+          f"median of 4 in turns A L L A A L L A: artifact {wall:.4f} s = "
+          f"{result['candidates_per_s']:.1f} candidates/s, idle share "
+          f"{result['sample_filtered_device_idle_share']:.3f}; live ServeFunction "
+          f"{live_wall:.4f} s = {result['live_candidates_per_s']:.1f} candidates/s, idle share "
+          f"{result['live_idle_share']:.3f} (phase 6, live: {live_serve['candidates_per_s']:.1f} "
+          f"candidates/s, idle share {live_serve['sample_filtered_device_idle_share']:.3f}); "
+          f"{smi}", flush=True)
+    print(f"[serving] stream of {STREAM_BATCHES} batches of {BATCH}: images/s at depth 1 "
+          f"{stream[1]}, at depth 8 {stream[8]} (turns 1, 8, 8, 1); cudaHostAlloc in one more "
+          f"run of each (torch.profiler, CPU): {host_allocs}; {smi}", flush=True)
+    return result
+
+
+def serve_cli(art_dir: str, tmp: str, smi: str) -> dict:
+    """`python -m gea_torch.serve <artifact> --d_filter 1` in its own
+    process: wall time, files written."""
+    out = os.path.join(tmp, "serve_cli")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gea_torch.serve", art_dir, "--d_filter", "1",
+                           "--count", str(COUNT), "--out", out, "--device", SERVE_DEVICE],
+                          cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    print(f"[serving] python -m gea_torch.serve --d_filter 1: exit {proc.returncode}, "
+          f"{wall:.3f} s (process start and load included), wrote {files}; "
+          f"{proc.stdout.strip()[-200:]}; {smi}", flush=True)
+    if proc.returncode != 0 or files != ["samples.png", "scores.json"]:
+        raise AssertionError(f"python -m gea_torch.serve failed: {proc.stderr[-2000:]}")
+    with open(os.path.join(out, "scores.json")) as f:
+        scores = json.load(f)
+    if len(scores) != COUNT or scores != sorted(scores, reverse=True):
+        raise AssertionError(f"serve CLI scores: {scores[:8]}...")
+    return {"wall_s": wall, "files": files, "card": smi}
+
+
+def http_post(url: str, payload: dict) -> tuple:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = json.loads(r.read())
+        return r.status, body, time.perf_counter() - t0
+
+
+def http_load(art_dir: str, smi: str) -> dict:
+    """serve_http on 127.0.0.1 (port 0): HTTP_CLIENTS threads, each with
+    HTTP_REQUESTS {"count": 4} requests and one {"count": 16, "oversample":
+    4}; every response checked; requests/s, p50/p99 latency and the
+    realized batch sizes."""
+    import threading
+    import urllib.request
+
+    server, batcher = serve_http.make_server(art_dir, "127.0.0.1", 0, device=SERVE_DEVICE)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    results, errors = [], []
+    try:
+        batcher.warmup()
+
+        def client(i):
+            try:
+                for j in range(HTTP_REQUESTS + 1):
+                    filtered = j == HTTP_REQUESTS
+                    payload = ({"count": 16, "oversample": 4, "seed": i} if filtered
+                               else {"count": 4, "seed": i * 100 + j})
+                    status, body, latency = http_post(base + "/render", payload)
+                    n = payload["count"]
+                    sc = body.get("scores", [])
+                    if (status != 200 or len(body["images"]) != n or len(sc) != n
+                            or not all(0 <= s <= 1 for s in sc)
+                            or (filtered and (sc != sorted(sc, reverse=True)
+                                              or body["filter"]["oversample"] != 4))):
+                        raise AssertionError(f"bad response to {payload}: {status}")
+                    results.append((filtered, latency))
+            except Exception as e:  # reported after the join
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        batcher.close()
+        thread.join(timeout=30)
+    want = HTTP_CLIENTS * (HTTP_REQUESTS + 1)
+    if errors or len(results) != want or any(t.is_alive() for t in threads):
+        raise AssertionError(f"HTTP load: {len(results)}/{want} answered, errors {errors[:3]}")
+    lat = np.array([r[1] for r in results]) * 1e3
+    rows = HTTP_CLIENTS * (HTTP_REQUESTS * 4 + 16 * 4)  # a filtered request: one draw of 64
+    if stats["rows"] != rows or stats["requests"] != want:
+        raise AssertionError(f"HTTP stats {stats}, want {rows} rows")
+    result = {"requests": want, "wall_s": wall, "requests_per_s": want / wall,
+              "rows_per_s": rows / wall, "p50_ms": float(np.percentile(lat, 50)),
+              "p99_ms": float(np.percentile(lat, 99)), "stats": stats, "card": smi}
+    print(f"[serving] HTTP: {want} requests from {HTTP_CLIENTS} clients in {wall:.3f} s = "
+          f"{result['requests_per_s']:.1f} requests/s ({result['rows_per_s']:.1f} rendered "
+          f"rows/s), latency p50 {result['p50_ms']:.2f} ms, p99 {result['p99_ms']:.2f} ms; "
+          f"realized batch sizes {stats['batch_sizes']} (mean {stats['mean_batch_rows']}); "
+          f"{smi}", flush=True)
+    return result
+
+
+def cpu_load(art: dict, smi: str) -> dict:
+    """The artifact written on the card, loaded with device="cpu": a batch
+    of 3 within the selfcheck's band of the card's render."""
+    model = serve.load(art["dir"], device="cpu")
+    bf16 = model.manifest["dtype"] == "bfloat16"
+    z = np.random.default_rng(3).standard_normal((3, model.code_size)).astype(np.float32)
+    got, want = model(z), art["model"](z)
+    diff = np.abs(got["images"].astype(int) - want["images"].astype(int))
+    frac = float((diff > 1).mean())
+    print(f"[serving] {art['dir']} on the CPU vs the card: max uint8 diff {diff.max()}, "
+          f"{frac:.4%} beyond 1 level (band {3 if bf16 else 1}, 1%); {smi}", flush=True)
+    if diff.max() > (3 if bf16 else 1) or frac > 0.01:
+        raise AssertionError("the artifact renders otherwise on the CPU")
+    return {"max_uint8_diff": int(diff.max()), "frac_beyond_1": frac}
+
+
+def export_serving(tmp: str, kernel_rows: dict, live_serve: dict, smi: str) -> dict:
+    """Phase 13."""
+    t0 = time.perf_counter()
+    arts = export_variants(tmp, kernel_rows, smi)
+    scored = arts["all_stages with_scores bf16"]
+    result = {
+        "exports": {k: v["summary"] for k, v in arts.items()},
+        "serving": serving_times(scored, live_serve, smi),
+        "cpu_load": {dt: cpu_load(arts[f"all_stages with_scores {dt}"], smi)
+                     for dt in ("bf16", "fp32")},
+        "serve_cli": serve_cli(arts["step -1 use_ema bf16"]["dir"], tmp, smi),
+        "http": http_load(arts["step -1 use_ema bf16"]["dir"], smi),
+    }
+    result["seconds"] = time.perf_counter() - t0
+    print(f"[export] phase 13 in {result['seconds']:.1f} s", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -2203,7 +2574,7 @@ def main() -> int:
     rows = check_kernels(cfg)
     grads = check_grads(cfg, rows)
     edges = check_edges()
-    serve = serving(cfg, rows)
+    served = serving(cfg, rows)
     fp32 = fp32_agreement(cfg)
     train = training(cfg, rows, smi)
     train_fp32 = train_fp32_agreement(cfg)
@@ -2213,6 +2584,7 @@ def main() -> int:
                       "r_iterative": r_iterative(tmp, rows, smi)}
         evaluated = evaluation(tmp, rows, smi)
         sampled = samplers(tmp, rows, smi)
+        exported = export_serving(tmp, rows, served, smi)
 
     kernels = []
     for name, row in rows.items():
@@ -2240,7 +2612,7 @@ def main() -> int:
                    "scored render",
             "shapes": row["shapes"],
         })
-    print(json.dumps({"serving": serve, "fp32_agreement": fp32, "edges": edges,
+    print(json.dumps({"serving": served, "fp32_agreement": fp32, "edges": edges,
                       "grads": grads}), flush=True)
     print(json.dumps({"training": train, "train_fp32_agreement": train_fp32,
                       "seconds": time.perf_counter() - t_start}), flush=True)
@@ -2250,6 +2622,8 @@ def main() -> int:
     print(json.dumps({"evaluation": evaluated, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"samplers": sampled, "seconds": time.perf_counter() - t_start}),
+          flush=True)
+    print(json.dumps({"export_serving": exported, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

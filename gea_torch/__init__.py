@@ -11,10 +11,13 @@ gea_torch.cli.train_r_separate` and `train_r_iterative`
 (`gea_torch.models.reverter`, `gea_torch.train.steps_r`), and evaluation:
 `gea`'s proxy-FID, KID and precision/recall (`gea_torch.eval.fid`), FID
 tracking in the three trainers (`--fid_interval`) and the evaluators
-`python -m gea_torch.cli.compute_fid`, `eval_stages` and `eval_chain`.
-Their three TPU
-kernels are hand-written Hopper kernels in `gea_torch.ops`, each a
-`torch.autograd.Function`.
+`python -m gea_torch.cli.compute_fid`, `eval_stages` and `eval_chain`,
+the samplers, and export and serving: `python -m
+gea_torch.cli.export_model` writes a `torch.export` artifact that
+`gea_torch.serve.load` serves (`python -m gea_torch.serve`, and the HTTP
+server `gea_torch.serve_http`). Their three TPU kernels are hand-written
+Hopper kernels in `gea_torch.ops`, each a `torch.library` custom op behind
+a `torch.autograd.Function`.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on the CPU
 every kernel runs its plain PyTorch version.

@@ -13,13 +13,17 @@ eighth of the hidden columns and of the output columns, and the blocks
 exchange their hidden slices through distributed shared memory, so no SM
 reads a weight whole. The fp32 kernel stays on the CUDA cores.
 
+The kernel is the custom op `gea_torch::lis_residual_mlp` (`torch.library`),
+so `torch.export` records it as one node of an exported graph: its CPU
+implementation is the plain version, its CUDA one launches the kernel (and
+counts the launch in `lis_residual_mlp.launches`) or raises, and its fake
+implementation gives the output's shape and dtype to the tracer.
+
 `lis_residual_mlp` is differentiable on both devices through
-`LISResidualMLP`, a `torch.autograd.Function`. Its forward runs the plain
-version on a CPU tensor; on a CUDA tensor it launches the kernel (and
-counts the launch in `lis_residual_mlp.launches`) or raises. Its backward
-is the one of `gea/ops/pallas/lis.py::_bwd` in eager PyTorch ops: the
-hidden row is recomputed in fp32 from the saved inputs, the products run in
-fp32, and only the gradients of inputs that need one are computed.
+`LISResidualMLP`, a `torch.autograd.Function` whose forward is the op. Its
+backward is the one of `gea/ops/pallas/lis.py::_bwd` in eager PyTorch ops:
+the hidden row is recomputed in fp32 from the saved inputs, the products
+run in fp32, and only the gradients of inputs that need one are computed.
 """
 
 from __future__ import annotations
@@ -53,9 +57,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _forward(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
-    if z.device.type == "cpu":
-        return lis_residual_mlp_plain(z, w1, b1, slope, trans, w2, b2)
+@torch.library.custom_op("gea_torch::lis_residual_mlp", mutates_args=(), device_types="cpu")
+def lis_op(z: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, slope: torch.Tensor,
+           trans: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    return lis_residual_mlp_plain(z, w1, b1, slope, trans, w2, b2).contiguous()
+
+
+@lis_op.register_fake
+def _(z, w1, b1, slope, trans, w2, b2):
+    return z.new_empty(z.shape)
+
+
+@lis_op.register_kernel("cuda")
+def _launch(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
     build.check_cuda_inputs("lis_residual_mlp", z, w1, b1, slope, trans, w2, b2)
     dt = z.dtype
     if dt not in (torch.float32, torch.bfloat16):
@@ -93,6 +108,10 @@ def _forward(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
     build.check(lib, rc, "lis_residual_mlp")
     lis_residual_mlp.launches += 1
     return out
+
+
+def _forward(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
+    return lis_op(z, w1, b1, slope, trans, w2, b2)
 
 
 class LISResidualMLP(torch.autograd.Function):

@@ -17,9 +17,14 @@ flipped taps in place. Bound: operations, 28.8 us at the flagship shape on
 the H100's bf16 tensor cores. In fp32 a call is one launch on the CUDA
 cores. Either way it counts as one launch in `fused_seed.launches`.
 
+The kernels are the custom op `gea_torch::fused_seed` (`torch.library`), so
+`torch.export` records a call as one node of an exported graph: its CPU
+implementation is the plain version, its CUDA one launches the kernels or
+raises, and its fake implementation gives the output's shape and dtype to
+the tracer.
+
 `fused_seed` is differentiable on both devices through `FusedSeed`, a
-`torch.autograd.Function`. Its forward runs the plain version on a CPU
-tensor; on a CUDA tensor it launches the kernels or raises. Its backward is
+`torch.autograd.Function` whose forward is the op. Its backward is
 the one of `gea/ops/pallas/seed.py::_bwd`: autograd through the plain
 version recomputed from the saved inputs (cuBLAS and cuDNN on the card),
 with the incoming cotangent first cast to the recomputed output's dtype.
@@ -63,9 +68,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _forward(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
-    if z.device.type == "cpu":
-        return fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0)
+@torch.library.custom_op("gea_torch::fused_seed", mutates_args=(), device_types="cpu")
+def seed_op(z: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, slope: torch.Tensor,
+            trans: torch.Tensor, wc: torch.Tensor, bc: torch.Tensor, s0: int) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    return fused_seed_plain(z, wp, bp, slope, trans, wc, bc, s0)
+
+
+@seed_op.register_fake
+def _(z, wp, bp, slope, trans, wc, bc, s0):
+    return z.new_empty((z.shape[0], 2 * s0, 2 * s0, wc.shape[3]))
+
+
+@seed_op.register_kernel("cuda")
+def _launch(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
     build.check_cuda_inputs("fused_seed", z, wp, bp, slope, trans, wc, bc)
     dt = z.dtype
     if dt not in (torch.float32, torch.bfloat16):
@@ -110,6 +126,10 @@ def _forward(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
     build.check(lib, rc, "fused_seed")
     fused_seed.launches += 1
     return out
+
+
+def _forward(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
+    return seed_op(z, wp, bp, slope, trans, wc, bc, s0)
 
 
 class FusedSeed(torch.autograd.Function):

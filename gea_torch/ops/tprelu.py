@@ -14,11 +14,15 @@ are wide and coalesced, so they reach memory bandwidth as well as a CUDA
 kernel written by hand would; nothing else is needed for a streaming
 elementwise pass.
 
+The kernel is the custom op `gea_torch::fused_tprelu` (`torch.library`),
+so `torch.export` records it as one node of an exported graph: its CPU
+implementation is the plain version, its CUDA one launches the kernel (and
+counts the launch in `fused_tprelu.launches`) or raises, and its fake
+implementation gives the output's shape and dtype to the tracer.
+
 `fused_tprelu` is differentiable on both devices through `FusedTPReLU`, a
-`torch.autograd.Function`. Its forward runs the plain version on a CPU
-tensor; on a CUDA tensor it launches the kernel (and counts the launch in
-`fused_tprelu.launches`) or raises. Its backward is the one of
-`gea/ops/pallas/tprelu.py::_bwd`, written out in eager PyTorch ops and
+`torch.autograd.Function` whose forward is the op. Its backward is the one
+of `gea/ops/pallas/tprelu.py::_bwd`, written out in eager PyTorch ops and
 itself differentiable, so a gradient penalty can differentiate through it
 twice.
 """
@@ -72,9 +76,19 @@ def _kernel():
     return triton, tprelu_kernel
 
 
-def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return fused_tprelu_plain(x, a, b)
+@torch.library.custom_op("gea_torch::fused_tprelu", mutates_args=(), device_types="cpu")
+def tprelu_op(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    return fused_tprelu_plain(x, a, b).contiguous()
+
+
+@tprelu_op.register_fake
+def _(x, a, b):
+    return x.new_empty(x.shape)
+
+
+@tprelu_op.register_kernel("cuda")
+def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_cuda_inputs("fused_tprelu", x, a, b)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_tprelu: unsupported dtype {x.dtype}")
@@ -97,6 +111,10 @@ def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         kernel[grid](x, a, b, out, m, c, BLOCK_M=block_m, BLOCK_C=block_c, num_warps=8)
     fused_tprelu.launches += 1
     return out
+
+
+def _forward(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return tprelu_op(x, a, b)
 
 
 class FusedTPReLU(torch.autograd.Function):

@@ -1,26 +1,54 @@
-"""Serving with D-filtered (error-avoidance) sampling on the port's models.
+"""Serving of the port (port of `gea/serve.py`): an exported artifact, or the
+live modules, rendered with D-filtered (error-avoidance) sampling.
 
-The port of `gea/serve.py`'s `ServingModel` rendering surface, built from a
-generator and an optional discriminator instead of a `jax.export` artifact:
+An artifact is a directory that `python -m gea_torch.cli.export_model`
+writes: a `torch.export` program (`model.pt2`, the weights inside) and
+`manifest.json`. Loading it needs this package's kernels (`gea_torch.ops`,
+whose custom ops the program calls) and no model code, run directory or
+config:
 
-    model = ServingModel(generator, discriminator)
-    out = model(z)                    # images, stages (uint8), scores
-    best = model.sample_filtered(64)  # top 64 of 256 candidates by D score
+    from gea_torch import serve
+    model = serve.load("exports/glis3_80")          # on the card
+    out = model(z)                      # dict: images[, stages][, scores]
+    imgs = model.sample(64, seed=0)["images"]       # uint8 (64, H, W, 3)
+    best = model.sample_filtered(64, oversample=4)  # top 64 of 256 by D
+    for out in model.stream(z_batches):             # pipelined
+        ...
 
-Every render stacks all LIS stages of a batch into one S*B batch; the
-discriminator scores the final stage. z is drawn on the host with numpy
-exactly as `gea` draws it, so both packages render the same codes from the
-same seed. Arrays come back as numpy, as in `gea`.
+`ServingModel.from_modules(generator, discriminator)` serves the live
+modules through the same function that `export_model` traces, so a live
+render and an artifact's compute the same thing.
+
+The program takes a batch of any size unless it was exported with a pinned
+one (`manifest["batch"]` > 0). z (and spatial noise) come in as numpy and
+the outputs go back as numpy; z is drawn on the host with numpy exactly as
+`gea` draws it, so both packages render the same codes from the same seed.
+On the card each batch is copied in from pinned memory, rendered on the
+current stream and copied back into pinned memory without a wait, and an
+event recorded after the copy says when it has landed: `stream` keeps up to
+`depth` batches in flight that way.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import os
+from collections import deque
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
-from gea_torch.models import Discriminator, GeneratorLIS
+from gea_torch.config import resolve_device
+from gea_torch.models import Discriminator, GeneratorLIS, Reverter
+from gea_torch.models.reverter import blend_correction, iterative_chain
+
+ARTIFACT = "model.pt2"
+MANIFEST = "manifest.json"
+PLATFORMS = ("cuda", "cpu")
+UNPORTED_DP = ("data-parallel serving (ServingModel.sharded, serve_http --data_parallel) is "
+               "not ported yet; it comes with data parallelism, ROADMAP.md Queue A 3")
 
 
 def _take(out: Dict[str, np.ndarray], idx) -> Dict[str, np.ndarray]:
@@ -38,7 +66,8 @@ def topk_rounds(draw, count: int, threshold: float = 0.0, max_rounds: int = 1):
     """Call ``draw(round)`` for fresh candidate dicts (with "scores"), keep a
     running top-``count`` by descending score, and stop once every kept
     sample clears ``threshold`` (or after ``max_rounds``). Returns
-    (best, rounds_run); ``best`` is sorted by descending score."""
+    (best, rounds_run); ``best`` is sorted by descending score. Shared by
+    `ServingModel.sample_filtered` and the HTTP server."""
     if max_rounds < 1:
         raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
     best: Optional[Dict[str, np.ndarray]] = None
@@ -61,79 +90,248 @@ def to_uint8(x: torch.Tensor) -> torch.Tensor:
     return ((x + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
 
 
-class ServingModel:
-    """Renders z into a dict of numpy arrays:
+class ServeFunction(nn.Module):
+    """What an artifact computes: z (B, code) [, spatial noise] ->
 
-      images  uint8 (B, H, W, 3)        final LIS stage
-      stages  uint8 (S, B, H, W, 3)     every LIS stage
-      scores  float32 (B,)              sigmoid D realism (with a discriminator)
-    """
+      images  uint8 (B, H, W, 3)        the final stage
+      stages  uint8 (S, B, H, W, 3)     every stage (`all_stages`)
+      scores  float32 (B,)              sigmoid D realism of the final stage
 
-    def __init__(self, generator: GeneratorLIS,
-                 discriminator: Optional[Discriminator] = None):
+    The stages are G's LIS stages, rendered from z after `correction`'s
+    R-separate steps (z <- blend(z, R(G(z))), as `gea`'s `--r_path`
+    export), or with `chain_links` the links of R-iterative's chain
+    z_t = z_{t-1} + R(G(z_{t-1})) (`gea`'s `--ri_path`)."""
+
+    def __init__(self, generator: GeneratorLIS, discriminator: Optional[Discriminator] = None,
+                 reverter: Optional[Reverter] = None, correction: Optional[dict] = None,
+                 chain_links: Optional[int] = None, all_stages: bool = True):
+        super().__init__()
+        if (correction is not None or chain_links is not None) and reverter is None:
+            raise ValueError("a correction or a chain needs a reverter")
+        if correction is not None and chain_links is not None:
+            raise ValueError("a correction and a chain are exclusive")
         self.generator = generator.eval()
-        self.discriminator = discriminator.eval() if discriminator is not None else None
-        self.device = generator.device
+        self.discriminator = None if discriminator is None else discriminator.eval()
+        self.reverter = None if reverter is None else reverter.eval()
+        self.correction = correction
+        self.chain_links = chain_links
+        self.all_stages = all_stages
+
+    def describe(self) -> dict:
+        """The manifest's keys that this function fixes."""
+        g = self.generator
+        sn = g.spatial_noise_shape(1)
+        if self.chain_links is not None:
+            n_stages = self.chain_links + 1
+        else:
+            n_stages = g.cfg.r_iterations + 1
+        return {
+            "code_size": g.cfg.code_size,
+            "image_size": g.cfg.image_size,
+            "n_stages": n_stages,
+            "spatial_code": g.cfg.spatial_code,
+            "spatial_noise_shape": list(sn[1:]) if sn else None,
+            "outputs": ["images"] + (["stages"] if self.all_stages else [])
+            + (["scores"] if self.discriminator is not None else []),
+        }
+
+    def forward(self, z: torch.Tensor, spatial_noise: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        g = self.generator
+        if self.chain_links is not None:
+            images = iterative_chain(g, self.reverter, z, spatial_noise, self.chain_links)
+        else:
+            for _ in range(self.correction["steps"] if self.correction else 0):
+                z_hat = self.reverter(g.render(z, spatial_noise)[0][-1])
+                z = blend_correction(z, z_hat, self.correction["strength"],
+                                     self.correction["shell_renorm"])
+            images = g.render(z, spatial_noise)[0]
+        out = {"images": to_uint8(images[-1])}
+        if self.all_stages:
+            out["stages"] = to_uint8(images)
+        if self.discriminator is not None:
+            out["scores"] = torch.sigmoid(self.discriminator(images[-1])).float()
+        return out
+
+
+def write_artifact(out_dir: str, exported, manifest: Dict[str, Any]) -> int:
+    """Write the program (a `torch.export.ExportedProgram`) and the manifest;
+    returns the program's size in bytes."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, ARTIFACT)
+    torch.export.save(exported, path)
+    with open(os.path.join(out_dir, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=2, sort_keys=True)
+    return os.path.getsize(path)
+
+
+class _Fetch:
+    """An output on its way to the host: `np.asarray` waits for the event
+    recorded after its copy (on the CPU there is none)."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, host: torch.Tensor, event=None):
+        self.host = host
+        self.event = event
+
+    def __array__(self, dtype=None, copy=None):
+        if self.event is not None:
+            self.event.synchronize()
+        a = self.host.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+
+def _fetch(out: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+class ServingModel:
+    """Renders z into a dict of numpy arrays (see `ServeFunction`).
+
+    `exported` is a `torch.export.ExportedProgram` (`load`) or a callable
+    module that takes tensors on `device` (`from_modules`); `manifest`
+    holds the call's contract: code_size, batch (0 = any),
+    spatial_noise_shape, outputs, gan_loss."""
+
+    def __init__(self, exported, manifest: Dict[str, Any],
+                 device: str | torch.device = "cuda"):
+        self.exported = exported
+        self.manifest = manifest
+        self.device = torch.device(device)
+        self._fn = (exported.module() if isinstance(exported, torch.export.ExportedProgram)
+                    else exported)
+
+    @classmethod
+    def from_modules(cls, generator: GeneratorLIS,
+                     discriminator: Optional[Discriminator] = None, *,
+                     reverter: Optional[Reverter] = None, correction: Optional[dict] = None,
+                     chain_links: Optional[int] = None, all_stages: bool = True,
+                     gan_loss: Optional[str] = None) -> "ServingModel":
+        """Serve live modules through the `ServeFunction` that `export_model`
+        traces; every stage is an output unless `all_stages` is False."""
+        fn = ServeFunction(generator, discriminator, reverter, correction, chain_links,
+                           all_stages)
+        manifest = {**fn.describe(), "batch": 0,
+                    "gan_loss": gan_loss or getattr(generator.cfg, "gan_loss", "bce")}
+        return cls(fn, manifest, device=generator.device)
 
     @property
     def code_size(self) -> int:
-        return self.generator.cfg.code_size
+        return int(self.manifest["code_size"])
 
     @property
     def image_size(self) -> int:
-        return self.generator.cfg.image_size
+        return int(self.manifest["image_size"])
 
     @property
     def spatial_noise_shape(self) -> Optional[tuple]:
-        sn = self.generator.spatial_noise_shape(1)
-        return sn[1:] if sn else None
+        sn = self.manifest.get("spatial_noise_shape")
+        return tuple(sn) if sn else None
+
+    def _inputs(self, z, spatial_noise) -> List[np.ndarray]:
+        """The call's arguments as float32 arrays, checked against the
+        manifest."""
+        z = np.ascontiguousarray(z, np.float32)
+        if z.ndim != 2 or z.shape[1] != self.code_size:
+            raise ValueError(f"z must be (batch, {self.code_size}), got {z.shape}")
+        fixed = int(self.manifest.get("batch", 0))
+        if fixed and z.shape[0] != fixed:
+            raise ValueError(f"this artifact was exported with a pinned batch of {fixed} "
+                             f"(manifest['batch']); got {z.shape[0]}")
+        if self.spatial_noise_shape is None:
+            if spatial_noise is not None:
+                raise ValueError("this artifact takes no spatial noise")
+            return [z]
+        if spatial_noise is None:
+            raise ValueError("this run was trained with --spatial_code; pass spatial_noise "
+                             f"of shape (batch, *{self.spatial_noise_shape})")
+        sn = np.ascontiguousarray(spatial_noise, np.float32)
+        if sn.shape != (z.shape[0], *self.spatial_noise_shape):
+            raise ValueError(f"spatial_noise must be {(z.shape[0], *self.spatial_noise_shape)}, "
+                             f"got {sn.shape}")
+        return [z, sn]
+
+    def dispatch(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None
+                 ) -> Dict[str, Any]:
+        """Check and enqueue one render without waiting for it: returns the
+        outputs as array-likes that `np.asarray` turns into numpy once their
+        copy to the host has landed. The pipelining primitive of `stream`
+        and of the HTTP batcher; `__call__` is dispatch and fetch."""
+        args = self._inputs(z, spatial_noise)
+        cuda = self.device.type == "cuda"
+        with torch.inference_mode():
+            if cuda:
+                tensors = [torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
+                           for a in args]
+            else:
+                tensors = [torch.from_numpy(a).to(self.device) for a in args]
+            out = self._fn(*tensors)
+            if not cuda:
+                return {k: _Fetch(v) for k, v in out.items()}
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                v, non_blocking=True) for k, v in out.items()}
+            event = torch.cuda.Event()
+            event.record()
+        return {k: _Fetch(v, event) for k, v in host.items()}
 
     def __call__(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None
                  ) -> Dict[str, np.ndarray]:
-        z = np.asarray(z, np.float32)
-        if z.ndim != 2 or z.shape[1] != self.code_size:
-            raise ValueError(f"z must be (batch, {self.code_size}), got {z.shape}")
-        if self.spatial_noise_shape is not None:
-            if spatial_noise is None:
-                raise ValueError(
-                    "this generator takes spatial noise; pass spatial_noise of "
-                    f"shape (batch, *{self.spatial_noise_shape})"
-                )
-        elif spatial_noise is not None:
-            raise ValueError("this generator takes no spatial noise")
-        with torch.inference_mode():
-            zt = torch.from_numpy(z).to(self.device)
-            sn = None
-            if spatial_noise is not None:
-                sn = torch.from_numpy(np.asarray(spatial_noise, np.float32)).to(self.device)
-            images, _ = self.generator.render(zt, sn)
-            out = {"images": to_uint8(images[-1]), "stages": to_uint8(images)}
-            if self.discriminator is not None:
-                out["scores"] = torch.sigmoid(self.discriminator(images[-1])).float()
-            return {k: v.cpu().numpy() for k, v in out.items()}
+        return _fetch(self.dispatch(z, spatial_noise))
+
+    def stream(self, z_iter, depth: int = 8):
+        """Yield one output dict per z batch, in order, with up to `depth`
+        batches in flight. `z_iter` yields z arrays, or (z, spatial_noise)
+        pairs for a --spatial_code artifact."""
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        q: deque = deque()
+        for item in z_iter:
+            # Retire before enqueueing once the window is full, so that at
+            # most `depth` batches are ever in flight.
+            if len(q) >= depth:
+                yield _fetch(q.popleft())
+            z, sn = item if isinstance(item, tuple) else (item, None)
+            q.append(self.dispatch(z, sn))
+        while q:
+            yield _fetch(q.popleft())
+
+    def sharded(self, devices=None):
+        raise SystemExit(UNPORTED_DP)
 
     def sample(self, count: int, seed: int = 0, batch_size: int = 64
                ) -> Dict[str, np.ndarray]:
-        """Draw z ~ N(0, 1) with numpy and render `count` samples in batches."""
+        """Draw z ~ N(0, 1) with numpy and render `count` samples in batches
+        through `stream`; a pinned artifact renders whole batches and the
+        result is cut to `count`."""
         if count < 1:
             raise ValueError(f"count must be >= 1, got {count}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        fixed = int(self.manifest.get("batch", 0))
+        if fixed:
+            batch_size = fixed
         rng = np.random.default_rng(seed)
-        chunks = []
-        done = 0
-        while done < count:
-            n = min(batch_size, count - done)
-            z = rng.standard_normal((n, self.code_size)).astype(np.float32)
-            sn = None
-            if self.spatial_noise_shape is not None:
-                sn = rng.standard_normal((n, *self.spatial_noise_shape)).astype(np.float32)
-            chunks.append(self(z, sn))
-            done += n
-        return {
-            k: np.concatenate([c[k] for c in chunks], axis=1 if k == "stages" else 0)
-            for k in chunks[0]
-        }
+
+        def gen():
+            done = 0
+            while done < count:
+                n = fixed or min(batch_size, count - done)
+                z = rng.standard_normal((n, self.code_size)).astype(np.float32)
+                if self.spatial_noise_shape is not None:
+                    yield z, rng.standard_normal(
+                        (n, *self.spatial_noise_shape)).astype(np.float32)
+                else:
+                    yield z
+                done += n
+
+        chunks = list(self.stream(gen()))
+        out = {}
+        for k in chunks[0]:
+            axis = 1 if k == "stages" else 0
+            v = np.concatenate([c[k] for c in chunks], axis=axis)
+            out[k] = v[:, :count] if axis else v[:count]
+        return out
 
     def sample_filtered(
         self,
@@ -149,11 +347,13 @@ class ServingModel:
         ``count`` best, sorted by descending score. With ``threshold`` > 0,
         rounds are drawn until ``count`` clear it (at most ``max_rounds``; a
         shortfall is filled from the best rejects with a notice). The
-        absolute cutoff assumes BCE-calibrated sigmoid scores."""
-        if self.discriminator is None:
+        absolute cutoff assumes BCE-calibrated sigmoid scores: on a hinge or
+        WGAN-GP run it prints a warning (the top-k ranking holds)."""
+        if "scores" not in self.manifest.get("outputs", ()):
             raise ValueError(
-                "this model carries no discriminator; build it with one to "
-                "enable filtered sampling"
+                "this model carries no discriminator scores; export the run with "
+                "--with_scores 1 (or serve the modules with a discriminator) to enable "
+                "filtered sampling"
             )
         if count < 1:
             raise ValueError(f"count must be >= 1, got {count}")
@@ -161,6 +361,12 @@ class ServingModel:
             raise ValueError(f"oversample must be >= 1, got {oversample}")
         if max_rounds < 1:
             raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
+        gan_loss = self.manifest.get("gan_loss", "bce")
+        if threshold > 0 and gan_loss != "bce":
+            print(f"[gea_torch.serve] warning: artifact was trained with gan_loss={gan_loss}; "
+                  "its scores are sigmoid(margin), not calibrated probabilities — "
+                  f"d_threshold={threshold} is an arbitrary cutoff (top-k ranking is "
+                  "unaffected)")
         n_cand = int(count * oversample)
         best, rounds = topk_rounds(
             lambda r: self.sample(n_cand, seed=seed + r, batch_size=batch_size),
@@ -177,3 +383,93 @@ class ServingModel:
                     "rounds; filling from the best rejects"
                 )
         return best
+
+
+def load(path: str, device: str | torch.device = "cuda") -> ServingModel:
+    """Load an exported run directory (or the path of its `model.pt2`) onto
+    `device`: the card unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    if os.path.isdir(path):
+        art, man = os.path.join(path, ARTIFACT), os.path.join(path, MANIFEST)
+    else:
+        art, man = path, os.path.join(os.path.dirname(path), MANIFEST)
+    if not os.path.exists(art):
+        raise FileNotFoundError(
+            f"no exported model at {art!r} — create one with "
+            "`python -m gea_torch.cli.export_model --load_path <run> --out <dir>`"
+        )
+    if not os.path.exists(man):
+        # Without the manifest there is no code_size/batch/spatial-noise
+        # contract, and every later call would fail opaquely.
+        raise FileNotFoundError(f"missing manifest at {man!r} — keep {MANIFEST} next to the "
+                                "artifact (export_model writes both)")
+    with open(man) as f:
+        manifest: Dict[str, Any] = json.load(f)
+    if dev.type not in manifest.get("platforms", ()):
+        raise ValueError(f"{path!r} was exported for {manifest.get('platforms')}, not "
+                         f"{dev.type} (export_model --platforms)")
+    from torch.export.passes import move_to_device_pass
+
+    exported = move_to_device_pass(torch.export.load(art), str(dev))
+    return ServingModel(exported, manifest, device=dev)
+
+
+def _main(argv=None) -> List[str]:
+    """Render a grid (and the scores) straight from an artifact:
+
+        python -m gea_torch.serve exports/glis3_80 --count 64 --out samples/
+
+    Needs torch, numpy and this package's kernels; no run directory."""
+    import argparse
+
+    from gea_torch.utils.grids import tile_grid, write_png
+
+    p = argparse.ArgumentParser(description=_main.__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("artifact", help="export_model output dir")
+    p.add_argument("--count", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--rows", type=int, default=8)
+    p.add_argument("--out", default="serve_samples")
+    p.add_argument(
+        "--d_filter", type=int, default=0,
+        help="error-avoidance serving: render --oversample x count candidates, keep the "
+        "top count by the bundled D score (artifact must be exported --with_scores)",
+    )
+    p.add_argument("--oversample", type=int, default=4,
+                   help="candidate multiplier for --d_filter")
+    p.add_argument(
+        "--d_threshold", type=float, default=0.0,
+        help="with --d_filter: absolute-score rejection sampling — keep redrawing until "
+        "count samples clear this sigmoid-D cutoff (BCE-calibrated scores; top-k ranking "
+        "is objective-agnostic)",
+    )
+    p.add_argument("--device", default="cuda", help="cuda, or cpu to run on the host")
+    a = p.parse_args(argv)
+    if a.rows < 1:
+        raise SystemExit(f"--rows must be >= 1, got {a.rows}")
+    if not a.d_filter and (a.d_threshold > 0 or a.oversample != 4):
+        raise SystemExit("--d_threshold/--oversample only apply with --d_filter 1 "
+                         "(refusing to silently return unfiltered samples)")
+    model = load(a.artifact, device=a.device)
+    if a.d_filter:
+        out = model.sample_filtered(a.count, seed=a.seed, batch_size=a.batch_size,
+                                    oversample=a.oversample, threshold=a.d_threshold)
+    else:
+        out = model.sample(a.count, seed=a.seed, batch_size=a.batch_size)
+    os.makedirs(a.out, exist_ok=True)
+    grid_path = os.path.join(a.out, "samples.png")
+    write_png(grid_path, tile_grid(out["images"], rows=a.rows))
+    wrote = [grid_path]
+    if "scores" in out:
+        scores_path = os.path.join(a.out, "scores.json")
+        with open(scores_path, "w") as f:
+            json.dump([round(float(s), 6) for s in out["scores"]], f)
+        wrote.append(scores_path)
+    print(f"[gea_torch.serve] wrote {', '.join(wrote)} ({out['images'].shape[0]} samples)")
+    return wrote
+
+
+if __name__ == "__main__":
+    _main()

@@ -36,18 +36,23 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> an 8-bit RGB PNG, every row with filter 0."""
+def png_bytes(image: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> the bytes of an 8-bit RGB PNG, every row with
+    filter 0."""
     h, w, c = image.shape
     if c != 3 or image.dtype != np.uint8:
         raise ValueError(f"want (H, W, 3) uint8, got {image.shape} {image.dtype}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1)
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-           + _chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n"
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG file."""
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(png_bytes(image))
 
 
 def save_image_grid(images: np.ndarray, path: str, rows: int = 8,

@@ -53,6 +53,7 @@ def test_import_without_cuda_builds_nothing():
         "import gea_torch.cli.sample_r_separate, gea_torch.cli.sample_r_iterative;"
         "import gea_torch.cli.sample_interpolations, gea_torch.cli.info;"
         "import gea_torch.cli.convert_checkpoint, gea_torch.cli.make_demo_data;"
+        "import gea_torch.serve_http, gea_torch.cli.export_model;"
         "assert 'PIL' not in sys.modules and 'matplotlib' not in sys.modules;"
         "assert 'scipy' not in sys.modules;"
         "from gea_torch.ops import build;"
@@ -77,7 +78,7 @@ def test_serving_model_on_default_device_needs_cuda(monkeypatch):
     from gea_torch.serve import ServingModel
 
     g = generator_from_jax_params(init_generator_params(cfg), cfg, device="cpu")
-    out = ServingModel(g)(np.zeros((1, 16), np.float32))
+    out = ServingModel.from_modules(g)(np.zeros((1, 16), np.float32))
     assert out["images"].shape == (1, 32, 32, 3)
 
 
@@ -163,6 +164,36 @@ def test_samplers_on_default_device_need_cuda(monkeypatch, tmp_path, cli):
         mod.main(["--load_path", str(tmp_path / "missing")])
 
 
+def test_serving_on_default_device_needs_cuda(monkeypatch, tmp_path):
+    """Without device="cpu" (--device cpu) `load`, `export_model`,
+    `python -m gea_torch.serve` and the HTTP server raise on a host without
+    CUDA, before they read the artifact or the run."""
+    from gea_torch import serve, serve_http
+    from gea_torch.cli import export_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "missing")
+    for call in (lambda: serve.load(missing),
+                 lambda: export_model.main(["--load_path", missing, "--out", missing]),
+                 lambda: serve._main([missing]),
+                 lambda: serve_http.make_server(missing)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_data_parallel_serving_refuses():
+    """`ServingModel.sharded()` and `serve_http --data_parallel 1` raise
+    SystemExit until data parallelism is ported."""
+    from gea_torch import serve, serve_http
+
+    model = serve.ServingModel(lambda z: {"images": z}, {"code_size": 4, "batch": 0},
+                               device="cpu")
+    with pytest.raises(SystemExit, match="Queue A 3"):
+        model.sharded()
+    with pytest.raises(SystemExit, match="Queue A 3"):
+        serve_http.main(["--artifact", "missing", "--data_parallel", "1", "--device", "cpu"])
+
+
 def test_new_port_files_are_checked():
     """The import rule above covers the evaluation modules, the samplers
     and the remaining CLIs."""
@@ -171,7 +202,8 @@ def test_new_port_files_are_checked():
             "gea_torch/cli/eval_chain.py", "gea_torch/cli/sample_r_separate.py",
             "gea_torch/cli/sample.py", "gea_torch/cli/sample_interpolations.py",
             "gea_torch/cli/sample_r_iterative.py", "gea_torch/cli/info.py",
-            "gea_torch/cli/convert_checkpoint.py", "gea_torch/cli/make_demo_data.py"} <= names
+            "gea_torch/cli/convert_checkpoint.py", "gea_torch/cli/make_demo_data.py",
+            "gea_torch/serve_http.py", "gea_torch/cli/export_model.py"} <= names
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -1,6 +1,7 @@
-"""The port's serving slice as a whole: `ServingModel.sample_filtered`
-against `gea` (live `GeneratorLIS.render`, sigmoid of `Discriminator.apply`,
-`to_uint8` and `gea.serve.topk_rounds`) from the same params and seed."""
+"""The port's serving slice as a whole: `ServingModel.from_modules(...)
+.sample_filtered` against `gea` (live `GeneratorLIS.render`, sigmoid of
+`Discriminator.apply`, `to_uint8` and `gea.serve.topk_rounds`) from the same
+params and seed."""
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +36,7 @@ def jitter(params, seed):
 def models():
     g_params = jitter(init_generator_params(CFG, 0), 1)
     d_params = jitter(init_discriminator_params(CFG, 2), 3)
-    port = ServingModel(
+    port = ServingModel.from_modules(
         generator_from_jax_params(g_params, CFG, device="cpu"),
         discriminator_from_jax_params(d_params, CFG, device="cpu"),
     )
@@ -124,7 +125,7 @@ def test_sample_filtered_argument_checks(models, kwargs, match):
 
 
 def test_sample_filtered_needs_discriminator(models):
-    port = ServingModel(models[0].generator)
+    port = ServingModel.from_modules(models[0].exported.generator)
     assert "scores" not in port(np.zeros((1, CFG.code_size)))
     with pytest.raises(ValueError, match="no discriminator"):
         port.sample_filtered(2)
