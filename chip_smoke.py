@@ -136,15 +136,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
    `{"count": 4}` requests and one `{"count": 16, "oversample": 4}` each,
    every response checked, requests/s, p50/p99 latency and the realized
    batch sizes from /stats;
-14. print one JSON line of the serving results, one of the training
+14. `--steps_per_dispatch` as CUDA graphs (`gea_torch.train.dispatch`),
+   at flagship width in bf16 with batch 64 and BCE, for each trainer
+   (R-iterative at `--r_chain_length 2`, R-separate against a frozen G and
+   D from seeded params): (a) 16 eager steps against 2 replays of a K = 8
+   graph, warm-up and capture off the clock: wall a step, images/s, device
+   busy and idle share (torch.profiler over 8 eager steps and over one
+   replay), warm-up and capture seconds, the graph pool's peak MB, and the
+   launch counts, which must equal 16 times phases 7, 9 and 10's per-step
+   counts (replays counted; a replay launches 8 steps'); (b) in fp32
+   without TF32, a graphed K = 2 chunk against 2 eager steps from the same
+   params and draws (metrics within 2e-2, at most 2% of each parameter's
+   elements more than lr / 5 apart), beside a second eager run: G-LIS on
+   the recipe of the step golden written from `gea`
+   (`tests/torch_port_step_golden.json` and its draws, batch 4) with both
+   held against it (metrics and every parameter's norm, atol 2e-2 + rtol
+   2%), the R trainers at batch 64; (c) the CLIs at `--steps_per_dispatch 8` with exact
+   launches: `train_glis` 40 steps (checkpoints and grids at the chunk ends
+   24 and 40, a bitwise round trip), 43 steps (a ragged tail of 3) and its
+   relaunch resuming at 43 to 60, `train_r_separate` against the K = 8 run
+   and `train_r_iterative`, 40 steps each, each meter rate beside its K = 1
+   rate of phases 8-10; (d) short G-LIS runs: `--debug_checks` with K = 2
+   clean, and with a NaN in iter 3's input, which must raise naming the op
+   and the step; `--profile_dir` (its trace and kernel events);
+   `--tensorboard` (tb/ or the disabled line) ([dispatch] lines);
+15. print one JSON line of the serving results, one of the training
    results, one of the trainer's, one of the R trainers', one of the
    evaluation's, one of the samplers', one of export and serving, one of
-   per-kernel results (per train step; `launches` counts phase 7's timed
-   steps, `launches_trainer` the trainer's first run,
+   phase 14's, one of per-kernel results (per train step; `launches` counts
+   phase 7's timed steps, `launches_trainer` the trainer's first run,
    `launches_r_separate` and `launches_r_iterative` the R trainers' first
    runs, `launches_eval` phase 11's tracked runs and evaluators,
    `launches_samplers` phase 12's runs, `launches_serving` phase 6's live
-   `sample_filtered` and one call of each of phase 13's artifacts), the
+   `sample_filtered` and one call of each of phase 13's artifacts,
+   `launches_graphed` phase 14(a)'s 2 replays of the G-LIS graph), the
    card's name and power limit, and last `{"ok": true, "device": {...}}`.
 
 Phases 3-5 also hold each kernel against its plain version (forward and
@@ -167,6 +192,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -215,6 +241,7 @@ from gea_torch.train import (
     create_r_iterative_state,
     create_r_state,
 )
+from gea_torch.train.dispatch import StepDispatcher
 from gea_torch.train.runner import input_iterator, make_input_fn
 from gea_torch.train.state import generator_config
 from gea_torch.utils.checkpoint import (
@@ -1446,14 +1473,21 @@ def variant_launches(tag: str, variants: dict) -> dict:
     after."""
     out = {}
     for label, (run_step, want) in variants.items():
-        ops.reset_launch_counts()
-        run_step()
-        counts = ops.launch_counts()
-        print(f"[{tag}] one step with {label}: launch counts {counts} (want {want})", flush=True)
-        if counts != want:
-            raise AssertionError(f"{tag} {label}: launch counts {counts} != {want}")
-        out[label] = counts
+        out[label] = counted(f"{tag} {label}", run_step, want)
+        print(f"[{tag}] one step with {label}: launch counts {out[label]} (want {want})",
+              flush=True)
     return out
+
+
+def counted(label: str, fn, want: dict) -> dict:
+    """`fn()` with the launch counters zeroed just before and read just
+    after; they must equal `want`."""
+    ops.reset_launch_counts()
+    fn()
+    counts = ops.launch_counts()
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    return counts
 
 
 def check_trained(tag: str, state, init: dict) -> dict:
@@ -2545,6 +2579,538 @@ def export_serving(tmp: str, kernel_rows: dict, live_serve: dict, smi: str) -> d
     return result
 
 
+# ----------------------------------------------------- chunked dispatch
+
+
+GRAPH_K, GRAPH_REPLAYS = 8, 2  # a K = 8 graph, replayed twice: 16 steps
+STEP_GOLDEN = os.path.join(REPO, "tests", "torch_port_step_golden.json")
+STEP_DRAWS = os.path.join(REPO, "tests", "torch_port_step_draws.npz")
+CHUNK_TOL = 2e-2  # graphed vs eager and vs the golden: atol 2e-2, rtol 2%, 2% of elements
+# Graphed vs eager metrics under deterministic algorithms, relative: the two
+# differ only in the capturable Adam's fp32 arithmetic (at most 2.3e-5 on an
+# H100 80GB HBM3 at 700 W).
+CHUNK_METRICS_TOL = 1e-3
+
+
+def graph_trainers() -> dict:
+    """tag -> (cfg at K = GRAPH_K, make_state(cfg), build_step(cfg), launches
+    of one step, the real batch or None) of the three trainers at flagship
+    width, bf16, batch 64, BCE; R-separate against a frozen G and D made
+    from seeded params."""
+    rsep = TrainRSeparateConfig.from_args(TRAINER_ARGS)
+    rsep_g = generator_from_jax_params(init_generator_params(rsep, 0), rsep)
+    rsep_d = discriminator_from_jax_params(init_discriminator_params(rsep, 1), rsep)
+    glis = TrainGLISConfig.from_args(TRAINER_ARGS)
+    riter = TrainRIterativeConfig.from_args(TRAINER_ARGS + ["--r_chain_length", "2",
+                                                            "--lambda_r", "0.9"])
+    k = {"steps_per_dispatch": GRAPH_K}
+    return {
+        "g-lis": (glis.replace(**k), create_glis_state, build_glis_train_step,
+                  glis_launches(glis)[0], real_batch(glis)),
+        "r-separate": (rsep.replace(**k), lambda c: create_r_state(c, rsep_g, rsep_d),
+                       build_r_separate_step, r_separate_launches(rsep)[0], None),
+        "r-iterative": (riter.replace(**k), create_r_iterative_state, build_r_iterative_step,
+                        r_iterative_launches(riter)[0], real_batch(riter)),
+    }
+
+
+# Each wrapper's kernels by their names in a torch.profiler trace, with the
+# launches one call makes: a bf16 seed call is two launches of seed_tap_gemm
+# (the projection, then the transposed conv).
+KERNEL_EVENTS = {"fused_tprelu": (("tprelu_kernel", 1),),
+                 "lis_residual_mlp": (("lis_kernel_", 1),),
+                 "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1))}
+
+
+def calls_from(launches) -> dict:
+    """Each wrapper's calls from `launches(kernel name) -> launches of
+    kernels so named`, over the launches a call makes."""
+    out = {}
+    for name, kernels in KERNEL_EVENTS.items():
+        out[name] = 0
+        for key, per_call in kernels:
+            n = launches(key)
+            if n % per_call:
+                raise AssertionError(f"{n} {key} launches are not whole calls of {name}")
+            out[name] += n // per_call
+    return out
+
+
+def traced_calls(rows) -> dict:
+    """Each wrapper's calls in the rows of a `device_profile` trace, from
+    its kernels' events. A trace can miss records (CUPTI drops some now
+    and then), never invent them."""
+    return calls_from(lambda key: sum(count for k, _, count in rows if key in k))
+
+
+@contextlib.contextmanager
+def graphs_kept():
+    """Graphs captured meanwhile keep their CUDA graph after it is
+    instantiated (`keep_graph`, debug mode), so that `graph_calls` can
+    read it."""
+    made = torch.cuda.CUDAGraph
+
+    def kept():
+        graph = made(keep_graph=True)
+        graph.enable_debug_mode()
+        return graph
+
+    torch.cuda.CUDAGraph = kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = made
+
+
+def graph_calls(graph, tmp: str) -> tuple:
+    """(each wrapper's calls, all kernel nodes) in a graph captured under
+    `graphs_kept`, read from CUDA's own dump of it
+    (`cudaGraphDebugDotPrint`), which names each kernel node's function
+    once: a replay launches exactly these nodes."""
+    path = os.path.join(tmp, "graph.dot")
+    graph.debug_dump(path)
+    with open(path) as f:
+        text = f.read()
+    os.remove(path)
+    return calls_from(text.count), text.count("{KERNEL")
+
+
+def busy_and_wall(fn) -> tuple:
+    """(device busy ms from torch.profiler, host wall ms, each wrapper's
+    calls counted from the trace's kernel events) of one call of `fn`,
+    which ends when the device has."""
+    walls = []
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    busy, rows = device_profile(timed)
+    return busy, walls[0], traced_calls(rows)
+
+
+def eager_vs_graphed(tag: str, entry: tuple, smi: str, tmp: str) -> dict:
+    """Phase 14(a) for one trainer: GRAPH_K * GRAPH_REPLAYS eager steps
+    against GRAPH_REPLAYS replays of a K-step graph, warm-up and capture
+    off the clock; wall, images/s, device busy and idle share, launches.
+    The launch counters after the replays are the dispatcher's (a replay
+    runs no Python), so the graph's own kernel nodes are counted (CUDA's
+    dump of the captured graph) and must equal GRAPH_K eager steps'
+    counters; the kernels' events in a torch.profiler trace of the eager
+    steps and of the replays are recorded beside them and may not exceed
+    the counters."""
+    cfg, make_state, build_step, per_step, real = entry
+    n = GRAPH_K * GRAPH_REPLAYS
+    want = {k: n * v for k, v in per_step.items()}
+    out = {}
+    eager_cfg = cfg.replace(steps_per_dispatch=1)
+    state, step = make_state(eager_cfg), build_step(eager_cfg)
+    for _ in range(2):
+        step(state, real)
+
+    def eager(steps):
+        for _ in range(steps):
+            step(state, real)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = counted(f"{tag} eager", lambda: eager(n), want)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    busy, pwall, traced = busy_and_wall(lambda: eager(n))
+    out["eager"] = {"step_wall_ms": wall * 1e3, "images_per_s": BATCH / wall,
+                    "busy_ms_per_step": busy / n, "idle_share": 1 - busy / pwall,
+                    "launches": counts, "launches_traced": traced}
+    del state, step
+    torch.cuda.empty_cache()
+
+    state, step = make_state(cfg), build_step(cfg)
+    before = {k: p.detach().clone() for k, p in named_params(state).items()}
+    dispatch = StepDispatcher(cfg, step)
+    reals = [real] * GRAPH_K
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with graphs_kept():
+        dispatch(state, reals)  # warm-up, capture, first replay (which instantiates)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    chunk = dispatch.chunks[GRAPH_K]
+    nodes, kernel_nodes = graph_calls(chunk.graph, tmp)
+    per_replay = {k: GRAPH_K * v for k, v in per_step.items()}
+    if nodes != per_replay or chunk.launches != per_replay:
+        raise AssertionError(f"{tag}: the graph's kernel nodes {nodes} and the dispatcher's "
+                             f"count of a replay {chunk.launches}, not {GRAPH_K} steps' "
+                             f"{per_replay}")
+    history = []
+
+    def replays():
+        for _ in range(GRAPH_REPLAYS):
+            history.append(dispatch(state, reals))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = counted(f"{tag} graphed", replays, want)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    busy, pwall, traced = busy_and_wall(replays)
+    for mode, seen in (("graphed", traced), ("eager", out["eager"]["launches_traced"])):
+        if any(seen[k] > v for k, v in want.items()):
+            raise AssertionError(f"{tag}: the {mode} trace of {n} steps holds {seen} kernel "
+                                 f"calls, more than the {want} launched")
+    values = {k: v.tolist() for k, v in history[-1].items()}
+    if not all(np.isfinite(x) for vs in values.values() for x in vs):
+        raise AssertionError(f"{tag}: non-finite graphed metrics {values}")
+    still = [k for k, p in named_params(state).items() if torch.equal(p, before[k])]
+    if still or state.step != (1 + 2 * GRAPH_REPLAYS) * GRAPH_K:
+        raise AssertionError(f"{tag}: parameters not moved by the graph {still[:8]}, "
+                             f"step {state.step}")
+    out["graphed"] = {"step_wall_ms": wall * 1e3, "images_per_s": BATCH / wall,
+                      "busy_ms_per_step": busy / n, "idle_share": 1 - busy / pwall,
+                      "launches": counts, "launches_traced": traced,
+                      "launches_graph_nodes": {k: GRAPH_REPLAYS * v for k, v in nodes.items()},
+                      "kernel_nodes_per_replay": kernel_nodes,
+                      "launches_per_replay": chunk.launches,
+                      "warm_up_s": dispatch.warm_up_s, "capture_s": chunk.capture_s,
+                      "first_call_s": first_s, "pool_peak_mb": chunk.pool_peak_mb,
+                      "metrics_last_chunk": values}
+    for mode in ("eager", "graphed"):
+        r = out[mode]
+        print(f"[dispatch] {tag} {mode}: {r['step_wall_ms']:.3f} ms a step (wall, {n} steps) = "
+              f"{r['images_per_s']:.1f} images/s; device busy {r['busy_ms_per_step']:.3f} ms a "
+              f"step, idle share {r['idle_share']:.3f} (torch.profiler over {n} steps); "
+              f"launches {r['launches']} (counters), {r['launches_traced']} (kernel events in "
+              f"the trace); {smi}", flush=True)
+    g = out["graphed"]
+    print(f"[dispatch] {tag} K={GRAPH_K} graph: warm-up {g['warm_up_s']:.2f} s, capture "
+          f"{g['capture_s']:.2f} s, pool peak {g['pool_peak_mb']:.1f} MB, a replay launches "
+          f"{nodes} (the graph's kernel nodes, {kernel_nodes} in all) = the dispatcher's "
+          f"count {g['launches_per_replay']}; every parameter moved", flush=True)
+    del state, step, dispatch, chunk
+    torch.cuda.empty_cache()
+    return out
+
+
+def injected(step, draws: Optional[list]):
+    """`step` with `draws` (one noise dict a step) in place of its own;
+    `step` itself with None."""
+    if draws is not None:
+        it = iter(draws)
+        step.noise = lambda state: next(it)
+    return step
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for every op (cuDNN's convolutions among
+    them; cuBLAS through CUBLAS_WORKSPACE_CONFIG, which main sets), so
+    that two runs of the same steps agree bit for bit."""
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def within(a: float, b: float) -> bool:
+    return abs(a - b) <= CHUNK_TOL + CHUNK_TOL * abs(b)
+
+
+def golden_deviations(metrics: list, state, golden: dict) -> dict:
+    """Each step's metrics and the norm of every G and D tensor against
+    the step golden: the entries off CHUNK_TOL and the largest deviations,
+    absolute and relative."""
+    pairs = [(f"step {i + 1} {k}", m[k], v) for i, m in enumerate(metrics)
+             for k, v in golden["metrics"][i].items()]
+    for part, module in (("g", state.generator), ("d", state.discriminator)):
+        tensors = module.state_dict()
+        pairs += [(f"{part} {k}", float(tensors[k].double().norm()), v)
+                  for k, v in golden["norms"][part].items()]
+    return {"off": [n for n, x, v in pairs if not within(x, v)],
+            "max_abs": max(abs(x - v) for _, x, v in pairs),
+            "max_rel": max(abs(x - v) / max(abs(v), 1e-12) for _, x, v in pairs)}
+
+
+def chunk_agreement(tag: str, cfg, make_state, build_step, real, draws: Optional[list],
+                    golden: Optional[dict] = None) -> dict:
+    """Phase 14(b) for one trainer, fp32 without TF32, under deterministic
+    algorithms: a graphed K = 2 chunk against 2 eager steps from the same
+    params and draws (`draws`, or the state's own generator with None).
+    Two eager runs must agree bit for bit. The graphed chunk (a capturable
+    Adam with its lr read from the graph's buffer): the metrics within
+    CHUNK_METRICS_TOL, and every parameter with at most CHUNK_TOL of its
+    elements more than lr / 5 apart (Adam's first update is about lr * sign(g): a gradient
+    near zero flips by 2 lr); the EMA shadow likewise against (1 - g_ema)
+    * lr / 5. Both against the golden where there is one (metrics, the norm
+    of every tensor)."""
+
+    def eager_steps():
+        st, step = make_state(cfg.replace(steps_per_dispatch=1)), build_step(cfg)
+        fed = draws or [{}] * 2
+        return st, [{k: v.item() for k, v in step(st, real, **d).items()} for d in fed]
+
+    def tensors(st) -> dict:
+        out = {n: (p, cfg.lr / 5) for n, p in named_params(st).items()}
+        out.update({f"g_ema.{n}": (t, (1 - cfg.g_ema) * cfg.lr / 5)
+                    for n, t in getattr(st, "g_ema", {}).items()})
+        return out
+
+    def apart(a, b) -> float:
+        ta, tb = tensors(a), tensors(b)
+        return max(((ta[n][0] - t).abs() > limit).float().mean().item()
+                   for n, (t, limit) in tb.items())
+
+    def rel(a, b) -> float:
+        return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-2) for x, y in zip(a, b) for k in y)
+
+    def bitwise(a, b) -> bool:
+        ta, tb = tensors(a), tensors(b)
+        return all(torch.equal(ta[n][0], t) for n, (t, _) in tb.items())
+
+    with deterministic():
+        eager_state, eager = eager_steps()
+        again_state, again = eager_steps()
+        graphed_cfg = cfg.replace(steps_per_dispatch=2)
+        state = make_state(graphed_cfg)
+        chunk = StepDispatcher(graphed_cfg, injected(build_step(graphed_cfg), draws))(
+            state, [real] * 2)
+        graphed = [{k: v[i].item() for k, v in chunk.items()} for i in range(2)]
+    worst, share = rel(graphed, eager), apart(state, eager_state)
+    same = again == eager and bitwise(again_state, eager_state)
+    result = {"metrics_rel": worst, "params_apart_share": share, "eager": eager,
+              "graphed": graphed, "eager_again_bitwise": same}
+    bad = worst > CHUNK_METRICS_TOL or share > CHUNK_TOL or not same
+    if golden is not None:
+        for label, metrics, st in (("eager", eager, eager_state), ("graphed", graphed, state)):
+            result[f"golden_{label}"] = golden_deviations(metrics, st, golden)
+            bad = bad or bool(result[f"golden_{label}"]["off"])
+    print(f"[dispatch] {tag} fp32, no TF32, deterministic, batch {cfg.batch_size}: graphed "
+          f"K=2 chunk vs 2 eager steps: metrics rel {worst:.3e} (tol {CHUNK_METRICS_TOL}), "
+          f"largest share of a tensor's elements more than lr/5 apart {share:.6f} (tol "
+          f"{CHUNK_TOL}); eager vs eager "
+          f"again bit for bit: {same}" + "".join(
+              f"; vs the step golden ({label}): max abs {g['max_abs']:.3e}, max rel "
+              f"{g['max_rel']:.3e}, off {g['off']}" for label in ("eager", "graphed")
+              if (g := result.get(f"golden_{label}")) is not None), flush=True)
+    if bad:
+        raise AssertionError(f"{tag}: the graphed chunk disagrees: {result}")
+    return result
+
+
+def fp32_chunks() -> dict:
+    """Phase 14(b): G-LIS on the step golden's recipe (its config, params,
+    real batch and `gea`'s draws, batch 4); then at the same width and
+    phases 9-10's batch of 64, from seeded params: G-LIS under a cosine
+    schedule whose second lr is half the first, with --g_ema, --grad_accum
+    2 and --remat; G-LIS with WGAN-GP's double backward (both drawing
+    their own noise); R-separate and R-iterative from numpy draws."""
+    golden = json.loads(open(STEP_GOLDEN).read())
+    cfg = TrainGLISConfig(**{**dataclasses.asdict(FLAGSHIP), "dtype": "float32",
+                             "batch_size": 4, "dataset": "synthetic"})
+    g_params, d_params = init_generator_params(cfg, 0), init_discriminator_params(cfg, 1)
+    real = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (4, 80, 80, 3)).astype(np.float32)).cuda()
+    z = torch.from_numpy(np.load(STEP_DRAWS)["z"]).cuda()
+    out = {"g-lis": chunk_agreement(
+        "g-lis", cfg, lambda c: create_glis_state(c, g_params, d_params), build_glis_train_step,
+        real, [{"z": z[i], "spatial_noise": None, "gp_eps": None} for i in range(2)], golden)}
+    wide = {**dataclasses.asdict(FLAGSHIP), "dtype": "float32", "batch_size": BATCH}
+    glis = TrainGLISConfig(**{**wide, "dataset": "synthetic"})
+    variants = {
+        "g-lis cosine, g_ema, grad_accum 2, remat": glis.replace(
+            lr_schedule="cosine", niter=2, lr_final=0.0, g_ema=0.999, grad_accum=2,
+            remat=True),
+        "g-lis wgan-gp": glis.replace(gan_loss="wgan-gp"),
+    }
+    for tag, vcfg in variants.items():
+        out[tag] = chunk_agreement(
+            tag, vcfg, lambda c: create_glis_state(c, g_params, d_params),
+            build_glis_train_step, real_batch(vcfg), None)
+    rng = np.random.default_rng(11)
+    draws = [{"z": torch.from_numpy(rng.standard_normal((BATCH, cfg.code_size)).astype(
+        np.float32)).cuda(), "spatial_noise": None} for _ in range(2)]
+    rsep = TrainRSeparateConfig(**wide)
+    g = generator_from_jax_params(g_params, rsep)
+    d = discriminator_from_jax_params(d_params, rsep)
+    out["r-separate"] = chunk_agreement(
+        "r-separate", rsep, lambda c: create_r_state(c, g, d), build_r_separate_step, None,
+        draws)
+    riter = TrainRIterativeConfig(**{**wide, "r_chain_length": 2})
+    out["r-iterative"] = chunk_agreement(
+        "r-iterative", riter, create_r_iterative_state, build_r_iterative_step,
+        real_batch(riter), draws)
+    return out
+
+
+def graphed_clis(tmp: str, k1_rates: dict, smi: str) -> dict:
+    """Phase 14(c): the three CLIs at --steps_per_dispatch 8 with exact
+    launches (replays counted): G-LIS 40 steps with saves and renders at
+    the chunk ends that cross 20 and 40 (24, 40) and a bitwise round trip;
+    43 steps (a ragged tail of 3) and a relaunch resuming at 43 to 60; the
+    R trainers 40 steps each against / beside it; each meter rate beside
+    the K = 1 rate of phases 8-10."""
+    k8 = ["--steps_per_dispatch", str(GRAPH_K)]
+    run = os.path.join(tmp, "run_k8")
+    args = TRAINER_ARGS + k8 + ["--save_path", run, "--vis_interval", str(TRAINER_VIS),
+                                "--save_interval", str(TRAINER_VIS)]
+    cfg = TrainGLISConfig.from_args(args)
+    per_step, per_render = glis_launches(cfg)
+    out = {}
+
+    def note(label, stats, k1):
+        out[label] = {"images_per_sec": stats["images_per_sec"], "k1_images_per_sec": k1,
+                      "metrics": stats["metrics"]}
+        print(f"[dispatch] CLI {label} at K={GRAPH_K}: {stats['images_per_sec']:.1f} img/s "
+              f"(meter) beside {k1 if k1 is not None else 'not run'} at K=1 (phases 8-10); "
+              f"{smi}", flush=True)
+
+    state, stats, _, counts = counted_run("dispatch", "train_glis K=8, 40 steps and 2 renders",
+                                          train_glis, args + ["--niter", str(TRAINER_STEPS)],
+                                          launches(per_step, TRAINER_STEPS, per_render, 2))
+    saved = sorted(int(s) for s in os.listdir(os.path.join(run, "checkpoints")))
+    grids = sorted(f for f in os.listdir(os.path.join(run, "samples")))
+    want_grids = [f"samples_{s:08d}_stage{i}.png" for s in (24, 40) for i in range(cfg.n_stages)]
+    if saved != [24, 40] or grids != want_grids:
+        raise AssertionError(f"K=8 run: checkpoints {saved}, grids {grids}")
+    trip = round_trip(run, TRAINER_STEPS, state, create_glis_state(cfg))
+    note("train_glis", stats, k1_rates.get("g-lis"))
+    out["train_glis"].update(launches=counts, checkpoints=saved, round_trip=trip)
+    print(f"[dispatch] train_glis K=8: checkpoints {saved} and grids at 24, 40 (chunk ends); "
+          f"bitwise round trip {trip}", flush=True)
+    del state
+
+    tail = os.path.join(tmp, "run_k8_tail")
+    tail_args = TRAINER_ARGS + k8 + ["--save_path", tail, "--vis_interval", "0",
+                                     "--save_interval", "0"]
+    state, stats, _, counts = counted_run("dispatch", "train_glis K=8, 43 steps (tail of 3)",
+                                          train_glis, tail_args + ["--niter", "43"],
+                                          launches(per_step, 43, per_render, 0))
+    out["ragged_tail"] = {"steps": state.step, "launches": counts}
+    state, stats, text, counts = counted_run(
+        "dispatch", "train_glis K=8 relaunch at 43 to 60", train_glis,
+        tail_args + ["--niter", "60"], launches(per_step, 17, per_render, 0))
+    line = f"resumed from {tail} at step 43"
+    if line not in text or state.step != 60:
+        raise AssertionError(f"misaligned resume: {line!r} printed {line in text}, "
+                             f"step {state.step}")
+    out["misaligned_resume"] = {"printed": line, "launches": counts,
+                                "metrics": stats["metrics"]}
+    del state
+
+    rsep = os.path.join(tmp, "rsep_k8")
+    rsep_args = ["--g_path", run, "--batch_size", str(BATCH), "--log_interval", "10",
+                 "--save_path", rsep, "--vis_interval", str(TRAINER_VIS), "--save_interval",
+                 str(TRAINER_VIS), *k8]
+    r_step, r_render = r_separate_launches(r_separate_config(run, rsep_args))
+    state, stats, _, counts = counted_run(
+        "dispatch", "train_r_separate K=8, 40 steps and 2 renders", train_r_separate,
+        rsep_args + ["--niter", str(TRAINER_STEPS)],
+        launches(r_step, TRAINER_STEPS, r_render, 2))
+    note("train_r_separate", stats, k1_rates.get("r-separate"))
+    out["train_r_separate"]["launches"] = counts
+    del state
+
+    riter_args = TRAINER_ARGS + k8 + ["--r_chain_length", "2", "--lambda_r", "0.9",
+                                      "--save_path", os.path.join(tmp, "riter_k8"),
+                                      "--vis_interval", str(TRAINER_VIS), "--save_interval",
+                                      str(TRAINER_VIS)]
+    r_step, r_render = r_iterative_launches(TrainRIterativeConfig.from_args(riter_args))
+    state, stats, _, counts = counted_run(
+        "dispatch", "train_r_iterative K=8, 40 steps and 2 renders", train_r_iterative,
+        riter_args + ["--niter", str(TRAINER_STEPS)],
+        launches(r_step, TRAINER_STEPS, r_render, 2))
+    note("train_r_iterative", stats, k1_rates.get("r-iterative"))
+    out["train_r_iterative"]["launches"] = counts
+    return out
+
+
+def flag_runs(tmp: str, smi: str) -> dict:
+    """Phase 14(d), short G-LIS runs at full width: --debug_checks with K=2
+    (clean, then with a NaN in the input of iter 3, which must raise naming
+    the op and the step), --profile_dir, --tensorboard."""
+    base = TRAINER_ARGS + ["--vis_interval", "0", "--save_interval", "0"]
+    out = {}
+    t0 = time.perf_counter()
+    state, stats, _ = run_cli(base + ["--save_path", os.path.join(tmp, "debug"), "--niter", "4",
+                                      "--steps_per_dispatch", "2", "--debug_checks"])
+    if state.step != 4 or not all(np.isfinite(v) for v in stats["metrics"].values()):
+        raise AssertionError(f"--debug_checks clean run: step {state.step}, {stats['metrics']}")
+    out["debug_clean_s"] = time.perf_counter() - t0
+    make = train_glis.make_input_fn
+
+    def poisoned(cfg, device):
+        fn = make(cfg, device)
+
+        def real(batch, step):
+            out = fn(batch, step)
+            if step == 2:
+                out = out.clone()
+                out[0, 0, 0, 0] = float("nan")
+            return out
+
+        return real
+
+    train_glis.make_input_fn = poisoned
+    try:
+        run_cli(base + ["--save_path", os.path.join(tmp, "debug_nan"), "--niter", "4",
+                        "--steps_per_dispatch", "2", "--debug_checks"])
+        raise AssertionError("--debug_checks did not raise on a NaN input")
+    except FloatingPointError as e:
+        msg = str(e)
+    finally:
+        train_glis.make_input_fn = make
+    if "step 1 of 2" not in msg or "(iter 3)" not in msg or "aten." not in msg:
+        raise AssertionError(f"--debug_checks named the wrong place: {msg}")
+    out["debug_nan_error"] = msg
+    prof = os.path.join(tmp, "prof")
+    run_cli(base + ["--save_path", os.path.join(tmp, "prof_run"), "--niter", "16",
+                    "--steps_per_dispatch", str(GRAPH_K), "--profile_dir", prof])
+    traces = os.listdir(prof)
+    events = json.load(open(os.path.join(prof, traces[0])))["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if traces != ["trace_9-16.json"]:
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    out["profile"] = {"trace": traces[0], "kernel_events": kernels, "events": len(events)}
+    _, _, text = run_cli(base + ["--save_path", os.path.join(tmp, "tb_run"), "--niter", "16",
+                                 "--steps_per_dispatch", str(GRAPH_K), "--tensorboard"])
+    tb = os.path.join(tmp, "tb_run", "tb")
+    files = os.listdir(tb) if os.path.isdir(tb) else []
+    disabled = "[gea_torch] tensorboard disabled (" in text
+    if not files and not disabled:
+        raise AssertionError("--tensorboard wrote nothing and said nothing")
+    out["tensorboard"] = {"files": files, "disabled_line": disabled}
+    print(f"[dispatch] --debug_checks K=2: clean run in {out['debug_clean_s']:.1f} s; NaN in "
+          f"iter 3's input raised: {msg}", flush=True)
+    print(f"[dispatch] --profile_dir: {traces[0]} with {kernels} kernel events of "
+          f"{len(events)}; --tensorboard: files {files}, disabled line printed {disabled}; "
+          f"{smi}", flush=True)
+    return out
+
+
+def dispatch_phase(tmp: str, kernel_rows: dict, smi: str, k1_rates: dict) -> dict:
+    """Phase 14: --steps_per_dispatch as CUDA graphs in the three trainers,
+    and --debug_checks, --profile_dir and --tensorboard."""
+    t0 = time.perf_counter()
+    out = {}
+    with cudnn_tf32():
+        out["timing"] = {tag: eager_vs_graphed(tag, entry, smi, tmp)
+                         for tag, entry in graph_trainers().items()}
+    for name, n in out["timing"]["g-lis"]["graphed"]["launches_graph_nodes"].items():
+        kernel_rows[name]["launches_graphed"] = n
+    out["fp32"] = fp32_chunks()
+    with cudnn_tf32():
+        out["clis"] = graphed_clis(tmp, k1_rates, smi)
+        out["flags"] = flag_runs(tmp, smi)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = smi
+    print(f"[dispatch] phase 14 in {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -2560,6 +3126,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Read at cuBLAS's first use; the H100's default size, in the form that
+    # deterministic algorithms (phase 14(b)) require.
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
     t0 = time.perf_counter()
     paths = build.build_all()
@@ -2585,6 +3154,10 @@ def main() -> int:
         evaluated = evaluation(tmp, rows, smi)
         sampled = samplers(tmp, rows, smi)
         exported = export_serving(tmp, rows, served, smi)
+        dispatched = dispatch_phase(tmp, rows, smi, {
+            "g-lis": trained["runs"]["synthetic on device"]["images_per_sec"],
+            "r-separate": r_trainers["r_separate"]["cli"]["images_per_sec"],
+            "r-iterative": r_trainers["r_iterative"]["cli"]["images_per_sec"]})
 
     kernels = []
     for name, row in rows.items():
@@ -2599,7 +3172,8 @@ def main() -> int:
             "launches_samplers": row["launches_samplers"],
             "launches_per_r_separate_step": row["launches_per_r_separate_step"],
             "launches_per_r_iterative_step": row["launches_per_r_iterative_step"],
-            "launches_serving": row["launches_serving"], "max_abs_err": row["max_abs_err"],
+            "launches_serving": row["launches_serving"],
+            "launches_graphed": row["launches_graphed"], "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
             "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2624,6 +3198,8 @@ def main() -> int:
     print(json.dumps({"samplers": sampled, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"export_serving": exported, "seconds": time.perf_counter() - t_start}),
+          flush=True)
+    print(json.dumps({"dispatch": dispatched, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -35,6 +35,7 @@ import torch
 from gea_torch.cli.compute_fid import Noise, real_batch_iter, seeded_noise
 from gea_torch.config import TrainGLISConfig, refuse_unported, resolve_device
 from gea_torch.eval.fid import OnlineFID
+from gea_torch.train.dispatch import build_step_fn
 from gea_torch.train.runner import (
     TrainLoop,
     check_batch,
@@ -114,7 +115,7 @@ def run(cfg: TrainGLISConfig):
     state, start_step = maybe_resume(cfg, state)
     data = input_iterator(cfg, device, cfg.seed, start_step=start_step)
     fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 else None
-    loop = TrainLoop(cfg, run_dir, state, build_glis_train_step(cfg), data,
+    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_glis_train_step(cfg)), data,
                      make_input_fn(cfg, device),
                      vis_fn=make_vis_fn(cfg, state.generator, run_dir), fid_fn=fid_fn)
     try:

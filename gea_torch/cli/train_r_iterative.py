@@ -39,6 +39,7 @@ from gea_torch.cli.train_glis import param_count
 from gea_torch.config import TrainRIterativeConfig, refuse_unported, resolve_device
 from gea_torch.eval.fid import OnlineFID
 from gea_torch.models.reverter import iterative_chain
+from gea_torch.train.dispatch import build_step_fn
 from gea_torch.train.runner import (
     TrainLoop,
     check_batch,
@@ -110,7 +111,7 @@ def run(cfg: TrainRIterativeConfig):
     state, start_step = maybe_resume(cfg, state)
     data = input_iterator(cfg, device, cfg.seed, start_step=start_step)
     fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 else None
-    loop = TrainLoop(cfg, run_dir, state, build_r_iterative_step(cfg), data,
+    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_r_iterative_step(cfg)), data,
                      make_input_fn(cfg, device),
                      vis_fn=make_vis_fn(cfg, state.generator, run_dir),
                      loss_keys=("loss_d", "loss_g", "loss_r_sim"), fid_fn=fid_fn)

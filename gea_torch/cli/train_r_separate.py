@@ -39,6 +39,7 @@ from gea_torch.cli.train_glis import param_count
 from gea_torch.config import TrainRSeparateConfig, refuse_unported, resolve_device
 from gea_torch.eval.fid import OnlineFID
 from gea_torch.models.reverter import corrected_render
+from gea_torch.train.dispatch import build_step_fn
 from gea_torch.train.runner import TrainLoop, check_batch, maybe_resume, no_input, prepare_run
 from gea_torch.train.state import create_r_state
 from gea_torch.train.steps_r import build_r_separate_step
@@ -133,7 +134,7 @@ def run(cfg: TrainRSeparateConfig):
     state, start_step = maybe_resume(cfg, state)
     data = no_input()
     fid_fn = make_fid_fn(cfg, g_cfg, generator) if cfg.fid_interval > 0 else None
-    loop = TrainLoop(cfg, run_dir, state, build_r_separate_step(cfg), data,
+    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_r_separate_step(cfg)), data,
                      lambda batch, step: batch, vis_fn=make_vis_fn(cfg, generator, run_dir),
                      loss_keys=("loss_r",), fid_fn=fid_fn)
     final_state = loop.run(start_step)

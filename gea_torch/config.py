@@ -204,16 +204,25 @@ class TrainGLISConfig(ModelConfig, DataConfig):
                              "is not ported yet)")
     model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
     tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
-    steps_per_dispatch: int = _flag(1, "steps fused into one dispatch (not ported yet)")
+    steps_per_dispatch: int = _flag(
+        1, "fuse K train steps into one dispatch (one CUDA graph replay on the card) - "
+        "amortizes the host's per-launch cost; log/vis/save cadences fire at chunk "
+        "boundaries. 1 = one eager step per iteration")
     grad_accum: int = _flag(
         1, "accumulate gradients over K sequential microbatches per optimizer update")
     remat: bool = _flag(False, "recompute the generator forward in its backward")
-    profile_dir: str = _flag("", "profiler trace directory (not ported yet)")
+    profile_dir: str = _flag(
+        "", "if set, write a torch.profiler trace for steps 10..15 here")
     use_pallas: bool = _flag(
         False, "moot in the port: its kernels always run on the card")
-    tensorboard: bool = _flag(False, "tensorboard scalars (not ported yet)")
+    tensorboard: bool = _flag(
+        False, "also write scalars to <save_path>/tb via torch.utils.tensorboard")
     multihost: bool = _flag(False, "multi-host initialisation (not ported yet)")
-    debug_checks: bool = _flag(False, "NaN/Inf-checking step (not ported yet)")
+    debug_checks: bool = _flag(
+        False, "check every floating output of the train step (forward, backward and "
+        "update) for NaN/Inf and raise at the first offending op with its module path; "
+        "with --steps_per_dispatch it drives one checked eager step at a time. "
+        "Debugging mode, several times the step cost; single-host only")
     device: str = _flag("cuda", "device to train on: cuda, or cpu for the plain "
                         "PyTorch versions of the kernels")
 
@@ -307,7 +316,9 @@ class TrainRConfig(ModelConfig, DataConfig):
                              "is not ported yet)")
     model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
     tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
-    steps_per_dispatch: int = _flag(1, "steps fused into one dispatch (not ported yet)")
+    steps_per_dispatch: int = _flag(
+        1, "fuse K train steps into one dispatch (one CUDA graph replay on the card); "
+        "log/vis/save cadences fire at chunk boundaries")
     grad_accum: int = _flag(
         1, "accumulate gradients over K sequential microbatches per optimizer update")
     remat: bool = _flag(
@@ -315,10 +326,16 @@ class TrainRConfig(ModelConfig, DataConfig):
         "link, R-separate the corrected frozen-G render and its frozen-D scoring")
     use_pallas: bool = _flag(
         False, "moot in the port: its kernels always run on the card")
-    profile_dir: str = _flag("", "profiler trace directory (not ported yet)")
-    tensorboard: bool = _flag(False, "tensorboard scalars (not ported yet)")
+    profile_dir: str = _flag(
+        "", "if set, write a torch.profiler trace for steps 10..15 here")
+    tensorboard: bool = _flag(
+        False, "also write scalars to <save_path>/tb via torch.utils.tensorboard")
     multihost: bool = _flag(False, "multi-host initialisation (not ported yet)")
-    debug_checks: bool = _flag(False, "NaN/Inf-checking step (not ported yet)")
+    debug_checks: bool = _flag(
+        False, "check every floating output of the train step (forward, backward and "
+        "update) for NaN/Inf and raise at the first offending op with its module path; "
+        "with --steps_per_dispatch it drives one checked eager step at a time. "
+        "Debugging mode, several times the step cost; single-host only")
     device: str = _flag("cuda", "device to train on: cuda, or cpu for the plain "
                         "PyTorch versions of the kernels")
 
@@ -367,10 +384,6 @@ UNPORTED = {
     "num_devices": ((1,), "needs data parallelism"),
     "model_shards": ((), "needs tensor parallelism"),
     "tp_min_width": ((), "needs tensor parallelism"),
-    "steps_per_dispatch": ((), "needs CUDA graphs"),
-    "debug_checks": ((), "needs a NaN/Inf-checking step"),
-    "tensorboard": ((), "needs a scalar writer"),
-    "profile_dir": ((), "needs a profiler hook"),
     "use_pallas": ((), "moot: the port always runs its kernels on the card"),
     "data_backend": (("pil",), "needs the native and grain loaders"),
     "lsun_classes": ((), "needs the LSUN reader"),
@@ -394,6 +407,12 @@ def refuse_unported(cfg: BaseConfig) -> None:
         bad.append("--dataset lsun (needs the LSUN reader)")
     if bad:
         raise SystemExit("not implemented in gea_torch yet: " + "; ".join(bad))
+
+
+def dispatch_chunk(cfg) -> int:
+    """K train steps per dispatch (`--steps_per_dispatch`; 1 = one eager
+    step per iteration; below 1 counts as 1, as in `gea`)."""
+    return max(1, cfg.steps_per_dispatch)
 
 
 def stage_weights(cfg: ModelConfig) -> Tuple[float, ...]:

@@ -152,15 +152,20 @@ def _load_adam(opt, sched, module, opt_tree: Any, to_port, cfg) -> None:
     count, mu, nu = _adam_state(opt_tree)
     count = int(np.asarray(count))
     mu, nu = to_port(mu, cfg), to_port(nu, cfg)
+    capturable = opt.param_groups[0]["capturable"]  # its step counts live on the device
     for name, p in module.named_parameters():
-        opt.state[p] = {"step": torch.tensor(float(count)),
+        opt.state[p] = {"step": torch.tensor(float(count),
+                                             device=p.device if capturable else "cpu"),
                         "exp_avg": mu[name].to(p.device),
                         "exp_avg_sq": nu[name].to(p.device)}
     if sched is not None:
         lrs = [base * fn(count) for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
         sched.load_state_dict({**sched.state_dict(), "last_epoch": count, "_last_lr": lrs})
         for group, lr in zip(opt.param_groups, lrs):
-            group["lr"] = lr
+            if torch.is_tensor(group["lr"]):  # a chunked state's, filled in place
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
 
 
 def glis_state_from_jax(state_tree: Any, cfg, device="cuda", use_kernels: bool = True):

@@ -5,6 +5,12 @@
 * `seed`   (CUDA C++) replaces `gea/ops/pallas/seed.py::fused_seed`.
 
 Nothing here builds or imports a GPU toolchain at import time.
+
+Each wrapper counts its launches in `<wrapper>.launches`, in Python, where
+it launches its kernel. A CUDA graph runs no Python at replay, so the
+dispatcher (`gea_torch.train.dispatch`) takes the counts of a capture out
+again and adds them back at every replay (`add_launch_counts`): the counts
+are those of the kernels that ran.
 """
 
 from gea_torch.ops.lis import lis_residual_mlp, lis_residual_mlp_plain  # noqa: F401
@@ -21,3 +27,9 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add {wrapper name: launches} to the counts (negative to take off)."""
+    for k in KERNELS:
+        k.launches += counts.get(k.__name__, 0)

@@ -2,8 +2,9 @@
 and one device): the run directory, the input stream, resume, and
 `TrainLoop` with its periodic side effects (losses on stdout, sample
 grids, the loss plot, checkpoints with retention, `--fid_interval`
-tracking of the best snapshot with `--stop_patience`) and its guards
-(NaN/Inf abort, host-RSS budget).
+tracking of the best snapshot with `--stop_patience`, `--profile_dir`
+and `--tensorboard`) and its guards (NaN/Inf abort, host-RSS budget),
+over chunks of `--steps_per_dispatch` steps (`gea_torch.train.dispatch`).
 
 Per-step randomness is keyed by the global step, so a resumed run draws
 what a run never interrupted would: the data stream fast-forwards to the
@@ -28,6 +29,7 @@ import torch
 from gea_torch.data.hostpre import host_downsample_uint8, host_preprocess
 from gea_torch.data.ondevice import preprocess_batch, synthetic_batch
 from gea_torch.data.pipeline import device_crop_size, make_dataset
+from gea_torch.config import dispatch_chunk
 from gea_torch.data.prefetch import device_prefetch
 from gea_torch.utils.checkpoint import (
     best_record,
@@ -157,14 +159,27 @@ def maybe_resume(cfg, state) -> Tuple[Any, int]:
 
 
 class TrainLoop:
-    """Drives `step_fn(state, real) -> metrics` over the input stream.
-    `input_fn(batch, step)` makes the real batch from the stream's batch.
-    `loss_keys` are the metrics plotted and printed first: each trainer
-    passes its own (G-LIS loss_d and loss_g, R-separate loss_r, R-iterative
-    loss_d, loss_g and loss_r_sim).
-    Metrics are 0-d tensors on the device, read on the host only at log
-    intervals; the host waits for the device once more, when the warm-up
-    ends.
+    """Drives `step_fn(state, reals) -> metrics` over the input stream: k
+    steps a call, one per real batch in `reals` (`build_step_fn`'s
+    dispatcher; k = --steps_per_dispatch K, or what is left of the run).
+    `input_fn(batch, step)` makes step `step`'s real batch from the
+    stream's batch. `loss_keys` are the metrics plotted and printed first:
+    each trainer passes its own (G-LIS loss_d and loss_g, R-separate loss_r,
+    R-iterative loss_d, loss_g and loss_r_sim).
+    Metrics are tensors on the device, 0-d for one step and (k,) for a
+    chunk, read on the host only at log intervals: the loop logs a chunk's
+    last value, plots every inner step and checks every value for NaN/Inf.
+    The host waits for the device once more, when the warm-up ends. Log,
+    vis, FID and save fire at the end of the chunk that crosses their
+    interval, as `gea`'s do.
+
+    `--profile_dir` records a torch.profiler trace (CPU and CUDA) of the
+    dispatches that run steps start+10..start+15, rounded out to chunk
+    ends, into <profile_dir>/trace_<first iter>-<last iter>.json.
+    `--tensorboard` writes the logged metrics as `train/<key>` and the
+    meter's rates as `perf/<key>` into <run>/tb (and each FID as
+    `train/fid`); where `torch.utils.tensorboard` cannot be loaded it says
+    so and goes on.
 
     `fid_fn(state) -> float` (`--fid_interval`) scores the current model at
     every crossed multiple of fid_interval and at niter: the loop appends
@@ -210,10 +225,54 @@ class TrainLoop:
         # Host seconds per loop iteration, and of those, waiting for input.
         self.step_s: list = []
         self.input_wait_s: list = []
+        # Loop iterations (of one chunk each) up to the meter's warm-up end.
+        self._warm_iterations = self.meter.warmup_steps
+        self._profiler = None
+        self._tb = None
+        if cfg.tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(os.path.join(run_dir, "tb"))
+            except (ImportError, OSError) as e:
+                print(f"[gea_torch] tensorboard disabled ({e})", flush=True)
+
+    def _tb_write(self, step: int, metrics: Dict[str, float], stats: Dict[str, float]) -> None:
+        if self._tb is None:
+            return
+        for k, v in metrics.items():
+            self._tb.add_scalar(f"train/{k}", v, step)
+        for k, v in stats.items():
+            self._tb.add_scalar(f"perf/{k}", v, step)
+
+    def _profile(self, start_step: int, it: int, k: int) -> None:
+        """Start the trace before the dispatch that runs step start+10 (a
+        0-based step index), stop it after the one that reaches start+15."""
+        first, last = start_step + 10, start_step + 15
+        if self.cfg.profile_dir and self._profiler is None and it < last and it + k > first:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.state.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+            self._profiled_from = it + 1
+
+    def _stop_profile(self) -> None:
+        if self._profiler is None:
+            return
+        if self.state.device.type == "cuda":
+            torch.cuda.synchronize(self.state.device)
+        self._profiler.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        iters = f"{self._profiled_from}-{self.state.step}"
+        path = os.path.join(self.cfg.profile_dir, f"trace_{iters}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        print(f"[gea_torch] profiler trace of iters {iters} written to {path}", flush=True)
 
     def timings(self) -> Dict[str, float]:
         """Medians over the iterations after the warm-up."""
-        skip = self.meter.warmup_steps
+        skip = self._warm_iterations
         out = {}
         for key, xs in (("step_wall_s_median", self.step_s),
                         ("input_wait_s_median", self.input_wait_s)):
@@ -262,6 +321,7 @@ class TrainLoop:
             f.write(json.dumps({"step": step, "fid": round(fid, 4)}) + "\n")
         self._fid_plotter.add(step, fid=fid)
         self._fid_plotter.plot(os.path.join(self.run_dir, "plots", "fid.png"), ylabel="proxy-FID")
+        self._tb_write(step, {"fid": fid}, {})
         if is_best:
             # The save runs in the background; best.json points at it at
             # the next moment it is known durable.
@@ -271,7 +331,18 @@ class TrainLoop:
         return is_best, stop
 
     def run(self, start_step: int):
+        try:
+            return self._run(start_step)
+        finally:
+            # A run that ends (or fails) inside the profile window still
+            # leaves its trace; the writer is flushed.
+            self._stop_profile()
+            if self._tb is not None:
+                self._tb.close()
+
+    def _run(self, start_step: int):
         cfg = self.cfg
+        k_cfg = dispatch_chunk(cfg)
         rss_budget = resolve_rss_budget_gb(cfg.max_host_rss_gb)
         if self.fid_fn is not None and (cfg.load_path or start_step > 0):
             # A resumed run goes on comparing against its recorded best; a
@@ -294,31 +365,44 @@ class TrainLoop:
                       f"saved at step {it}; exiting {EXIT_HOST_RSS} for a clean "
                       "auto-resume restart.", flush=True)
                 raise SystemExit(EXIT_HOST_RSS)
+            k = min(k_cfg, cfg.niter - it)  # the ragged tail runs only what is left
             t0 = time.perf_counter()
-            batch = next(self.data_iter)
+            batches = [next(self.data_iter) for _ in range(k)]
             self.input_wait_s.append(time.perf_counter() - t0)
-            metrics = self.step_fn(self.state, self.input_fn(batch, it))
-            if self.meter.tick():
+            self._profile(start_step, it, k)
+            metrics = self.step_fn(self.state, [self.input_fn(batch, it + i)
+                                                for i, batch in enumerate(batches)])
+            if self.meter.tick(k):
                 if self.state.device.type == "cuda":  # keep the warm-up off the clock
                     torch.cuda.synchronize(self.state.device)
                 self.meter.restart_timer()
-            prev, it = it, it + 1
+                self._warm_iterations = len(self.step_s) + 1
+            prev, it = it, it + k
+            if it >= start_step + 15:
+                self._stop_profile()
 
             def crossed(interval: int) -> bool:
-                # A multiple of `interval` in (prev, it]; <= 0 disables.
+                # A multiple of `interval` in (prev, it]: with chunks, it
+                # fires at the end of the chunk. <= 0 disables.
                 return interval > 0 and it // interval > prev // interval
 
             if crossed(cfg.log_interval) or prev == start_step:
-                m = {k: float(v) for k, v in metrics.items()}
-                bad = [k for k, v in m.items() if not np.isfinite(v)]
+                # A 0-d metric is one step's; a (k,) one a chunk's.
+                hist = {key: [float(v)] if v.dim() == 0 else v.tolist()
+                        for key, v in metrics.items()}
+                m = {key: vs[-1] for key, vs in hist.items()}
+                bad = [key for key, vs in hist.items() if not np.all(np.isfinite(vs))]
                 if bad:
                     self._save_and_keep_all(it)
                     raise FloatingPointError(
                         f"non-finite metrics {bad} at iter {it}; post-mortem "
                         f"checkpoint written to {self.run_dir}")
                 self.last_metrics = m
-                self.plotter.add(it, **{k: m[k] for k in self.loss_keys if k in m})
+                for j in range(k):
+                    self.plotter.add(prev + j + 1, **{key: hist[key][j] for key in self.loss_keys
+                                                       if key in hist})
                 stats = self.meter.stats()
+                self._tb_write(it, m, stats)
                 extras = " ".join(f"{k}={v:.4f}" for k, v in m.items()
                                   if k not in self.loss_keys)
                 print(f"[gea_torch] iter {it}/{cfg.niter} "

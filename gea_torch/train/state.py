@@ -15,11 +15,17 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-from gea_torch.config import TrainGLISConfig, TrainRConfig, TrainRIterativeConfig, resolve_device
+from gea_torch.config import (
+    TrainGLISConfig,
+    TrainRConfig,
+    TrainRIterativeConfig,
+    dispatch_chunk,
+    resolve_device,
+)
 from gea_torch.interop import (
     discriminator_state_from_jax_params,
     generator_state_from_jax_params,
@@ -49,6 +55,13 @@ def lr_factor(schedule: str, total_steps: int, lr_final: float):
     return factor
 
 
+def scheduled_lrs(sched, k: int) -> List[List[float]]:
+    """The lr of each of the next k updates, per param group, as the
+    scheduler would set it before each (LambdaLR: base * factor(epoch))."""
+    return [[base * fn(sched.last_epoch + i) for i in range(k)]
+            for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
+
+
 def make_optimizer(
     params: Iterable[torch.nn.Parameter],
     lr: float,
@@ -57,13 +70,37 @@ def make_optimizer(
     schedule: str = "constant",
     total_steps: int = 0,
     lr_final: float = 0.0,
+    chunked: bool = False,
 ) -> Tuple[torch.optim.Adam, Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """Adam (eps 1e-8, as optax's) and, for a cosine or linear schedule, a
-    LambdaLR that the step advances after every update."""
-    opt = torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8)
+    LambdaLR that the step advances after every update.
+
+    `chunked` (K > 1 steps a dispatch, `StepDispatcher`): under a schedule
+    the lr lives in a 0-d tensor, which the dispatcher fills before each
+    inner step from its (K,) buffer, on either device. On the card Adam is
+    also capturable, as a CUDA graph of train steps needs: its step counts
+    stay on the device and it reads the fp32 lr tensor at replay (a float lr
+    would be baked into the captured kernels). On the CPU Adam is the plain
+    one, which reads the tensor back as a number: float64 keeps the
+    scheduler's value exact. The scheduler's base lr stays a float, so
+    advancing it fills the tensor in place."""
+    params = list(params)
+    cuda = params[0].is_cuda
+    opt = torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8,
+                           capturable=chunked and cuda)
     factor = lr_factor(schedule, total_steps, lr_final)
     sched = None if factor is None else torch.optim.lr_scheduler.LambdaLR(opt, factor)
+    if chunked and sched is not None:
+        for group in opt.param_groups:
+            group["lr"] = torch.tensor(float(group["lr"]), device=params[0].device,
+                                       dtype=torch.float32 if cuda else torch.float64)
     return opt, sched
+
+
+def chunked(cfg) -> bool:
+    """True where the trainer runs K > 1 steps a dispatch
+    (`--steps_per_dispatch`), whose Adam `make_optimizer` makes for it."""
+    return dispatch_chunk(cfg) > 1
 
 
 @dataclass
@@ -108,7 +145,7 @@ def create_glis_state(
     g.load_state_dict(generator_state_from_jax_params(g_params, cfg), strict=True)
     d = Discriminator(cfg, device=dev, use_kernels=use_kernels)
     d.load_state_dict(discriminator_state_from_jax_params(d_params, cfg), strict=True)
-    sched = (cfg.lr_schedule, cfg.niter, cfg.lr_final)
+    sched = (cfg.lr_schedule, cfg.niter, cfg.lr_final, chunked(cfg))
     opt_g, sched_g = make_optimizer(g.parameters(), cfg.lr, cfg.beta1, cfg.beta2, *sched)
     opt_d, sched_d = make_optimizer(d.parameters(), cfg.lr, cfg.beta1, cfg.beta2, *sched)
     ema = {}
@@ -130,7 +167,7 @@ def _reverter(cfg: TrainRConfig, r_params, seed: int, dev: torch.device,
     r = Reverter(cfg, device=dev, use_kernels=use_kernels)
     r.load_state_dict(reverter_state_from_jax_params(r_params, cfg), strict=True)
     opt, sched = make_optimizer(r.parameters(), cfg.lr, cfg.beta1, cfg.beta2,
-                                cfg.lr_schedule, cfg.niter, cfg.lr_final)
+                                cfg.lr_schedule, cfg.niter, cfg.lr_final, chunked(cfg))
     return r, opt, sched
 
 

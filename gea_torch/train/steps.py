@@ -73,6 +73,20 @@ def draw_noise(state, generator, batch: int, code_size: int, z, sn):
     return to_device(z, dev), to_device(sn, dev)
 
 
+def device_weights(weights) -> Callable[[torch.device], torch.Tensor]:
+    """dev -> `weights` as an fp32 tensor on dev, made once per device: a
+    copy from the host cannot run inside a CUDA graph's capture, so the
+    first (eager) step makes it."""
+    made: Dict[torch.device, torch.Tensor] = {}
+
+    def on(dev: torch.device) -> torch.Tensor:
+        if dev not in made:
+            made[dev] = torch.tensor(weights, dtype=torch.float32, device=dev)
+        return made[dev]
+
+    return on
+
+
 def to_device(t, dev: torch.device) -> Optional[torch.Tensor]:
     return None if t is None else torch.as_tensor(t, dtype=torch.float32, device=dev)
 
@@ -98,29 +112,30 @@ def build_glis_train_step(
 ) -> Callable[..., Metrics]:
     """Returns step(state, real, z=None, spatial_noise=None, gp_eps=None)
     -> metrics. `real` (B, H, W, 3) in [-1, 1]; z (B, code); spatial_noise
-    (B, 2*s0, 2*s0, spatial_code); gp_eps (B, 1, 1, 1)."""
+    (B, 2*s0, 2*s0, spatial_code); gp_eps (B, 1, 1, 1). `step.noise(state)`
+    draws one step's noise as the step would ({"z", "spatial_noise",
+    "gp_eps"}, None where the step takes none), for a caller that draws
+    ahead (`gea_torch.train.dispatch`)."""
     weights = stage_weights(cfg)
     n_stages = cfg.n_stages
     d_real_fn, d_fake_fn, g_fn = losses.gan_objective(cfg.gan_loss)
     use_gp = cfg.gan_loss == "wgan-gp"
     accum = check_accum(cfg)
-    weights_on: Dict[torch.device, torch.Tensor] = {}
+    stage_w = device_weights(weights)
 
-    def stage_w(dev: torch.device) -> torch.Tensor:
-        if dev not in weights_on:
-            weights_on[dev] = torch.tensor(weights, dtype=torch.float32, device=dev)
-        return weights_on[dev]
-
-    def inputs(state: GLISTrainState, real, z, sn, eps):
-        dev = state.device
-        real = to_device(real, dev)
-        batch = real.shape[0]
+    def draws(state: GLISTrainState, batch: int, z=None, sn=None, eps=None):
+        """z, spatial noise and eps, each drawn where not given, in this
+        order."""
         z, sn = draw_noise(state, state.generator, batch, cfg.code_size, z, sn)
         if not use_gp:
             eps = None
         elif eps is None:
-            eps = torch.rand((batch, 1, 1, 1), generator=state.rng, device=dev)
-        return real, z, sn, to_device(eps, dev)
+            eps = torch.rand((batch, 1, 1, 1), generator=state.rng, device=state.device)
+        return z, sn, to_device(eps, state.device)
+
+    def inputs(state: GLISTrainState, real, z, sn, eps):
+        real = to_device(real, state.device)
+        return (real, *draws(state, real.shape[0], z, sn, eps))
 
     def g_images(g, z, sn, grad: bool) -> torch.Tensor:
         """(S, B, H, W, 3) fakes in the compute dtype."""
@@ -128,7 +143,8 @@ def build_glis_train_step(
             with torch.no_grad():
                 return g(z, sn)[0]
         if cfg.remat:
-            return checkpoint(lambda z_, sn_: g(z_, sn_)[0], z, sn, use_reentrant=False)
+            return checkpoint(lambda z_, sn_: g(z_, sn_)[0], z, sn, use_reentrant=False,
+                              preserve_rng_state=False)  # G's forward draws nothing
         return g(z, sn)[0]
 
     def d_loss(d, real, fakes, eps, w):
@@ -213,5 +229,8 @@ def build_glis_train_step(
         return {"loss_d": loss_d / accum, "loss_g": loss_g / accum,
                 "d_real": d_real / accum, "d_fake_final": d_fake / accum}
 
-    return step_accum if accum > 1 else step
+    chosen = step_accum if accum > 1 else step
+    chosen.noise = lambda state: dict(zip(("z", "spatial_noise", "gp_eps"),
+                                          draws(state, cfg.batch_size)))
+    return chosen
 

@@ -49,6 +49,7 @@ from gea_torch.train.steps import (
     Metrics,
     _update,
     check_accum,
+    device_weights,
     draw_noise,
     mean_grads,
     microbatches,
@@ -57,13 +58,16 @@ from gea_torch.train.steps import (
 
 
 def _remat(fn: Callable) -> Callable:
-    """fn, with its forward recomputed in the backward."""
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    """fn, with its forward recomputed in the backward. The segments draw
+    no random numbers, so no RNG state is kept for the recompute (nor read
+    from the generator inside a CUDA graph's capture)."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def build_r_separate_step(cfg: TrainRSeparateConfig) -> Callable[..., Metrics]:
     """Returns step(state, _unused=None, z=None, spatial_noise=None) ->
-    metrics {loss_r, loss_r_mse, loss_r_adv, correction_norm}. The second
+    metrics {loss_r, loss_r_mse, loss_r_adv, correction_norm}, and
+    `step.noise(state)`, one step's draws ({"z", "spatial_noise"}). The second
     argument is ignored, so that `TrainLoop` can drive the step with an
     input-free stream. The frozen D of `state` (None without one) enables
     the D-feedback term (r_adv_weight > 0) and the mining weights
@@ -118,7 +122,14 @@ def build_r_separate_step(cfg: TrainRSeparateConfig) -> Callable[..., Metrics]:
         return {"loss_r": sums[0], "loss_r_mse": sums[1], "loss_r_adv": sums[2],
                 "correction_norm": sums[3]}
 
+    step.noise = lambda state: noise(cfg, state)
     return step
+
+
+def noise(cfg, state) -> dict:
+    """One R step's draws, as the step makes them where none is given."""
+    z, sn = draw_noise(state, state.generator, cfg.batch_size, cfg.code_size, None, None)
+    return {"z": z, "spatial_noise": sn}
 
 
 def link_weights(chain_length: int):
@@ -131,10 +142,11 @@ def link_weights(chain_length: int):
 
 def build_r_iterative_step(cfg: TrainRIterativeConfig) -> Callable[..., Metrics]:
     """Returns step(state, real, z=None, spatial_noise=None) -> metrics
-    {loss_d, loss_g, loss_r_sim, d_real}. `real` (B, H, W, 3) in [-1, 1];
-    z (B, code) is the chain's z_0."""
+    {loss_d, loss_g, loss_r_sim, d_real}, and `step.noise(state)` as
+    R-separate's. `real` (B, H, W, 3) in [-1, 1]; z (B, code) is the
+    chain's z_0."""
     n_links = cfg.r_chain_length + 1
-    weights = link_weights(cfg.r_chain_length)
+    link_w = device_weights(link_weights(cfg.r_chain_length))
     accum = check_accum(cfg)
 
     def unroll(g, r, z0, sn):
@@ -163,6 +175,7 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig) -> Callable[..., Metrics]
         batch = real.shape[0]
         z0, sn = draw_noise(state, g, batch, cfg.code_size, z, spatial_noise)
         mbs = list(zip(*(microbatches(t, batch, accum) for t in (real, z0, sn))))
+        weights = link_w(real.device)
 
         # D on the real batch and the detached chain renders.
         state.opt_d.zero_grad(set_to_none=True)
@@ -201,4 +214,5 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig) -> Callable[..., Metrics]
         return {"loss_d": loss_d / accum, "loss_g": loss_g / accum,
                 "loss_r_sim": loss_sim / accum, "d_real": d_real / accum}
 
+    step.noise = lambda state: noise(cfg, state)
     return step

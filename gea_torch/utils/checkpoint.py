@@ -12,8 +12,9 @@ read (a frozen G for R-separate, the samplers):
 `state.pt` holds, for each trained module of the state (its `PLAYERS`:
 G and D for G-LIS, R for R-separate, G, D and R for R-iterative), its
 `state_dict` under its name ("generator", "discriminator", "reverter"), its
-Adam's under "opt_<tag>" and its scheduler's under "sched_<tag>" (None
-without a schedule); then the step, the state of the train state's
+Adam's under "opt_<tag>" (in one form, whether the Adam is capturable or
+not: `optimizer_state`) and its scheduler's under "sched_<tag>" (None
+without a schedule; `scheduler_state`); then the step, the state of the train state's
 `torch.Generator`, and for G-LIS the EMA shadow ({} without `--g_ema`). An
 R-separate checkpoint holds R only: its frozen G stays in `--g_path`.
 
@@ -35,6 +36,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Iterable, Optional, Union
 
 import torch
+
+from gea_torch.train.state import scheduled_lrs
 
 STATE_FILE = "state.pt"
 _MODULES = ("generator", "discriminator", "reverter")
@@ -60,6 +63,47 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
+def optimizer_state(opt: torch.optim.Adam, sched=None) -> dict:
+    """`opt.state_dict()` in the one form every checkpoint holds, whichever
+    Adam wrote it: `capturable` False (the step counts are copied to the
+    host with the rest) and lr a float, the scheduler's own where a
+    chunked state's Adam holds it in a tensor (`make_optimizer`)."""
+    sd = opt.state_dict()
+    lrs = [g["lr"] for g in sd["param_groups"]]
+    if sched is not None and any(torch.is_tensor(lr) for lr in lrs):
+        lrs = [per_group[0] for per_group in scheduled_lrs(sched, 1)]
+    sd["param_groups"] = [{**g, "lr": lr, "capturable": False}
+                          for g, lr in zip(sd["param_groups"], lrs)]
+    return sd
+
+
+def scheduler_state(sched) -> dict:
+    """`sched.state_dict()` in one form too: its last lr as the floats it
+    computed (a tensor lr makes LambdaLR keep the tensors themselves)."""
+    return {**sched.state_dict(), "_last_lr": [v[0] for v in scheduled_lrs(sched, 1)]}
+
+
+def load_optimizer_state(opt: torch.optim.Adam, sd: dict) -> None:
+    """Load a checkpoint's `optimizer_state` into `opt`, which keeps its
+    own form: an lr tensor is kept (refilled in place, so a graph that
+    reads it sees the restored lr); a capturable Adam gets its step counts
+    on the device, a plain one keeps them on the host."""
+    kept = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+    opt.load_state_dict(sd)
+    for group, (lr, capturable) in zip(opt.param_groups, kept):
+        group["capturable"] = capturable
+        if torch.is_tensor(lr):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
+        else:
+            group["lr"] = float(group["lr"])
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(torch.float32).to(
+                    p.device if capturable else "cpu")
+
+
 def state_dict(state) -> dict:
     """The whole train state (G-LIS, R-separate or R-iterative) as a nest
     of host tensors and numbers."""
@@ -67,8 +111,8 @@ def state_dict(state) -> dict:
     for name, tag in state.PLAYERS:
         sched = getattr(state, f"sched_{tag}")
         out[name] = getattr(state, name).state_dict()
-        out[f"opt_{tag}"] = getattr(state, f"opt_{tag}").state_dict()
-        out[f"sched_{tag}"] = None if sched is None else sched.state_dict()
+        out[f"opt_{tag}"] = optimizer_state(getattr(state, f"opt_{tag}"), sched)
+        out[f"sched_{tag}"] = None if sched is None else scheduler_state(sched)
     out["rng"] = state.rng.get_state()
     if hasattr(state, "g_ema"):
         out["g_ema"] = dict(state.g_ema)
@@ -89,7 +133,7 @@ def load_state_dict(state, ckpt: dict):
                              "--lr_schedule than this run's")
     for name, tag in state.PLAYERS:
         getattr(state, name).load_state_dict(ckpt[name], strict=True)
-        getattr(state, f"opt_{tag}").load_state_dict(ckpt[f"opt_{tag}"])
+        load_optimizer_state(getattr(state, f"opt_{tag}"), ckpt[f"opt_{tag}"])
         sched = getattr(state, f"sched_{tag}")
         if sched is not None:
             sched.load_state_dict(ckpt[f"sched_{tag}"])

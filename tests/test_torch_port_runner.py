@@ -321,8 +321,7 @@ def test_restore_refuses_another_schedule(tmp_path):
 
 REFUSED = [
     ["--multihost"], ["--num_devices", "2"], ["--model_shards", "2"], ["--tp_min_width", "8"],
-    ["--steps_per_dispatch", "4"], ["--debug_checks"], ["--tensorboard"],
-    ["--profile_dir", "prof"], ["--use_pallas"], ["--data_backend", "native"],
+    ["--use_pallas"], ["--data_backend", "native"],
     ["--data_backend", "grain"], ["--lsun_classes", "tower"], ["--norm", "batch"],
     ["--dataset", "lsun"],
 ]
