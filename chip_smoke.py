@@ -163,14 +163,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
 15. print one JSON line of the serving results, one of the training
    results, one of the trainer's, one of the R trainers', one of the
    evaluation's, one of the samplers', one of export and serving, one of
-   phase 14's, one of per-kernel results (per train step; `launches` counts
+   phase 14's, one of phase 16's, one of per-kernel results (per train step; `launches` counts
    phase 7's timed steps, `launches_trainer` the trainer's first run,
    `launches_r_separate` and `launches_r_iterative` the R trainers' first
    runs, `launches_eval` phase 11's tracked runs and evaluators,
    `launches_samplers` phase 12's runs, `launches_serving` phase 6's live
    `sample_filtered` and one call of each of phase 13's artifacts,
-   `launches_graphed` phase 14(a)'s 2 replays of the G-LIS graph), the
-   card's name and power limit, and last `{"ok": true, "device": {...}}`.
+   `launches_graphed` phase 14(a)'s 2 replays of the G-LIS graph,
+   `launches_dp` phase 16(a)'s 10 DP steps), the card's name and power
+   limit, and last `{"ok": true, "device": {...}}`;
+16. (run before the lines of 15 are printed) data parallelism at `gea`'s
+   fifth milestone shape, G-LIS-3 at 160x160 with spatial_code 4, bf16,
+   BCE, batch 64, in a process group of world size 1 on NCCL (a localhost
+   TCP store; the script runs on one card): (a) under deterministic
+   algorithms, 10 eager DP steps against 10 single-process steps from the
+   same seeded params, parameters, Adam's state and metrics
+   equal bit for bit, with exact launches (`launches_dp`); then, in turns,
+   wall a step, images/s, device busy and idle share and the NCCL kernels
+   of both, and the seed kernel at this shape (c0 = c1 = 512) against its
+   plain version; (b) 2 replays of a K = 8 graph with the all-reduces
+   captured against 16 eager DP steps (wall, busy, idle, warm-up and
+   capture s, pool MB), the port kernels' calls from the graph's own
+   kernel nodes equal to 8 eager steps' counters and the NCCL kernel nodes
+   counted, and the fp32 graphed K = 2 chunk against 2 eager DP steps
+   (phase 14(b)'s gates); (c) `train_glis --num_devices 1`, `train_glis
+   --multihost` under torchrun's environment of world size 1 (a bitwise
+   round trip, a relaunch resuming at 40 to 60), `train_r_separate` and
+   `train_r_iterative --multihost`, 40 steps each, exact launches; (d)
+   `ServingModel.sharded()` over the visible cards against the single
+   card, bit for bit in bf16 at batches 1, 3 and 64, and `serve_http
+   --data_parallel` answering 16 requests ([dp] lines).
 
 Phases 3-5 also hold each kernel against its plain version (forward and
 gradients) at the shapes only the R trainers give it: TPReLU on R's head,
@@ -232,6 +254,8 @@ from gea_torch.interop import (
     init_reverter_params,
 )
 from gea_torch.ops import build
+from gea_torch.parallel import DataParallel, join
+from gea_torch.parallel.mesh import Launch, free_port
 from gea_torch.serve import ServingModel
 from gea_torch.train import (
     build_glis_train_step,
@@ -2667,12 +2691,18 @@ def graph_calls(graph, tmp: str) -> tuple:
     `graphs_kept`, read from CUDA's own dump of it
     (`cudaGraphDebugDotPrint`), which names each kernel node's function
     once: a replay launches exactly these nodes."""
+    text = graph_text(graph, tmp)
+    return calls_from(text.count), text.count("{KERNEL")
+
+
+def graph_text(graph, tmp: str) -> str:
+    """CUDA's dump of a graph captured under `graphs_kept`."""
     path = os.path.join(tmp, "graph.dot")
     graph.debug_dump(path)
     with open(path) as f:
         text = f.read()
     os.remove(path)
-    return calls_from(text.count), text.count("{KERNEL")
+    return text
 
 
 def busy_and_wall(fn) -> tuple:
@@ -3042,8 +3072,8 @@ def flag_runs(tmp: str, smi: str) -> dict:
     out["debug_clean_s"] = time.perf_counter() - t0
     make = train_glis.make_input_fn
 
-    def poisoned(cfg, device):
-        fn = make(cfg, device)
+    def poisoned(*args):
+        fn = make(*args)
 
         def real(batch, step):
             out = fn(batch, step)
@@ -3111,6 +3141,402 @@ def dispatch_phase(tmp: str, kernel_rows: dict, smi: str, k1_rates: dict) -> dic
     return out
 
 
+# ------------------------------------------------- phase 16: data parallelism
+
+# `gea`'s fifth milestone configuration, "Data-parallel G-LIS at 160x160":
+# flagship_config(image_size=160, spatial_code=4) (benchmarks/grad_accum_probe.py:46-52),
+# G-LIS-3, nf 64 / cap 512, bf16, BCE, global batch 64.
+DP_ARGS = [*TRAINER_ARGS[:TRAINER_ARGS.index("--image_size")], "--image_size", "160",
+           *TRAINER_ARGS[TRAINER_ARGS.index("--image_size") + 2:], "--spatial_code", "4"]
+DP_STEPS, DP_K, DP_REPLAYS = 10, 8, 2
+DP_SERVE_BATCHES, DP_HTTP_REQUESTS = (1, 3, 64), 16
+
+
+def dp_world() -> DataParallel:
+    """One process group of world size 1 on NCCL, through a localhost TCP
+    store: the script runs on one card."""
+    dev = join(torch.device("cuda"), Launch(0, 1, 0, f"tcp://127.0.0.1:{free_port()}"))
+    return DataParallel(dev)
+
+
+@contextlib.contextmanager
+def launcher_world():
+    """torchrun's environment for a group of world size 1, as --multihost
+    reads it (the group started by `dp_world` is joined, not started)."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    kept = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    try:
+        yield
+    finally:
+        for k, v in kept.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_config(**kw) -> TrainGLISConfig:
+    return TrainGLISConfig.from_args(DP_ARGS).replace(**kw)
+
+
+def dp_params(cfg) -> tuple:
+    return init_generator_params(cfg, 0), init_discriminator_params(cfg, 1)
+
+
+def state_tensors(state) -> dict:
+    """Every trained parameter and its Adam state, by name."""
+    out = {}
+    for name, tag in state.PLAYERS:
+        opt = getattr(state, f"opt_{tag}")
+        for n, p in getattr(state, name).named_parameters():
+            out[f"{name}.{n}"] = p.detach()
+            out.update({f"{name}.{n}.{k}": v for k, v in opt.state[p].items()})
+    return out
+
+
+def bit_diffs(a, b, metrics_a: list, metrics_b: list) -> list:
+    """The names of the tensors and metrics where two runs differ in a bit."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    diffs = [n for n, t in tb.items() if not (ta[n].dtype == t.dtype and torch.equal(ta[n], t))]
+    return diffs + [f"step {i + 1} {k}" for i, (x, y) in enumerate(zip(metrics_a, metrics_b))
+                    for k in y if not torch.equal(x[k], y[k])]
+
+
+def nccl_kernels(rows) -> dict:
+    """Device ms and launches of the NCCL kernels in a profile's rows."""
+    return {name: {"ms": ms, "launches": n} for name, ms, n in rows if "nccl" in name.lower()}
+
+
+def profiled(fn, steps: int) -> tuple:
+    """(device busy ms, host wall ms, profile rows) of `steps` calls of
+    `fn` under torch.profiler, ending when the device has."""
+    walls = []
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    busy, rows = device_profile(timed)
+    return busy, walls[0], rows
+
+
+def dp_bitwise(dp: DataParallel, kernel_rows: dict) -> dict:
+    """16(a), deterministic algorithms: DP_STEPS eager steps of the DP step
+    at world size 1 against DP_STEPS of the single-process step, from the
+    same seeded params, with the states' own draws; parameters, Adam's
+    state and metrics equal bit for bit. The DP run's launch counts are the
+    kernels' `launches_dp`."""
+    cfg = dp_config()
+    params, real = dp_params(cfg), real_batch(cfg)
+
+    def run(dp_):
+        state, step = create_glis_state(cfg, *params), build_glis_train_step(cfg, dp=dp_)
+        return state, [step(state, real) for _ in range(DP_STEPS)]
+
+    per_step = glis_launches(cfg)[0]
+    want = {k: DP_STEPS * v for k, v in per_step.items()}
+    with deterministic():
+        single, m_single = run(None)
+        ops.reset_launch_counts()
+        ranked, m_ranked = run(dp)
+        counts = ops.launch_counts()
+    diffs = bit_diffs(ranked, single, m_ranked, m_single)
+    n = len(state_tensors(single))
+    print(f"[dp] 16(a) config 5 bf16, deterministic: {DP_STEPS} DP steps (world 1, NCCL) vs "
+          f"{DP_STEPS} single-process steps: {n} tensors and {4 * DP_STEPS} metrics, "
+          f"differing {diffs[:8]} ({len(diffs)}); DP launches {counts} (want {want})",
+          flush=True)
+    if diffs or counts != want:
+        raise AssertionError(f"the world-1 DP step is not the single-process step: {diffs[:8]}, "
+                             f"launches {counts} != {want}")
+    for name, c in counts.items():
+        kernel_rows[name]["launches_dp"] = c
+    del single, ranked
+    torch.cuda.empty_cache()
+    return {"tensors": n, "metrics": 4 * DP_STEPS, "bitwise": True, "launches": counts}
+
+
+def dp_timing(dp: DataParallel, smi: str) -> dict:
+    """16(a), PyTorch's default TF32 settings: the single-process step and
+    the DP step in turns (single, DP, DP, single), each 2 warm-up steps,
+    DP_STEPS timed steps (wall) and DP_STEPS under torch.profiler (busy,
+    idle, the all-reduces' kernels)."""
+    cfg = dp_config()
+    params, real = dp_params(cfg), real_batch(cfg)
+    out = {}
+    for label, dp_ in (("single", None), ("dp", dp), ("dp again", dp), ("single again", None)):
+        state, step = create_glis_state(cfg, *params), build_glis_train_step(cfg, dp=dp_)
+        for _ in range(2):
+            step(state, real)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            step(state, real)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / DP_STEPS
+        busy, pwall, rows = profiled(lambda: step(state, real), DP_STEPS)
+        out[label] = {"step_wall_ms": wall * 1e3, "images_per_s": BATCH / wall,
+                      "busy_ms_per_step": busy / DP_STEPS, "idle_share": 1 - busy / pwall,
+                      "nccl_kernels": nccl_kernels(rows)}
+        r = out[label]
+        print(f"[dp] 16(a) {label}: {r['step_wall_ms']:.3f} ms a step (wall, {DP_STEPS} steps) "
+              f"= {r['images_per_s']:.1f} images/s; device busy {r['busy_ms_per_step']:.3f} ms "
+              f"a step, idle share {r['idle_share']:.3f}; NCCL kernels over {DP_STEPS} steps "
+              f"{r['nccl_kernels']}; {smi}", flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_seed_shape(cfg) -> dict:
+    """The seed kernel at config 5's shape (c0 = c1 = 512, s0 = 5) against
+    its plain version, in fp32 and bf16, with its bound."""
+    out = {}
+    for name, label, _, per_step, make in cases(cfg):
+        if name != "fused_seed" or per_step == 0:
+            continue
+        for dt in (torch.float32, torch.bfloat16):
+            args, nbytes, nops = make(dt)
+            err = compare(name, label, dt, KERNEL[name](*args), PLAIN[name](*args))
+            k_ms, p_ms = time_ms(lambda: KERNEL[name](*args)), time_ms(lambda: PLAIN[name](*args))
+            b_ms, b_by = bound(nbytes, nops, dt)
+            out[f"{label} {str(dt)[6:]}"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                                              "bound_ms": b_ms, "bound_by": b_by}
+            print(f"[dp] seed at config 5: {label} {str(dt)[6:]} max|err| {err:.3e} (atol, rtol "
+                  f"{TOL[name][dt]})  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return out
+
+
+def nccl_nodes(text: str) -> int:
+    """Kernel nodes of a graph dump that run an NCCL kernel."""
+    return sum(1 for node in text.split("];") if "{KERNEL" in node and "nccl" in node.lower())
+
+
+def dp_graphed(dp: DataParallel, smi: str, tmp: str) -> dict:
+    """16(b): DP_REPLAYS replays of a K = DP_K graph of the DP step with its
+    all-reduces captured, against DP_K * DP_REPLAYS eager DP steps; the
+    port kernels' calls from the graph's own kernel nodes must equal DP_K
+    eager steps' counters; the NCCL kernel nodes are counted beside them."""
+    cfg = dp_config()
+    params, real = dp_params(cfg), real_batch(cfg)
+    per_step = glis_launches(cfg)[0]
+    n = DP_K * DP_REPLAYS
+    state, step = create_glis_state(cfg, *params), build_glis_train_step(cfg, dp=dp)
+    for _ in range(2):
+        step(state, real)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, real)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    busy, pwall, rows = profiled(lambda: step(state, real), n)
+    out = {"eager": {"step_wall_ms": wall * 1e3, "images_per_s": BATCH / wall,
+                     "busy_ms_per_step": busy / n, "idle_share": 1 - busy / pwall,
+                     "nccl_kernels": nccl_kernels(rows)}}
+    del state, step
+    torch.cuda.empty_cache()
+
+    kcfg = cfg.replace(steps_per_dispatch=DP_K)
+    state, step = create_glis_state(kcfg, *params), build_glis_train_step(kcfg, dp=dp)
+    dispatch = StepDispatcher(kcfg, step)
+    reals = [real] * DP_K
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with graphs_kept():
+        dispatch(state, reals)  # warm-up, capture, first replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    chunk = dispatch.chunks[DP_K]
+    text = graph_text(chunk.graph, tmp)
+    nodes, kernel_nodes, nccl = calls_from(text.count), text.count("{KERNEL"), nccl_nodes(text)
+    per_replay = {k: DP_K * v for k, v in per_step.items()}
+    if nodes != per_replay or chunk.launches != per_replay:
+        raise AssertionError(f"dp graph: kernel nodes {nodes}, dispatcher {chunk.launches}, "
+                             f"not {DP_K} steps' {per_replay}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = [dispatch(state, reals) for _ in range(DP_REPLAYS)]
+    torch.cuda.synchronize()
+    gwall = (time.perf_counter() - t0) / n
+    gbusy, gpwall, grows = profiled(lambda: dispatch(state, reals), DP_REPLAYS)
+    values = {k: v.tolist() for k, v in history[-1].items()}
+    if not all(np.isfinite(x) for vs in values.values() for x in vs):
+        raise AssertionError(f"dp graph: non-finite metrics {values}")
+    out["graphed"] = {"step_wall_ms": gwall * 1e3, "images_per_s": BATCH / gwall,
+                      "busy_ms_per_step": gbusy / n, "idle_share": 1 - gbusy / gpwall,
+                      "warm_up_s": dispatch.warm_up_s, "capture_s": chunk.capture_s,
+                      "first_call_s": first_s, "pool_peak_mb": chunk.pool_peak_mb,
+                      "launches_per_replay": nodes, "kernel_nodes_per_replay": kernel_nodes,
+                      "nccl_kernel_nodes_per_replay": nccl,
+                      "nccl_kernels_traced": nccl_kernels(grows), "metrics_last_chunk": values}
+    e, g = out["eager"], out["graphed"]
+    print(f"[dp] 16(b) eager DP: {e['step_wall_ms']:.3f} ms a step (wall, {n} steps) = "
+          f"{e['images_per_s']:.1f} images/s, busy {e['busy_ms_per_step']:.3f} ms, idle "
+          f"{e['idle_share']:.3f}; graphed K={DP_K}: {g['step_wall_ms']:.3f} ms a step = "
+          f"{g['images_per_s']:.1f} images/s, busy {g['busy_ms_per_step']:.3f} ms, idle "
+          f"{g['idle_share']:.3f}; warm-up {g['warm_up_s']:.2f} s, capture "
+          f"{g['capture_s']:.2f} s, pool {g['pool_peak_mb']:.1f} MB; a replay's kernel nodes: "
+          f"port kernels {nodes} = {DP_K} eager steps' {per_replay}, NCCL {nccl}, all "
+          f"{kernel_nodes}; {smi}", flush=True)
+    del state, step, dispatch, chunk
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_fp32(dp: DataParallel) -> dict:
+    """16(b), fp32 without TF32: the graphed K = 2 chunk of the DP step
+    against 2 eager DP steps (phase 14(b)'s `chunk_agreement` and gates)."""
+    cfg = dp_config(dtype="float32")
+    params = dp_params(cfg)
+    return chunk_agreement("g-lis dp", cfg, lambda c: create_glis_state(c, *params),
+                           lambda c: build_glis_train_step(c, dp=dp), real_batch(cfg), None)
+
+
+def dp_clis(tmp: str, smi: str) -> dict:
+    """16(c): the CLIs at DP_ARGS for TRAINER_STEPS steps each with exact
+    launches: train_glis --num_devices 1; train_glis --multihost under a
+    launcher's environment of world size 1, with a bitwise checkpoint round
+    trip and a relaunch resuming at TRAINER_STEPS; train_r_separate against
+    that run and train_r_iterative (at phase 10's flagship shape), both
+    --multihost."""
+    out = {}
+    cfg = dp_config()
+    per_step, per_render = glis_launches(cfg)
+    renders = TRAINER_STEPS // TRAINER_VIS
+    common = ["--vis_interval", str(TRAINER_VIS), "--save_interval", str(TRAINER_VIS)]
+    want = launches(per_step, TRAINER_STEPS, per_render, renders)
+    single = os.path.join(tmp, "dp_single")
+    _, stats, _, counts = counted_run(
+        "dp", "train_glis --num_devices 1", train_glis,
+        DP_ARGS + common + ["--save_path", single, "--niter", str(TRAINER_STEPS),
+                            "--num_devices", "1"], want)
+    out["glis_num_devices_1"] = cli_summary(stats, counts)
+    run = os.path.join(tmp, "dp_multihost")
+    args = DP_ARGS + common + ["--save_path", run, "--multihost"]
+    with launcher_world():
+        state, stats, text, counts = counted_run(
+            "dp", "train_glis --multihost", train_glis, args + ["--niter", str(TRAINER_STEPS)],
+            want)
+        if "multihost: process 0/1" not in text:
+            raise AssertionError("train_glis --multihost did not join the group")
+        out["glis_multihost"] = cli_summary(stats, counts)
+        out["glis_round_trip"] = round_trip(run, TRAINER_STEPS, state, create_glis_state(cfg))
+        del state
+        out["glis_relaunch"] = relaunch("dp", train_glis, args, run, per_step, per_render)
+
+        rsep = os.path.join(tmp, "dp_rsep")
+        rargs = ["--g_path", run, "--batch_size", str(BATCH), "--log_interval", "10",
+                 "--save_path", rsep, *common, "--multihost"]
+        r_step, r_render = r_separate_launches(r_separate_config(run, rargs))
+        _, stats, _, counts = counted_run(
+            "dp", "train_r_separate --multihost", train_r_separate,
+            rargs + ["--niter", str(TRAINER_STEPS)],
+            launches(r_step, TRAINER_STEPS, r_render, renders))
+        out["r_separate_multihost"] = cli_summary(stats, counts)
+        riter = os.path.join(tmp, "dp_riter")
+        iargs = TRAINER_ARGS + ["--r_chain_length", "2", "--lambda_r", "0.9", "--save_path",
+                                riter, *common, "--multihost"]
+        i_step, i_render = r_iterative_launches(TrainRIterativeConfig.from_args(iargs))
+        _, stats, _, counts = counted_run(
+            "dp", "train_r_iterative --multihost", train_r_iterative,
+            iargs + ["--niter", str(TRAINER_STEPS)],
+            launches(i_step, TRAINER_STEPS, i_render, renders))
+        out["r_iterative_multihost"] = cli_summary(stats, counts)
+    for label, r in out.items():
+        if "images_per_sec" in r:
+            print(f"[dp] 16(c) {label}: {r['images_per_sec']:.1f} images/s (meter), metrics "
+                  f"{r['metrics']}; {smi}", flush=True)
+    return out
+
+
+def dp_serving(smi: str) -> dict:
+    """16(d): `ServingModel.sharded()` over the visible cards renders what
+    the single-card ServingModel renders, bit for bit, in bf16 at batches
+    DP_SERVE_BATCHES; `serve_http --data_parallel` answers
+    DP_HTTP_REQUESTS requests."""
+    import threading
+
+    cfg = dp_config()
+    g = generator_from_jax_params(init_generator_params(cfg, 0), cfg)
+    d = discriminator_from_jax_params(init_discriminator_params(cfg, 1), cfg)
+    model = ServingModel.from_modules(g, d)
+    sharded = model.sharded()
+    rng = np.random.default_rng(7)
+    out = {"replicas": [str(dev) for dev in sharded.devices]}
+    for n in DP_SERVE_BATCHES:
+        z = rng.standard_normal((n, cfg.code_size)).astype(np.float32)
+        sn = rng.standard_normal((n, *model.spatial_noise_shape)).astype(np.float32)
+        want, got = model(z, sn), sharded(z, sn)
+        diff = [k for k in want if not np.array_equal(want[k], got[k])]
+        if diff or got["images"].shape[0] != n:
+            raise AssertionError(f"sharded render at batch {n} differs in {diff}")
+    # The server renders the final stage alone: a 160x160 stage costs the
+    # handler a PNG encode an image.
+    final = ServingModel.from_modules(g, d, all_stages=False)
+    server, batcher = serve_http.make_server("", "127.0.0.1", 0, model=final, data_parallel=True)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    latencies = []
+    try:
+        for i in range(DP_HTTP_REQUESTS):
+            status, body, latency = http_post(base + "/render", {"count": 4, "seed": i})
+            if status != 200 or len(body["images"]) != 4 or len(body["scores"]) != 4:
+                raise AssertionError(f"serve_http --data_parallel: request {i} got {status}")
+            latencies.append(latency * 1e3)
+    finally:
+        server.shutdown()
+        batcher.close()
+        thread.join(timeout=30)
+    out.update(bitwise_batches=list(DP_SERVE_BATCHES), http_requests=DP_HTTP_REQUESTS,
+               http_p50_ms=float(np.percentile(latencies, 50)))
+    print(f"[dp] 16(d) ServingModel.sharded() over {out['replicas']}: bf16 renders at batches "
+          f"{list(DP_SERVE_BATCHES)} equal the single card's bit for bit; serve_http "
+          f"--data_parallel answered {DP_HTTP_REQUESTS} requests (p50 "
+          f"{out['http_p50_ms']:.2f} ms); {smi}", flush=True)
+    return out
+
+
+def dp_phase(tmp: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 16: data parallelism at config 5's shape, on a process group
+    of world size 1 over NCCL."""
+    t0 = time.perf_counter()
+    dp = dp_world()
+    out = {"config": "G-LIS-3 160x160 spatial_code 4, nf 64 / cap 512, bf16, BCE, batch 64",
+           "world_size": dp.size, "backend": torch.distributed.get_backend()}
+    seconds = out["part_seconds"] = {}
+
+    def part(name, fn, tf32=False):
+        t = time.perf_counter()
+        with cudnn_tf32() if tf32 else contextlib.nullcontext():
+            out[name] = fn()
+        seconds[name] = time.perf_counter() - t
+
+    try:
+        part("bitwise", lambda: dp_bitwise(dp, kernel_rows))
+        part("seed_shape", lambda: dp_seed_shape(dp_config()))
+        part("timing", lambda: dp_timing(dp, smi), tf32=True)
+        part("graphed", lambda: dp_graphed(dp, smi, tmp), tf32=True)
+        part("fp32", lambda: dp_fp32(dp))
+        part("clis", lambda: dp_clis(tmp, smi), tf32=True)
+        part("serving", lambda: dp_serving(smi))
+    finally:
+        torch.distributed.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = smi
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+    print(f"[dp] phase 16 in {out['seconds']:.1f} s ({parts})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3158,6 +3584,7 @@ def main() -> int:
             "g-lis": trained["runs"]["synthetic on device"]["images_per_sec"],
             "r-separate": r_trainers["r_separate"]["cli"]["images_per_sec"],
             "r-iterative": r_trainers["r_iterative"]["cli"]["images_per_sec"]})
+        parallel = dp_phase(tmp, rows, smi)
 
     kernels = []
     for name, row in rows.items():
@@ -3173,7 +3600,8 @@ def main() -> int:
             "launches_per_r_separate_step": row["launches_per_r_separate_step"],
             "launches_per_r_iterative_step": row["launches_per_r_iterative_step"],
             "launches_serving": row["launches_serving"],
-            "launches_graphed": row["launches_graphed"], "max_abs_err": row["max_abs_err"],
+            "launches_graphed": row["launches_graphed"], "launches_dp": row["launches_dp"],
+            "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
             "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -3200,6 +3628,8 @@ def main() -> int:
     print(json.dumps({"export_serving": exported, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"dispatch": dispatched, "seconds": time.perf_counter() - t_start}),
+          flush=True)
+    print(json.dumps({"data_parallel": parallel, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -17,7 +17,8 @@ gea_torch.cli.export_model` writes a `torch.export` artifact that
 `gea_torch.serve.load` serves (`python -m gea_torch.serve`, and the HTTP
 server `gea_torch.serve_http`). Their three TPU kernels are hand-written
 Hopper kernels in `gea_torch.ops`, each a `torch.library` custom op behind
-a `torch.autograd.Function`.
+a `torch.autograd.Function`. The trainers and the serving path run
+data-parallel over several cards (`gea_torch.parallel`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; on the CPU
 every kernel runs its plain PyTorch version.

@@ -21,6 +21,16 @@ With `--fid_interval N` the run scores the final LIS stage's proxy-FID
 every N steps (`make_fid_fn`), logs it to <run>/fid.jsonl and pins the best
 checkpoint in best.json; `--stop_patience` ends it early.
 
+Data parallelism: `--num_devices N` trains on N cards of this host, one
+spawned process each, with the batch split and the gradients averaged
+(`gea_torch.parallel`; 0, the default, takes every visible card), and
+`--multihost` runs one rank of a group that a launcher started, e.g.
+
+    torchrun --nnodes 2 --nproc_per_node 8 --rdzv_endpoint HOST:29500 \
+        -m gea_torch.cli.train_glis --multihost ...
+
+On the CPU, `--device cpu --num_devices 2` runs two gloo ranks.
+
 The flags are `gea`'s, plus `--device`; flags the port does not implement
 yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
 """
@@ -33,16 +43,18 @@ from typing import Optional
 import torch
 
 from gea_torch.cli.compute_fid import Noise, real_batch_iter, seeded_noise
-from gea_torch.config import TrainGLISConfig, refuse_unported, resolve_device
+from gea_torch.config import TrainGLISConfig, refuse_unported
 from gea_torch.eval.fid import OnlineFID
 from gea_torch.train.dispatch import build_step_fn
 from gea_torch.train.runner import (
     TrainLoop,
     check_batch,
     input_iterator,
+    is_lead,
     make_input_fn,
     maybe_resume,
     prepare_run,
+    run_trainer,
 )
 from gea_torch.train.state import create_glis_state
 from gea_torch.train.steps import build_glis_train_step
@@ -101,31 +113,45 @@ def param_count(module: torch.nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
 
 
-def run(cfg: TrainGLISConfig):
-    """Train; returns (state, stats): the meter's rates and the loop's
-    median host times per step."""
-    refuse_unported(cfg)
-    device = resolve_device(cfg.device)
-    run_dir = prepare_run(cfg)
-    check_batch(cfg)
-    state = create_glis_state(cfg, device=device)  # `gea`'s build_models
-    print(f"[gea_torch] G params: {param_count(state.generator):,}  D params: "
-          f"{param_count(state.discriminator):,}  device: {device}  stages/step: "
-          f"{cfg.n_stages}")
-    state, start_step = maybe_resume(cfg, state)
-    data = input_iterator(cfg, device, cfg.seed, start_step=start_step)
-    fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 else None
-    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_glis_train_step(cfg)), data,
-                     make_input_fn(cfg, device),
-                     vis_fn=make_vis_fn(cfg, state.generator, run_dir), fid_fn=fid_fn)
+def build_state(device, cfg: TrainGLISConfig):
+    """`gea`'s build_models: G and D from the seeded init, fresh Adam."""
+    return create_glis_state(cfg, device=device)
+
+
+def train(device, cfg: TrainGLISConfig, dp=None):
+    """One rank's run (the only one without `dp`); returns (state, stats):
+    the meter's rates and the loop's median host times per step."""
+    lead = is_lead(dp)
+    run_dir = prepare_run(cfg, dp)
+    check_batch(cfg, 1 if dp is None else dp.size)
+    state = build_state(device, cfg)
+    if lead:
+        print(f"[gea_torch] G params: {param_count(state.generator):,}  D params: "
+              f"{param_count(state.discriminator):,}  device: {device}  stages/step: "
+              f"{cfg.n_stages}")
+    state, start_step = maybe_resume(cfg, state, dp)
+    data = input_iterator(cfg, device, cfg.seed, start_step=start_step, dp=dp)
+    fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 and lead else None
+    vis_fn = make_vis_fn(cfg, state.generator, run_dir) if lead else None
+    step = build_glis_train_step(cfg, dp=dp)
+    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, step), data,
+                     make_input_fn(cfg, device, dp), vis_fn=vis_fn, fid_fn=fid_fn, dp=dp)
     try:
         final_state = loop.run(start_step)
     finally:
         data.close()  # ends the prefetch thread
-    stats = {**loop.meter.stats(), **loop.timings(), "metrics": loop.last_metrics}
-    print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s "
-          f"({stats['images_per_sec_per_chip']:.1f}/chip)")
+    stats = {**loop.stats(), "metrics": loop.last_metrics}
+    if lead:
+        print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s "
+              f"({stats['images_per_sec_per_chip']:.1f}/chip)")
     return final_state, stats
+
+
+def run(cfg: TrainGLISConfig):
+    """Train on the run's devices (`run_trainer`); returns the lead's
+    (state, stats)."""
+    refuse_unported(cfg)
+    return run_trainer(cfg, train, build_state)
 
 
 def main(argv: Optional[list] = None):

@@ -23,6 +23,9 @@ A tiny run on the CPU in a fresh directory, then its resume:
 With `--fid_interval N` the run scores the proxy-FID of the chain's end
 G(z_T) every N steps (`make_fid_fn`) and pins the best joint G/R snapshot.
 
+`--num_devices N` and `--multihost` split the batch over ranks, as in
+`gea_torch.cli.train_glis`.
+
 The flags are `gea`'s, plus `--device`; flags the port does not implement
 yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
 """
@@ -36,7 +39,7 @@ import torch
 
 from gea_torch.cli.compute_fid import Noise, real_batch_iter, seeded_noise
 from gea_torch.cli.train_glis import param_count
-from gea_torch.config import TrainRIterativeConfig, refuse_unported, resolve_device
+from gea_torch.config import TrainRIterativeConfig, refuse_unported
 from gea_torch.eval.fid import OnlineFID
 from gea_torch.models.reverter import iterative_chain
 from gea_torch.train.dispatch import build_step_fn
@@ -44,9 +47,11 @@ from gea_torch.train.runner import (
     TrainLoop,
     check_batch,
     input_iterator,
+    is_lead,
     make_input_fn,
     maybe_resume,
     prepare_run,
+    run_trainer,
 )
 from gea_torch.train.state import create_r_iterative_state
 from gea_torch.train.steps_r import build_r_iterative_step
@@ -98,31 +103,44 @@ def make_fid_fn(cfg: TrainRIterativeConfig, device, noise: Noise = seeded_noise)
     return fid_fn
 
 
-def run(cfg: TrainRIterativeConfig):
-    """Train G, D and R; returns (state, stats) as `train_glis.run` does."""
-    refuse_unported(cfg)
-    device = resolve_device(cfg.device)
-    run_dir = prepare_run(cfg)
-    check_batch(cfg)
-    state = create_r_iterative_state(cfg, device=device)
-    print(f"[gea_torch] G {param_count(state.generator):,} | D "
-          f"{param_count(state.discriminator):,} | R {param_count(state.reverter):,} params, "
-          f"device: {device}, chain links/step: {cfg.r_chain_length}")
-    state, start_step = maybe_resume(cfg, state)
-    data = input_iterator(cfg, device, cfg.seed, start_step=start_step)
-    fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 else None
-    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_r_iterative_step(cfg)), data,
-                     make_input_fn(cfg, device),
-                     vis_fn=make_vis_fn(cfg, state.generator, run_dir),
-                     loss_keys=("loss_d", "loss_g", "loss_r_sim"), fid_fn=fid_fn)
+def build_state(device, cfg: TrainRIterativeConfig):
+    return create_r_iterative_state(cfg, device=device)
+
+
+def train(device, cfg: TrainRIterativeConfig, dp=None):
+    """One rank's run of G, D and R (the only one without `dp`); returns
+    (state, stats) as `train_glis.train` does."""
+    lead = is_lead(dp)
+    run_dir = prepare_run(cfg, dp)
+    check_batch(cfg, 1 if dp is None else dp.size)
+    state = build_state(device, cfg)
+    if lead:
+        print(f"[gea_torch] G {param_count(state.generator):,} | D "
+              f"{param_count(state.discriminator):,} | R {param_count(state.reverter):,} "
+              f"params, device: {device}, chain links/step: {cfg.r_chain_length}")
+    state, start_step = maybe_resume(cfg, state, dp)
+    data = input_iterator(cfg, device, cfg.seed, start_step=start_step, dp=dp)
+    fid_fn = make_fid_fn(cfg, device) if cfg.fid_interval > 0 and lead else None
+    vis_fn = make_vis_fn(cfg, state.generator, run_dir) if lead else None
+    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_r_iterative_step(cfg, dp)),
+                     data, make_input_fn(cfg, device, dp), vis_fn=vis_fn,
+                     loss_keys=("loss_d", "loss_g", "loss_r_sim"), fid_fn=fid_fn, dp=dp)
     try:
         final_state = loop.run(start_step)
     finally:
         data.close()  # ends the prefetch thread
-    stats = {**loop.meter.stats(), **loop.timings(), "metrics": loop.last_metrics}
-    print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s "
-          f"({stats['images_per_sec_per_chip']:.1f}/chip)")
+    stats = {**loop.stats(), "metrics": loop.last_metrics}
+    if lead:
+        print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s "
+              f"({stats['images_per_sec_per_chip']:.1f}/chip)")
     return final_state, stats
+
+
+def run(cfg: TrainRIterativeConfig):
+    """Train G, D and R on the run's devices (`run_trainer`); returns the
+    lead's (state, stats)."""
+    refuse_unported(cfg)
+    return run_trainer(cfg, train, build_state)
 
 
 def main(argv: Optional[list] = None):

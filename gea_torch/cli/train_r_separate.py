@@ -22,6 +22,9 @@ With `--fid_interval N` the run scores the proxy-FID of the corrected
 samples G(blend(z, R(G(z)), --fid_correction_strength)) every N steps
 against the G run's dataset (`make_fid_fn`) and pins the best R snapshot.
 
+`--num_devices N` and `--multihost` split the batch over ranks, as in
+`gea_torch.cli.train_glis`.
+
 The flags are `gea`'s, plus `--device`; flags the port does not implement
 yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
 """
@@ -36,11 +39,19 @@ import torch
 from gea_torch.cli.compute_fid import Noise, real_batch_iter, seeded_noise
 from gea_torch.cli.sample import load_discriminator, load_generator, read_run
 from gea_torch.cli.train_glis import param_count
-from gea_torch.config import TrainRSeparateConfig, refuse_unported, resolve_device
+from gea_torch.config import TrainRSeparateConfig, refuse_unported
 from gea_torch.eval.fid import OnlineFID
 from gea_torch.models.reverter import corrected_render
 from gea_torch.train.dispatch import build_step_fn
-from gea_torch.train.runner import TrainLoop, check_batch, maybe_resume, no_input, prepare_run
+from gea_torch.train.runner import (
+    TrainLoop,
+    check_batch,
+    is_lead,
+    maybe_resume,
+    no_input,
+    prepare_run,
+    run_trainer,
+)
 from gea_torch.train.state import create_r_state
 from gea_torch.train.steps_r import build_r_separate_step
 from gea_torch.utils.grids import save_stage_grids
@@ -105,18 +116,19 @@ def make_fid_fn(cfg: TrainRSeparateConfig, g_cfg, generator, noise: Noise = seed
     return fid_fn
 
 
-def run(cfg: TrainRSeparateConfig):
-    """Train R; returns (state, stats) as `train_glis.run` does. The state
-    holds the frozen G and D it trained against."""
-    refuse_unported(cfg)
+def g_run(cfg: TrainRSeparateConfig):
+    """(cfg with the frozen G's architecture, G's run config, its
+    checkpoint)."""
     if not cfg.g_path:
         raise SystemExit("--g_path (the trained generator's run directory) is required")
-    device = resolve_device(cfg.device)
     g_step = cfg.g_step or None  # 0 = latest, -1 = best.json
     g_cfg, restored = read_run(cfg.g_path, g_step)
-    cfg = architecture_from_g(cfg, g_cfg)
-    run_dir = prepare_run(cfg)
-    check_batch(cfg)
+    return architecture_from_g(cfg, g_cfg), g_cfg, restored
+
+
+def build_state(device, cfg: TrainRSeparateConfig, g_cfg_restored=None):
+    """R's fresh state against the frozen G (and D) of --g_path."""
+    cfg, _, restored = g_cfg_restored or g_run(cfg)
     generator, _ = load_generator(cfg.g_path, device=device, restored=restored)
     discriminator = None
     if cfg.r_adv_weight > 0 or cfg.r_mine_weight > 0:
@@ -127,20 +139,41 @@ def run(cfg: TrainRSeparateConfig):
         except KeyError as e:
             print(f"[gea_torch] no discriminator in {cfg.g_path!r} ({e}); falling back to "
                   "pure code-reconstruction MSE")
-    del restored
-    state = create_r_state(cfg, generator, discriminator, device=device)
-    print(f"[gea_torch] R params: {param_count(state.reverter):,}  frozen G params: "
-          f"{param_count(generator):,}  device: {device}")
-    state, start_step = maybe_resume(cfg, state)
-    data = no_input()
-    fid_fn = make_fid_fn(cfg, g_cfg, generator) if cfg.fid_interval > 0 else None
-    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_r_separate_step(cfg)), data,
-                     lambda batch, step: batch, vis_fn=make_vis_fn(cfg, generator, run_dir),
-                     loss_keys=("loss_r",), fid_fn=fid_fn)
+    return create_r_state(cfg, generator, discriminator, device=device)
+
+
+def train(device, cfg: TrainRSeparateConfig, dp=None):
+    """One rank's run of R (the only one without `dp`); returns (state,
+    stats) as `train_glis.train` does. The state holds the frozen G and D
+    it trained against."""
+    lead = is_lead(dp)
+    cfg, g_cfg, restored = found = g_run(cfg)
+    run_dir = prepare_run(cfg, dp)
+    check_batch(cfg, 1 if dp is None else dp.size)
+    state = build_state(device, cfg, found)
+    del restored, found
+    generator = state.generator
+    if lead:
+        print(f"[gea_torch] R params: {param_count(state.reverter):,}  frozen G params: "
+              f"{param_count(generator):,}  device: {device}")
+    state, start_step = maybe_resume(cfg, state, dp)
+    fid_fn = make_fid_fn(cfg, g_cfg, generator) if cfg.fid_interval > 0 and lead else None
+    vis_fn = make_vis_fn(cfg, generator, run_dir) if lead else None
+    loop = TrainLoop(cfg, run_dir, state, build_step_fn(cfg, build_r_separate_step(cfg, dp)),
+                     no_input(), lambda batch, step: batch, vis_fn=vis_fn,
+                     loss_keys=("loss_r",), fid_fn=fid_fn, dp=dp)
     final_state = loop.run(start_step)
-    stats = {**loop.meter.stats(), **loop.timings(), "metrics": loop.last_metrics}
-    print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s")
+    stats = {**loop.stats(), "metrics": loop.last_metrics}
+    if lead:
+        print(f"[gea_torch] done: {stats['images_per_sec']:.1f} img/s")
     return final_state, stats
+
+
+def run(cfg: TrainRSeparateConfig):
+    """Train R on the run's devices (`run_trainer`); returns the lead's
+    (state, stats)."""
+    refuse_unported(cfg)
+    return run_trainer(cfg, train, build_state)
 
 
 def main(argv: Optional[list] = None):

@@ -200,8 +200,8 @@ class TrainGLISConfig(ModelConfig, DataConfig):
     vis_interval: int = _flag(500, "sample grid + loss plot every N iters")
     vis_rows: int = _flag(8, "rows (and cols) of the sample grid")
     log_interval: int = _flag(50, "stdout loss print every N iterations")
-    num_devices: int = _flag(0, "device count; 0 = one device here (data parallelism "
-                             "is not ported yet)")
+    num_devices: int = _flag(
+        0, "data-parallel device count; 0 = all visible devices (one process on the CPU)")
     model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
     tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
     steps_per_dispatch: int = _flag(
@@ -217,7 +217,10 @@ class TrainGLISConfig(ModelConfig, DataConfig):
         False, "moot in the port: its kernels always run on the card")
     tensorboard: bool = _flag(
         False, "also write scalars to <save_path>/tb via torch.utils.tensorboard")
-    multihost: bool = _flag(False, "multi-host initialisation (not ported yet)")
+    multihost: bool = _flag(
+        False, "join the process group of a multi-host launch at startup (one process a "
+        "card; requires torchrun's RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT or "
+        "GEA_COORDINATOR/GEA_NUM_PROCESSES/GEA_PROCESS_ID)")
     debug_checks: bool = _flag(
         False, "check every floating output of the train step (forward, backward and "
         "update) for NaN/Inf and raise at the first offending op with its module path; "
@@ -312,8 +315,8 @@ class TrainRConfig(ModelConfig, DataConfig):
     vis_interval: int = _flag(500, "sample grid + loss plot every N iters")
     vis_rows: int = _flag(8, "rows (and cols) of the sample grid")
     log_interval: int = _flag(50, "stdout loss print every N iterations")
-    num_devices: int = _flag(0, "device count; 0 = one device here (data parallelism "
-                             "is not ported yet)")
+    num_devices: int = _flag(0, "data-parallel devices; 0 = all visible (one process on "
+                             "the CPU)")
     model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
     tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
     steps_per_dispatch: int = _flag(
@@ -330,7 +333,10 @@ class TrainRConfig(ModelConfig, DataConfig):
         "", "if set, write a torch.profiler trace for steps 10..15 here")
     tensorboard: bool = _flag(
         False, "also write scalars to <save_path>/tb via torch.utils.tensorboard")
-    multihost: bool = _flag(False, "multi-host initialisation (not ported yet)")
+    multihost: bool = _flag(
+        False, "join the process group of a multi-host launch at startup (one process a "
+        "card; requires torchrun's RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT or "
+        "GEA_COORDINATOR/GEA_NUM_PROCESSES/GEA_PROCESS_ID)")
     debug_checks: bool = _flag(
         False, "check every floating output of the train step (forward, backward and "
         "update) for NaN/Inf and raise at the first offending op with its module path; "
@@ -380,8 +386,6 @@ class TrainRIterativeConfig(TrainRConfig):
 # accepts besides its default, and why it refuses the others; the three
 # trainers' configs share the list.
 UNPORTED = {
-    "multihost": ((), "needs data parallelism"),
-    "num_devices": ((1,), "needs data parallelism"),
     "model_shards": ((), "needs tensor parallelism"),
     "tp_min_width": ((), "needs tensor parallelism"),
     "use_pallas": ((), "moot: the port always runs its kernels on the card"),

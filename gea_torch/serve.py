@@ -27,10 +27,15 @@ On the card each batch is copied in from pinned memory, rendered on the
 current stream and copied back into pinned memory without a wait, and an
 event recorded after the copy says when it has landed: `stream` keeps up to
 `depth` batches in flight that way.
+
+`model.sharded()` serves the same program data-parallel
+(`DataParallelServingModel`): one replica a card, the batch split over
+them.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 from collections import deque
@@ -47,8 +52,6 @@ from gea_torch.models.reverter import blend_correction, iterative_chain
 ARTIFACT = "model.pt2"
 MANIFEST = "manifest.json"
 PLATFORMS = ("cuda", "cpu")
-UNPORTED_DP = ("data-parallel serving (ServingModel.sharded, serve_http --data_parallel) is "
-               "not ported yet; it comes with data parallelism, ROADMAP.md Queue A 3")
 
 
 def _take(out: Dict[str, np.ndarray], idx) -> Dict[str, np.ndarray]:
@@ -182,8 +185,46 @@ class _Fetch:
         return a if dtype is None else a.astype(dtype)
 
 
+class _Joined:
+    """An output rendered in parts on several replicas: `np.asarray` waits
+    for every part and joins them along the batch axis, cut to `n` rows
+    (the padding off)."""
+
+    __slots__ = ("parts", "axis", "n")
+
+    def __init__(self, parts: list, axis: int, n: int):
+        self.parts, self.axis, self.n = parts, axis, n
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.concatenate([np.asarray(p) for p in self.parts], axis=self.axis)
+        a = a[:, :self.n] if self.axis else a[:self.n]
+        return a if dtype is None else a.astype(dtype)
+
+
 def _fetch(out: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _enqueue(fn, device: torch.device, args: List[np.ndarray]) -> Dict[str, Any]:
+    """Render `args` with `fn` on `device` without waiting, on the current
+    stream: on the card the inputs come in from pinned memory and the
+    outputs go back into pinned memory, with an event recorded after the
+    copy."""
+    cuda = device.type == "cuda"
+    with torch.inference_mode():
+        if cuda:
+            tensors = [torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+                       for a in args]
+        else:
+            tensors = [torch.from_numpy(a).to(device) for a in args]
+        out = fn(*tensors)
+        if not cuda:
+            return {k: _Fetch(v) for k, v in out.items()}
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+            v, non_blocking=True) for k, v in out.items()}
+        event = torch.cuda.Event()
+        event.record()
+    return {k: _Fetch(v, event) for k, v in host.items()}
 
 
 class ServingModel:
@@ -258,22 +299,7 @@ class ServingModel:
         outputs as array-likes that `np.asarray` turns into numpy once their
         copy to the host has landed. The pipelining primitive of `stream`
         and of the HTTP batcher; `__call__` is dispatch and fetch."""
-        args = self._inputs(z, spatial_noise)
-        cuda = self.device.type == "cuda"
-        with torch.inference_mode():
-            if cuda:
-                tensors = [torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
-                           for a in args]
-            else:
-                tensors = [torch.from_numpy(a).to(self.device) for a in args]
-            out = self._fn(*tensors)
-            if not cuda:
-                return {k: _Fetch(v) for k, v in out.items()}
-            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
-                v, non_blocking=True) for k, v in out.items()}
-            event = torch.cuda.Event()
-            event.record()
-        return {k: _Fetch(v, event) for k, v in host.items()}
+        return _enqueue(self._fn, self.device, self._inputs(z, spatial_noise))
 
     def __call__(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None
                  ) -> Dict[str, np.ndarray]:
@@ -296,8 +322,13 @@ class ServingModel:
         while q:
             yield _fetch(q.popleft())
 
-    def sharded(self, devices=None):
-        raise SystemExit(UNPORTED_DP)
+    def sharded(self, devices=None) -> "DataParallelServingModel":
+        """Data-parallel serving (`gea`'s `sharded`): the same program on
+        every device of `devices`, one replica each, with each batch split
+        over them. Rendering is parallel over samples, so no collective is
+        needed. By default every visible card (the model's own device on
+        the CPU)."""
+        return DataParallelServingModel(self, devices)
 
     def sample(self, count: int, seed: int = 0, batch_size: int = 64
                ) -> Dict[str, np.ndarray]:
@@ -383,6 +414,78 @@ class ServingModel:
                     "rounds; filling from the best rejects"
                 )
         return best
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """`dev` with its index: "cuda" is the current card."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class DataParallelServingModel(ServingModel):
+    """A ServingModel whose renders are split over replicas, one a device,
+    each on a stream of its own (port of `gea`'s `DataParallelServingModel`).
+
+    A batch is zero-padded up to a multiple of the replica count, split,
+    rendered on every replica without a wait, gathered on the host and
+    trimmed, so any batch size works; `__call__`, `stream`, `sample` and
+    `sample_filtered` all route through `dispatch`. A pinned program
+    renders its own batch only, so a pinned artifact needs the pinned size
+    to split evenly, as in `gea`, and one replica: its replicas would get
+    a slab of another size."""
+
+    def __init__(self, base: ServingModel, devices=None):
+        super().__init__(base.exported, base.manifest, device=base.device)
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if base.device.type == "cuda" else [base.device])
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("no devices for data-parallel serving")
+        n = len(self.devices)
+        fixed = int(self.manifest.get("batch", 0))
+        if fixed and fixed % n:
+            raise ValueError(f"pinned batch {fixed} is not divisible by {n} devices")
+        if fixed and n > 1:
+            raise ValueError(f"a program pinned at batch {fixed} renders {fixed} rows only, and "
+                             f"each of {n} replicas would get {fixed // n}: export with a "
+                             "symbolic batch (export_model --batch 0) to serve it on "
+                             f"{n} devices")
+        self.replicas = [(dev, self._replica(base, dev),
+                          torch.cuda.Stream(dev) if dev.type == "cuda" else None)
+                         for dev in self.devices]
+
+    @staticmethod
+    def _replica(base: ServingModel, dev: torch.device):
+        """The base's callable on `dev`: itself there, else a copy moved."""
+        if _indexed(dev) == _indexed(base.device):
+            return base._fn
+        if isinstance(base.exported, torch.export.ExportedProgram):
+            from torch.export.passes import move_to_device_pass
+
+            return move_to_device_pass(base.exported, str(dev)).module()
+        return copy.deepcopy(base._fn).to(dev)
+
+    def dispatch(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None
+                 ) -> Dict[str, Any]:
+        args = self._inputs(z, spatial_noise)
+        b, n = args[0].shape[0], len(self.replicas)
+        pad = (-b) % n
+        if pad:
+            args = [np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)]) for a in args]
+        per = (b + pad) // n
+        parts = []
+        for i, (dev, fn, stream) in enumerate(self.replicas):
+            slab = [np.ascontiguousarray(a[i * per:(i + 1) * per]) for a in args]
+            if stream is None:
+                parts.append(_enqueue(fn, dev, slab))
+                continue
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                parts.append(_enqueue(fn, dev, slab))
+        return {k: _Joined([p[k] for p in parts], 1 if k == "stages" else 0, b)
+                for k in parts[0]}
 
 
 def load(path: str, device: str | torch.device = "cuda") -> ServingModel:

@@ -641,9 +641,9 @@ def make_server(
     Call `server.serve_forever()` (blocking) or run it in a thread;
     shut down with `server.shutdown()` then `batcher.close()`.
     """
-    if data_parallel:
-        raise SystemExit(serve.UNPORTED_DP)
     model = model if model is not None else serve.load(artifact, device=device)
+    if data_parallel:
+        model = model.sharded()
     batcher = DynamicBatcher(
         model, max_batch=max_batch, max_wait_ms=max_wait_ms, bucket=bucket,
         pipeline_depth=pipeline_depth,
@@ -690,8 +690,9 @@ def main(argv: Optional[list] = None) -> None:
     )
     p.add_argument(
         "--data_parallel", type=int, default=0,
-        help="shard every device batch across all local devices "
-        "(not ported yet: refuses)",
+        help="split every device batch across all local cards "
+        "(ServingModel.sharded): one artifact, N cards, batch split N "
+        "ways; no collectives needed, rendering is sample-parallel",
     )
     p.add_argument("--device", default="cuda",
                    help="cuda, or cpu to serve on the host")

@@ -55,6 +55,11 @@ and stacks the metrics: an error names the step within the chunk.
 
 A restore into the state (`load_state_dict`) after a capture leaves the
 graphs on the old tensors: build a new dispatcher after it.
+
+Under data parallelism the step's all-reduces (`gea_torch.parallel.dp`)
+are captured with it: NCCL can be captured once its communicator exists,
+and the warm-up's eager step issues them first. They reduce the players'
+flat gradient buffers, whose addresses the graph keeps.
 """
 
 from __future__ import annotations

@@ -1,10 +1,21 @@
-"""The trainer's host loop (port of `gea/train/runner.py` for one process
-and one device): the run directory, the input stream, resume, and
-`TrainLoop` with its periodic side effects (losses on stdout, sample
-grids, the loss plot, checkpoints with retention, `--fid_interval`
-tracking of the best snapshot with `--stop_patience`, `--profile_dir`
-and `--tensorboard`) and its guards (NaN/Inf abort, host-RSS budget),
-over chunks of `--steps_per_dispatch` steps (`gea_torch.train.dispatch`).
+"""The trainer's host loop (port of `gea/train/runner.py`): the run
+directory, the input stream, resume, and `TrainLoop` with its periodic
+side effects (losses on stdout, sample grids, the loss plot, checkpoints
+with retention, `--fid_interval` tracking of the best snapshot with
+`--stop_patience`, `--profile_dir` and `--tensorboard`) and its guards
+(NaN/Inf abort, host-RSS budget), over chunks of `--steps_per_dispatch`
+steps (`gea_torch.train.dispatch`).
+
+Under data parallelism (`dp`, `gea_torch.parallel`) every rank runs this
+loop on its slab of the global batch: its own host stream (seed + 7919 *
+rank, as `gea`'s processes) or on-device draws with the rank mixed in.
+The lead (rank 0) alone writes config.json, the grids, the plots, the
+checkpoints, tensorboard and the profile, and scores FID; its
+`--stop_patience` decision is broadcast. The metrics are averaged inside
+the step, so the NaN guard fires on every rank at once, and the RSS guard
+decides collectively: a trip on one rank makes every rank save (the lead
+writes) and exit 19 together, where a rank that left alone would leave the
+others waiting in a collective.
 
 Per-step randomness is keyed by the global step, so a resumed run draws
 what a run never interrupted would: the data stream fast-forwards to the
@@ -29,8 +40,9 @@ import torch
 from gea_torch.data.hostpre import host_downsample_uint8, host_preprocess
 from gea_torch.data.ondevice import preprocess_batch, synthetic_batch
 from gea_torch.data.pipeline import device_crop_size, make_dataset
-from gea_torch.config import dispatch_chunk
+from gea_torch.config import dispatch_chunk, resolve_device
 from gea_torch.data.prefetch import device_prefetch
+from gea_torch.parallel import DataParallel, join, launcher_env, resolve_num_devices, spawn
 from gea_torch.utils.checkpoint import (
     best_record,
     latest_step,
@@ -46,18 +58,28 @@ from gea_torch.utils.plotting import LossPlotter
 DATA_SEED_MIX = 0x5EED  # `gea`'s data key is PRNGKey(seed ^ 0x5EED)
 
 
-def prepare_run(cfg) -> str:
+def is_lead(dp) -> bool:
+    return dp is None or dp.lead
+
+
+def prepare_run(cfg, dp=None) -> str:
     run_dir = os.path.abspath(cfg.save_path)
     os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "config.json"))
+    if is_lead(dp):
+        cfg.save(os.path.join(run_dir, "config.json"))
     return run_dir
 
 
-def check_batch(cfg) -> None:
-    """The batch must split into --grad_accum microbatches."""
+def check_batch(cfg, num_chips: int = 1) -> None:
+    """The global batch must split over the ranks, and each rank's batch
+    into --grad_accum microbatches."""
+    if cfg.batch_size % num_chips:
+        raise ValueError(f"batch_size {cfg.batch_size} must divide over {num_chips} devices")
     accum = max(1, cfg.grad_accum)
-    if cfg.batch_size % accum:
-        raise ValueError(f"batch_size {cfg.batch_size} must divide by --grad_accum {accum}")
+    per_device = cfg.batch_size // num_chips
+    if per_device % accum:
+        what = "batch_size" if num_chips == 1 else "per-device batch"
+        raise ValueError(f"{what} {per_device} must divide by --grad_accum {accum}")
 
 
 def synthetic_on_device(cfg) -> bool:
@@ -66,13 +88,17 @@ def synthetic_on_device(cfg) -> bool:
     return cfg.dataset == "synthetic" and cfg.synthetic_on_device and cfg.on_device_pipeline
 
 
-def step_generator(device: torch.device) -> Callable[[int, int], torch.Generator]:
+def step_generator(device: torch.device, rank: int = 0) -> Callable[[int, int],
+                                                                    torch.Generator]:
     """(seed, step) -> one generator on `device`, reseeded for that step:
-    what it draws is a pure function of (seed, step)."""
+    what it draws is a pure function of (seed, step), and of the rank for a
+    rank > 0 (`gea` folds the device index into the step's key)."""
     gen = torch.Generator(device)
+    mix = [rank] if rank else []
 
     def at(seed: int, step: int) -> torch.Generator:
-        key = np.random.SeedSequence([seed ^ DATA_SEED_MIX, step]).generate_state(1, np.uint64)
+        key = np.random.SeedSequence([seed ^ DATA_SEED_MIX, step, *mix]).generate_state(
+            1, np.uint64)
         return gen.manual_seed(int(key[0]) & 0x7FFF_FFFF_FFFF_FFFF)
 
     return at
@@ -84,15 +110,30 @@ def no_input() -> Iterator[None]:
     return (None for _ in itertools.count())
 
 
-def input_iterator(cfg, device: torch.device, seed: int,
-                   start_step: int = 0) -> Iterator[Optional[torch.Tensor]]:
+def rank_data(cfg, seed: int, dp=None) -> Tuple[Any, int]:
+    """(cfg with this rank's batch, this rank's data seed): each rank
+    streams its slab from a stream of its own, seeded seed + 7919 * rank
+    (`gea`'s multihost processes)."""
+    if dp is None or dp.size == 1:
+        return cfg, seed
+    return cfg.replace(batch_size=cfg.batch_size // dp.size), seed + 7919 * dp.rank
+
+
+def input_iterator(cfg, device: torch.device, seed: int, start_step: int = 0,
+                   dp=None) -> Iterator[Optional[torch.Tensor]]:
     """The input stream on the device, starting at batch `start_step`:
     None per step when the synthetic batch is drawn on the device; uint8
     batches for the on-device preprocess (at decode resolution, or at
     image_size with --host_resize; gathered on the device with
-    --device_data_cache); float32 batches with --on_device_pipeline false."""
+    --device_data_cache); float32 batches with --on_device_pipeline false.
+    Under `dp`, this rank's slab (`rank_data`)."""
     if synthetic_on_device(cfg):
         return no_input()
+    if cfg.device_data_cache and dp is not None and dp.size > 1:
+        raise ValueError("--device_data_cache is single-host for now (the cache "
+                         "replication protocol over non-addressable devices is not "
+                         "wired); use --data_cache")
+    cfg, seed = rank_data(cfg, seed, dp)
     if cfg.device_data_cache:
         from gea_torch.data.devicecache import device_cached_iterator
 
@@ -111,15 +152,16 @@ def input_iterator(cfg, device: torch.device, seed: int,
     return device_prefetch(batches, device, depth=3)
 
 
-def make_input_fn(cfg, device: torch.device) -> Callable[[Optional[torch.Tensor], int],
-                                                         torch.Tensor]:
+def make_input_fn(cfg, device: torch.device, dp=None) -> Callable[[Optional[torch.Tensor], int],
+                                                                 torch.Tensor]:
     """(batch from `input_iterator`, step) -> the real batch, float32 in
     [-1, 1] on the device: the synthetic draw, or the on-device preprocess,
-    run just before the step."""
-    gen_at = step_generator(device)
+    run just before the step. Under `dp`, this rank's batch, drawn and
+    flipped with the rank mixed in (`step_generator`)."""
+    gen_at = step_generator(device, 0 if dp is None else dp.rank)
     if synthetic_on_device(cfg):
-        return lambda _, step: synthetic_batch(gen_at(cfg.seed, step), cfg.batch_size,
-                                               cfg.image_size)
+        batch = rank_data(cfg, cfg.seed, dp)[0].batch_size
+        return lambda _, step: synthetic_batch(gen_at(cfg.seed, step), batch, cfg.image_size)
     if not cfg.on_device_pipeline:
         return lambda batch, step: batch
     crop = (cfg.image_size if cfg.host_resize and not cfg.device_data_cache
@@ -132,17 +174,25 @@ def make_input_fn(cfg, device: torch.device) -> Callable[[Optional[torch.Tensor]
     return preprocess
 
 
-def maybe_resume(cfg, state) -> Tuple[Any, int]:
+def maybe_resume(cfg, state, dp=None) -> Tuple[Any, int]:
     """--load_path restores an earlier run; checkpoints already in
     --save_path resume this run. Checkpoints in save_path win: a relaunch
     with the same arguments must continue the run's own progress, not
     rewind to the warm start (and load_path may be gone by then, so its
     check applies only when it is used). An explicit load_path without
-    checkpoints is an error."""
+    checkpoints is an error. Under `dp` every rank restores the same step,
+    and then holds the lead's state (`DataParallel.replicate`)."""
+    state = _resume(cfg, state, is_lead(dp))
+    if dp is not None:
+        dp.replicate(state)
+    return state, state.step
+
+
+def _resume(cfg, state, lead: bool):
     own = latest_step(cfg.save_path) is not None
     if own and cfg.save_path != cfg.load_path:
         source = cfg.save_path
-        if cfg.load_path:
+        if cfg.load_path and lead:
             print(f"[gea_torch] save_path has checkpoints: auto-resuming from it "
                   f"(ignoring --load_path {cfg.load_path} warm start)")
     elif cfg.load_path:
@@ -152,10 +202,11 @@ def maybe_resume(cfg, state) -> Tuple[Any, int]:
     else:
         source = cfg.save_path if own else ""
     if not source:
-        return state, 0
+        return state
     state = restore_checkpoint(source, state)
-    print(f"[gea_torch] resumed from {source} at step {state.step}", flush=True)
-    return state, state.step
+    if lead:
+        print(f"[gea_torch] resumed from {source} at step {state.step}", flush=True)
+    return state
 
 
 class TrainLoop:
@@ -186,7 +237,10 @@ class TrainLoop:
     to <run>/fid.jsonl, plots plots/fid.png, saves each new best and
     protects it from retention, points best.json at it once its save is
     durable, and with `--stop_patience` ends the run after that many
-    evaluations without a new best."""
+    evaluations without a new best.
+
+    Under `dp` the side effects above are the lead's; the other ranks
+    train, join the collective decisions and write nothing."""
 
     def __init__(
         self,
@@ -199,8 +253,12 @@ class TrainLoop:
         vis_fn: Optional[Callable[[Any, int], None]] = None,
         loss_keys: Tuple[str, ...] = ("loss_d", "loss_g"),
         fid_fn: Optional[Callable[[Any], float]] = None,
+        dp=None,
     ):
         self.cfg = cfg
+        self.dp = dp
+        self.lead = is_lead(dp)
+        self.num_chips = 1 if dp is None else dp.size
         self.run_dir = run_dir
         self.state = state
         self.step_fn = step_fn
@@ -229,7 +287,7 @@ class TrainLoop:
         self._warm_iterations = self.meter.warmup_steps
         self._profiler = None
         self._tb = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and self.lead:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -249,7 +307,8 @@ class TrainLoop:
         """Start the trace before the dispatch that runs step start+10 (a
         0-based step index), stop it after the one that reaches start+15."""
         first, last = start_step + 10, start_step + 15
-        if self.cfg.profile_dir and self._profiler is None and it < last and it + k > first:
+        if (self.cfg.profile_dir and self.lead and self._profiler is None and it < last
+                and it + k > first):
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.state.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -270,6 +329,11 @@ class TrainLoop:
         self._profiler = None
         print(f"[gea_torch] profiler trace of iters {iters} written to {path}", flush=True)
 
+    def stats(self) -> Dict[str, float]:
+        """The meter's rates (the global batch's images/s, and per chip)
+        and the loop's median host times."""
+        return {**self.meter.stats(self.num_chips), **self.timings()}
+
     def timings(self) -> Dict[str, float]:
         """Medians over the iterations after the warm-up."""
         skip = self._warm_iterations
@@ -282,16 +346,24 @@ class TrainLoop:
 
     def _save(self, step: int) -> None:
         """An asynchronous save with retention that spares the best
-        snapshots; the save in flight before it is then durable."""
+        snapshots; the save in flight before it is then durable. The
+        lead's alone."""
+        if not self.lead:
+            return
         save_checkpoint(self.run_dir, step, self.state, keep=self.cfg.keep_checkpoints,
                         async_save=True, protect=(self._committed_best_step, self._best_step))
         self._commit_pending_best()
 
     def _save_and_keep_all(self, step: int) -> None:
         """The guards' save (post-mortem, RSS): synchronous and pruning
-        nothing, so a NaN state never evicts the finite checkpoints."""
-        save_checkpoint(self.run_dir, step, self.state)
-        self._commit_pending_best()
+        nothing, so a NaN state never evicts the finite checkpoints. Every
+        rank calls it, the lead writes, and no rank goes on (to exit or
+        raise) before the file is written."""
+        if self.lead:
+            save_checkpoint(self.run_dir, step, self.state)
+            self._commit_pending_best()
+        if self.dp is not None:
+            self.dp.barrier()
 
     def _commit_pending_best(self) -> None:
         """Point best.json at the last best-save. Only after that save is
@@ -355,10 +427,12 @@ class TrainLoop:
         while it < cfg.niter:
             # Host-RSS guard: checkpoint and exit for a clean auto-resume.
             # Not before this process's first step (a relaunch must make
-            # progress), and after the save in flight. With several
-            # processes this decision must become a collective one; that
-            # waits for data parallelism.
-            if it > start_step and host_rss_gb() > rss_budget:
+            # progress), and after the save in flight. A collective
+            # decision: every rank stops when one trips.
+            trip = it > start_step and host_rss_gb() > rss_budget
+            if self.dp is not None:
+                trip = self.dp.any(trip)
+            if trip:
                 self._save_and_keep_all(it)  # after the save in flight
                 print(f"[gea_torch] host RSS {host_rss_gb():.1f} GB exceeds the "
                       f"{rss_budget:.1f} GB budget (--max_host_rss_gb). Checkpoint "
@@ -387,6 +461,7 @@ class TrainLoop:
                 return interval > 0 and it // interval > prev // interval
 
             if crossed(cfg.log_interval) or prev == start_step:
+                # Averaged over the ranks: every rank sees the same values.
                 # A 0-d metric is one step's; a (k,) one a chunk's.
                 hist = {key: [float(v)] if v.dim() == 0 else v.tolist()
                         for key, v in metrics.items()}
@@ -401,23 +476,28 @@ class TrainLoop:
                 for j in range(k):
                     self.plotter.add(prev + j + 1, **{key: hist[key][j] for key in self.loss_keys
                                                        if key in hist})
-                stats = self.meter.stats()
+                stats = self.meter.stats(self.num_chips)
                 self._tb_write(it, m, stats)
                 extras = " ".join(f"{k}={v:.4f}" for k, v in m.items()
                                   if k not in self.loss_keys)
-                print(f"[gea_torch] iter {it}/{cfg.niter} "
-                      + " ".join(f"{k}={m[k]:.4f}" for k in self.loss_keys if k in m)
-                      + (f" {extras}" if extras else "")
-                      + f" | {stats['images_per_sec']:.1f} img/s", flush=True)
+                if self.lead:
+                    print(f"[gea_torch] iter {it}/{cfg.niter} "
+                          + " ".join(f"{k}={m[k]:.4f}" for k in self.loss_keys if k in m)
+                          + (f" {extras}" if extras else "")
+                          + f" | {stats['images_per_sec']:.1f} img/s"
+                          + (f" ({stats['images_per_sec_per_chip']:.1f}/chip)"
+                             if self.dp is not None else ""), flush=True)
 
-            if crossed(cfg.vis_interval) and self.vis_fn is not None:
+            if crossed(cfg.vis_interval) and self.vis_fn is not None and self.lead:
                 self.vis_fn(self.state, it)
                 self.plotter.plot(os.path.join(self.run_dir, "plots", "loss.png"))
 
             saved_for_best = stop_early = False
-            if (self.fid_fn is not None and cfg.fid_interval > 0
-                    and (crossed(cfg.fid_interval) or it == cfg.niter)):
-                saved_for_best, stop_early = self._track_fid(it)
+            if cfg.fid_interval > 0 and (crossed(cfg.fid_interval) or it == cfg.niter):
+                if self.fid_fn is not None and self.lead:
+                    saved_for_best, stop_early = self._track_fid(it)
+                if self.dp is not None:
+                    stop_early = self.dp.broadcast_flag(stop_early)
             if (crossed(cfg.save_interval) or it == cfg.niter or stop_early) and not saved_for_best:
                 self._save(it)
             self.step_s.append(time.perf_counter() - t0)
@@ -426,4 +506,47 @@ class TrainLoop:
 
         wait_for_checkpoints()
         self._commit_pending_best()
+        if self.dp is not None:  # no rank goes on before the lead's last save is on disk
+            self.dp.barrier()
         return self.state
+
+
+def _rank_stats(device: torch.device, train: Callable, cfg) -> Dict[str, Any]:
+    """One spawned rank of `run_trainer`: its stats (rank 0's are kept)."""
+    return train(device, cfg, DataParallel(device))[1]
+
+
+def run_trainer(cfg, train: Callable, build_state: Callable) -> Tuple[Any, Dict[str, Any]]:
+    """Run a trainer on the run's world and return the lead's (state,
+    stats). `train(device, cfg, dp)` is one rank's run (dp None for a
+    single process); `build_state(device, cfg)` makes a fresh state.
+
+    * `--multihost`: this process is one rank of the launcher's group
+      (`gea_torch.parallel.launcher_env`); `--fid_interval` is refused with
+      more than one process, as in `gea`.
+    * `--num_devices N` > 1: N spawned ranks on this host; the lead's
+      state is read back from its last checkpoint.
+    * otherwise one process on one device, without collectives."""
+    device = resolve_device(cfg.device)
+    if cfg.multihost:
+        launch = launcher_env()
+        if cfg.fid_interval > 0 and launch.size > 1:
+            # The best-snapshot pinning decides on the lead only, as in
+            # `gea`, which refuses it on pods.
+            raise SystemExit("--fid_interval is not supported with --multihost yet; "
+                             "track FID offline with gea_torch.cli.compute_fid/eval_stages")
+        device = join(device, launch)
+        print(f"[gea_torch] multihost: process {launch.rank}/{launch.size}, {device}",
+              flush=True)
+        return train(device, cfg, DataParallel(device))
+    n = resolve_num_devices(cfg.num_devices, device)
+    if n == 1:
+        return train(device, cfg)
+    check_batch(cfg, n)
+    print(f"[gea_torch] data parallel: {n} ranks on {device.type}, "
+          f"{cfg.batch_size // n} of the batch of {cfg.batch_size} each", flush=True)
+    stats = spawn(_rank_stats, n, device, args=(train, cfg))
+    state = build_state(device, cfg)
+    if latest_step(cfg.save_path) is not None:
+        state = restore_checkpoint(cfg.save_path, state)
+    return state, stats

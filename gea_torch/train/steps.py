@@ -24,6 +24,13 @@ z, spatial noise and the penalty's eps are inputs of the step; where the
 caller gives none, the step draws them from the state's `torch.Generator`
 on the device. The step updates the state in place and returns its
 metrics as 0-d tensors on the device, so it never waits for the device.
+
+Data parallelism (`dp`, a `gea_torch.parallel.DataParallel`): the step
+runs on this rank's slab of the global batch, and D's gradients, G's and
+the metrics are averaged over the ranks where `gea` `pmean`s them, after
+each player's backward (and its microbatches' mean) and before its update.
+Its own draws are this rank's rows of the global batch's
+(`DataParallel.rows`).
 """
 
 from __future__ import annotations
@@ -58,18 +65,27 @@ def _update(opt: torch.optim.Optimizer, sched) -> None:
         sched.step()
 
 
-def draw_noise(state, generator, batch: int, code_size: int, z, sn):
+def draw(state, draw_fn, shape, dp=None) -> torch.Tensor:
+    """`draw_fn` (torch.randn or torch.rand) of `shape` from the state's
+    generator on its device; with `dp`, shape[0] is this rank's batch, and
+    the global batch is drawn and this rank's rows kept."""
+    world = 1 if dp is None else dp.size
+    t = draw_fn((shape[0] * world, *shape[1:]), generator=state.rng, device=state.device)
+    return t if dp is None else dp.rows(t)
+
+
+def draw_noise(state, generator, batch: int, code_size: int, z, sn, dp=None):
     """z (batch, code) and the generator's spatial noise (None without
     spatial code), fp32 on the state's device; where not given, drawn from
-    the state's generator, z first."""
+    the state's generator, z first (`draw`)."""
     dev = state.device
     if z is None:
-        z = torch.randn((batch, code_size), generator=state.rng, device=dev)
+        z = draw(state, torch.randn, (batch, code_size), dp)
     sn_shape = generator.spatial_noise_shape(batch)
     if sn_shape is None:
         sn = None
     elif sn is None:
-        sn = torch.randn(sn_shape, generator=state.rng, device=dev)
+        sn = draw(state, torch.randn, sn_shape, dp)
     return to_device(z, dev), to_device(sn, dev)
 
 
@@ -99,23 +115,44 @@ def microbatches(t: Optional[torch.Tensor], batch: int, accum: int) -> list:
     return [None] * accum if t is None else list(t.split(batch // accum))
 
 
-def mean_grads(module: torch.nn.Module, accum: int) -> None:
-    """Gradients summed over `accum` microbatches -> their mean."""
-    if accum > 1:
+def local_batch(cfg, dp=None) -> int:
+    """This rank's share of the global batch."""
+    return cfg.batch_size // (1 if dp is None else dp.size)
+
+
+def zero_grads(opt: torch.optim.Optimizer, module: torch.nn.Module, dp=None) -> None:
+    """Before a player's backward: no gradients, or with `dp` its zeroed
+    flat buffer."""
+    if dp is None:
+        opt.zero_grad(set_to_none=True)
+    else:
+        dp.zero_grads(module)
+
+
+def mean_grads(module: torch.nn.Module, accum: int, dp=None) -> None:
+    """Gradients summed over `accum` microbatches -> their mean, with `dp`
+    then averaged over the ranks."""
+    if dp is not None:
+        dp.mean_grads(module, accum)
+    elif accum > 1:
         for p in module.parameters():
             if p.grad is not None:
                 p.grad.div_(accum)
 
 
+def mean_metrics(metrics: Metrics, dp=None) -> Metrics:
+    return metrics if dp is None else dp.mean_metrics(metrics)
+
+
 def build_glis_train_step(
-    cfg: TrainGLISConfig, share_g_forward: bool = True
+    cfg: TrainGLISConfig, share_g_forward: bool = True, dp=None
 ) -> Callable[..., Metrics]:
     """Returns step(state, real, z=None, spatial_noise=None, gp_eps=None)
     -> metrics. `real` (B, H, W, 3) in [-1, 1]; z (B, code); spatial_noise
-    (B, 2*s0, 2*s0, spatial_code); gp_eps (B, 1, 1, 1). `step.noise(state)`
-    draws one step's noise as the step would ({"z", "spatial_noise",
-    "gp_eps"}, None where the step takes none), for a caller that draws
-    ahead (`gea_torch.train.dispatch`)."""
+    (B, 2*s0, 2*s0, spatial_code); gp_eps (B, 1, 1, 1); B is this rank's
+    batch under `dp`. `step.noise(state)` draws one step's noise as the
+    step would ({"z", "spatial_noise", "gp_eps"}, None where the step takes
+    none), for a caller that draws ahead (`gea_torch.train.dispatch`)."""
     weights = stage_weights(cfg)
     n_stages = cfg.n_stages
     d_real_fn, d_fake_fn, g_fn = losses.gan_objective(cfg.gan_loss)
@@ -126,11 +163,11 @@ def build_glis_train_step(
     def draws(state: GLISTrainState, batch: int, z=None, sn=None, eps=None):
         """z, spatial noise and eps, each drawn where not given, in this
         order."""
-        z, sn = draw_noise(state, state.generator, batch, cfg.code_size, z, sn)
+        z, sn = draw_noise(state, state.generator, batch, cfg.code_size, z, sn, dp)
         if not use_gp:
             eps = None
         elif eps is None:
-            eps = torch.rand((batch, 1, 1, 1), generator=state.rng, device=state.device)
+            eps = draw(state, torch.rand, (batch, 1, 1, 1), dp)
         return z, sn, to_device(eps, state.device)
 
     def inputs(state: GLISTrainState, real, z, sn, eps):
@@ -181,23 +218,25 @@ def build_glis_train_step(
         w = stage_w(real.device)
 
         fakes_live = g_images(g, z, sn, grad=share_g_forward)
-        state.opt_d.zero_grad(set_to_none=True)
+        zero_grads(state.opt_d, d, dp)
         loss_d, logits_real, logits_fake = d_loss(d, real, fakes_live.detach(), eps, w)
         loss_d.backward()
+        mean_grads(d, 1, dp)
         _update(state.opt_d, state.sched_d)
 
-        state.opt_g.zero_grad(set_to_none=True)
+        zero_grads(state.opt_g, g, dp)
         if not share_g_forward:
             fakes_live = g_images(g, z, sn, grad=True)
         loss_g = g_backward(d, fakes_live, w)
+        mean_grads(g, 1, dp)
         _update(state.opt_g, state.sched_g)
         finish(state)
-        return {
+        return mean_metrics({
             "loss_d": loss_d.detach(),
             "loss_g": loss_g,
             "d_real": torch.sigmoid(logits_real.detach()).mean(),
             "d_fake_final": torch.sigmoid(logits_fake[-1].detach()).mean(),
-        }
+        }, dp)
 
     def step_accum(state: GLISTrainState, real, z=None, spatial_noise=None,
                    gp_eps=None) -> Metrics:
@@ -207,7 +246,7 @@ def build_glis_train_step(
         mbs = list(zip(*(microbatches(t, batch, accum) for t in (real, z, sn, eps))))
         w = stage_w(real.device)
 
-        state.opt_d.zero_grad(set_to_none=True)
+        zero_grads(state.opt_d, d, dp)
         loss_d = d_real = d_fake = 0.0
         for real_mb, z_mb, sn_mb, eps_mb in mbs:
             fakes = g_images(g, z_mb, sn_mb, grad=False)
@@ -216,21 +255,21 @@ def build_glis_train_step(
             loss_d = loss_d + loss.detach()
             d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
             d_fake = d_fake + torch.sigmoid(logits_fake[-1].detach()).mean()
-        mean_grads(d, accum)
+        mean_grads(d, accum, dp)
         _update(state.opt_d, state.sched_d)
 
-        state.opt_g.zero_grad(set_to_none=True)
+        zero_grads(state.opt_g, g, dp)
         loss_g = 0.0
         for _, z_mb, sn_mb, _ in mbs:
             loss_g = loss_g + g_backward(d, g_images(g, z_mb, sn_mb, grad=True), w)
-        mean_grads(g, accum)
+        mean_grads(g, accum, dp)
         _update(state.opt_g, state.sched_g)
         finish(state)
-        return {"loss_d": loss_d / accum, "loss_g": loss_g / accum,
-                "d_real": d_real / accum, "d_fake_final": d_fake / accum}
+        return mean_metrics({"loss_d": loss_d / accum, "loss_g": loss_g / accum,
+                             "d_real": d_real / accum, "d_fake_final": d_fake / accum}, dp)
 
     chosen = step_accum if accum > 1 else step
     chosen.noise = lambda state: dict(zip(("z", "spatial_noise", "gp_eps"),
-                                          draws(state, cfg.batch_size)))
+                                          draws(state, local_batch(cfg, dp))))
     return chosen
 

@@ -33,6 +33,12 @@ scoring, and each of R-iterative's chain links and its first render
 where the caller gives none, the step draws them from the state's
 `torch.Generator` on the device. The step updates the state in place and
 returns its metrics as 0-d tensors on the device.
+
+With `dp` (data parallelism, as in `gea_torch.train.steps`) each rank
+trains on its slab of the global batch (R-separate: its rows of the global
+draws, and the mining weights normalised over its own slab, as `gea`'s
+shard is), and each trained player's gradients and the metrics are
+averaged over the ranks before the updates.
 """
 
 from __future__ import annotations
@@ -51,9 +57,12 @@ from gea_torch.train.steps import (
     check_accum,
     device_weights,
     draw_noise,
+    local_batch,
     mean_grads,
+    mean_metrics,
     microbatches,
     to_device,
+    zero_grads,
 )
 
 
@@ -64,7 +73,7 @@ def _remat(fn: Callable) -> Callable:
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
-def build_r_separate_step(cfg: TrainRSeparateConfig) -> Callable[..., Metrics]:
+def build_r_separate_step(cfg: TrainRSeparateConfig, dp=None) -> Callable[..., Metrics]:
     """Returns step(state, _unused=None, z=None, spatial_noise=None) ->
     metrics {loss_r, loss_r_mse, loss_r_adv, correction_norm}, and
     `step.noise(state)`, one step's draws ({"z", "spatial_noise"}). The second
@@ -86,7 +95,7 @@ def build_r_separate_step(cfg: TrainRSeparateConfig) -> Callable[..., Metrics]:
         g, d, r = state.generator, state.discriminator, state.reverter
         use_adv = d is not None and cfg.r_adv_weight > 0
         use_mine = d is not None and cfg.r_mine_weight > 0
-        z, sn = draw_noise(state, g, cfg.batch_size, cfg.code_size, z, spatial_noise)
+        z, sn = draw_noise(state, g, local_batch(cfg, dp), cfg.code_size, z, spatial_noise, dp)
         batch = z.shape[0]
         with torch.no_grad():
             images, zs = g(z, sn, render_all_stages=True)
@@ -97,7 +106,7 @@ def build_r_separate_step(cfg: TrainRSeparateConfig) -> Callable[..., Metrics]:
                 defect = defect / (defect.mean() + 1e-8)  # over the whole batch
                 mine_w = (1.0 - cfg.r_mine_weight) + cfg.r_mine_weight * defect
 
-        state.opt_r.zero_grad(set_to_none=True)
+        zero_grads(state.opt_r, r, dp)
         sums = torch.zeros(4, device=z.device)
         zero = torch.zeros((), device=z.device)
         for img, code, mine, sn_mb in zip(*(microbatches(t, batch, accum)
@@ -115,20 +124,21 @@ def build_r_separate_step(cfg: TrainRSeparateConfig) -> Callable[..., Metrics]:
             loss.backward()
             norm = torch.linalg.vector_norm(z_pred.detach() - code, dim=-1).mean()
             sums += torch.stack([loss.detach(), loss_mse.detach(), loss_adv.detach(), norm])
-        mean_grads(r, accum)
+        mean_grads(r, accum, dp)
         _update(state.opt_r, state.sched_r)
         state.step += 1
         sums = sums / accum
-        return {"loss_r": sums[0], "loss_r_mse": sums[1], "loss_r_adv": sums[2],
-                "correction_norm": sums[3]}
+        return mean_metrics({"loss_r": sums[0], "loss_r_mse": sums[1], "loss_r_adv": sums[2],
+                             "correction_norm": sums[3]}, dp)
 
-    step.noise = lambda state: noise(cfg, state)
+    step.noise = lambda state: noise(cfg, state, dp)
     return step
 
 
-def noise(cfg, state) -> dict:
+def noise(cfg, state, dp=None) -> dict:
     """One R step's draws, as the step makes them where none is given."""
-    z, sn = draw_noise(state, state.generator, cfg.batch_size, cfg.code_size, None, None)
+    z, sn = draw_noise(state, state.generator, local_batch(cfg, dp), cfg.code_size, None,
+                       None, dp)
     return {"z": z, "spatial_noise": sn}
 
 
@@ -140,11 +150,11 @@ def link_weights(chain_length: int):
     return tuple(w / sum(raw) for w in raw)
 
 
-def build_r_iterative_step(cfg: TrainRIterativeConfig) -> Callable[..., Metrics]:
+def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[..., Metrics]:
     """Returns step(state, real, z=None, spatial_noise=None) -> metrics
     {loss_d, loss_g, loss_r_sim, d_real}, and `step.noise(state)` as
-    R-separate's. `real` (B, H, W, 3) in [-1, 1]; z (B, code) is the
-    chain's z_0."""
+    R-separate's. `real` (B, H, W, 3) in [-1, 1], B this rank's batch
+    under `dp`; z (B, code) is the chain's z_0."""
     n_links = cfg.r_chain_length + 1
     link_w = device_weights(link_weights(cfg.r_chain_length))
     accum = check_accum(cfg)
@@ -173,12 +183,12 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig) -> Callable[..., Metrics]
         g, d, r = state.generator, state.discriminator, state.reverter
         real = to_device(real, state.device)
         batch = real.shape[0]
-        z0, sn = draw_noise(state, g, batch, cfg.code_size, z, spatial_noise)
+        z0, sn = draw_noise(state, g, batch, cfg.code_size, z, spatial_noise, dp)
         mbs = list(zip(*(microbatches(t, batch, accum) for t in (real, z0, sn))))
         weights = link_w(real.device)
 
         # D on the real batch and the detached chain renders.
-        state.opt_d.zero_grad(set_to_none=True)
+        zero_grads(state.opt_d, d, dp)
         loss_d = d_real = 0.0
         for real_mb, z_mb, sn_mb in mbs:
             with torch.no_grad():
@@ -190,12 +200,12 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig) -> Callable[..., Metrics]
             loss.backward()
             loss_d = loss_d + loss.detach()
             d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
-        mean_grads(d, accum)
+        mean_grads(d, accum, dp)
         _update(state.opt_d, state.sched_d)
 
         # G and R together against the updated D.
-        state.opt_g.zero_grad(set_to_none=True)
-        state.opt_r.zero_grad(set_to_none=True)
+        zero_grads(state.opt_g, g, dp)
+        zero_grads(state.opt_r, r, dp)
         trained = [*g.parameters(), *r.parameters()]
         loss_g = loss_sim = 0.0
         for _, z_mb, sn_mb in mbs:
@@ -206,13 +216,13 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig) -> Callable[..., Metrics]
             (adv + cfg.lambda_r * sim).backward(inputs=trained)
             loss_g = loss_g + adv.detach()
             loss_sim = loss_sim + sim.detach()
-        mean_grads(g, accum)
-        mean_grads(r, accum)
+        mean_grads(g, accum, dp)
+        mean_grads(r, accum, dp)
         _update(state.opt_g, state.sched_g)
         _update(state.opt_r, state.sched_r)
         state.step += 1
-        return {"loss_d": loss_d / accum, "loss_g": loss_g / accum,
-                "loss_r_sim": loss_sim / accum, "d_real": d_real / accum}
+        return mean_metrics({"loss_d": loss_d / accum, "loss_g": loss_g / accum,
+                             "loss_r_sim": loss_sim / accum, "d_real": d_real / accum}, dp)
 
-    step.noise = lambda state: noise(cfg, state)
+    step.noise = lambda state: noise(cfg, state, dp)
     return step

@@ -167,8 +167,8 @@ def test_nan_in_the_input_stops_the_cli(tmp_path, monkeypatch):
     checked chunk (5..8) raises at iter 6 and no later step runs."""
     make = train_glis.make_input_fn
 
-    def poisoned(cfg, device):
-        fn = make(cfg, device)
+    def poisoned(*args):
+        fn = make(*args)
 
         def real(batch, step):
             out = fn(batch, step)

@@ -228,8 +228,7 @@ def test_r_configs_refuse_unported_flags(cls):
     assert set(UNPORTED) <= {f.name for f in dataclasses.fields(cls)}
     assert not {"fid_interval", "fid_samples", "stop_patience"} & set(UNPORTED)
     refuse_unported(cls(fid_interval=5, fid_samples=64))
-    bad = {"multihost": True, "num_devices": 2,
-           "norm": "batch", "data_backend": "native", "use_pallas": True, "dataset": "lsun"}
+    bad = {"norm": "batch", "data_backend": "native", "use_pallas": True, "dataset": "lsun"}
     for name, value in bad.items():
         with pytest.raises(SystemExit, match=name if name != "dataset" else "lsun"):
             refuse_unported(cls(**{name: value}))

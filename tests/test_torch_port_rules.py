@@ -53,7 +53,7 @@ def test_import_without_cuda_builds_nothing():
         "import gea_torch.cli.sample_r_separate, gea_torch.cli.sample_r_iterative;"
         "import gea_torch.cli.sample_interpolations, gea_torch.cli.info;"
         "import gea_torch.cli.convert_checkpoint, gea_torch.cli.make_demo_data;"
-        "import gea_torch.serve_http, gea_torch.cli.export_model;"
+        "import gea_torch.serve_http, gea_torch.cli.export_model, gea_torch.parallel;"
         "assert 'PIL' not in sys.modules and 'matplotlib' not in sys.modules;"
         "assert 'scipy' not in sys.modules;"
         "from gea_torch.ops import build;"
@@ -181,19 +181,6 @@ def test_serving_on_default_device_needs_cuda(monkeypatch, tmp_path):
             call()
 
 
-def test_data_parallel_serving_refuses():
-    """`ServingModel.sharded()` and `serve_http --data_parallel 1` raise
-    SystemExit until data parallelism is ported."""
-    from gea_torch import serve, serve_http
-
-    model = serve.ServingModel(lambda z: {"images": z}, {"code_size": 4, "batch": 0},
-                               device="cpu")
-    with pytest.raises(SystemExit, match="Queue A 3"):
-        model.sharded()
-    with pytest.raises(SystemExit, match="Queue A 3"):
-        serve_http.main(["--artifact", "missing", "--data_parallel", "1", "--device", "cpu"])
-
-
 def test_new_port_files_are_checked():
     """The import rule above covers the evaluation modules, the samplers
     and the remaining CLIs."""
@@ -203,7 +190,8 @@ def test_new_port_files_are_checked():
             "gea_torch/cli/sample.py", "gea_torch/cli/sample_interpolations.py",
             "gea_torch/cli/sample_r_iterative.py", "gea_torch/cli/info.py",
             "gea_torch/cli/convert_checkpoint.py", "gea_torch/cli/make_demo_data.py",
-            "gea_torch/serve_http.py", "gea_torch/cli/export_model.py"} <= names
+            "gea_torch/serve_http.py", "gea_torch/cli/export_model.py",
+            "gea_torch/parallel/mesh.py", "gea_torch/parallel/dp.py"} <= names
 
 
 def test_chip_smoke_refuses_without_cuda():

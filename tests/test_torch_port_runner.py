@@ -320,7 +320,7 @@ def test_restore_refuses_another_schedule(tmp_path):
 
 
 REFUSED = [
-    ["--multihost"], ["--num_devices", "2"], ["--model_shards", "2"], ["--tp_min_width", "8"],
+    ["--model_shards", "2"], ["--tp_min_width", "8"],
     ["--use_pallas"], ["--data_backend", "native"],
     ["--data_backend", "grain"], ["--lsun_classes", "tower"], ["--norm", "batch"],
     ["--dataset", "lsun"],
@@ -334,6 +334,23 @@ def test_every_unported_flag_is_in_the_refusals():
 @pytest.mark.parametrize("extra", REFUSED, ids=lambda a: a[0][2:] + "=" + "".join(a[1:]))
 def test_unported_flag_raises(tmp_path, extra):
     with pytest.raises(SystemExit, match=extra[0]):
+        cli(tmp_path, "run", "--niter", "1", *extra)
+    assert not os.path.exists(tmp_path / "run")
+
+
+@pytest.mark.parametrize("extra,error,match", [
+    (["--multihost"], SystemExit, "needs its launcher's environment: torchrun's RANK"),
+    (["--num_devices", str((os.cpu_count() or 1) + 1)], ValueError,
+     f"requested {(os.cpu_count() or 1) + 1} devices but only {os.cpu_count() or 1} visible"),
+], ids=["multihost", "num_devices"])
+def test_data_parallel_flags_check_their_world(tmp_path, monkeypatch, extra, error, match):
+    """Data parallelism is ported (`tests/test_torch_port_parallel_cli.py`):
+    --multihost without a launcher's environment and --num_devices beyond
+    the visible count raise before the run directory is made."""
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "GEA_COORDINATOR",
+                "GEA_NUM_PROCESSES", "GEA_PROCESS_ID"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(error, match=match):
         cli(tmp_path, "run", "--niter", "1", *extra)
     assert not os.path.exists(tmp_path / "run")
 

@@ -465,11 +465,6 @@ def test_http_filtered_validation(scored_server, http_server):
 # ------------------------------------------------- an artifact, end to end
 
 
-def test_data_parallel_refuses():
-    with pytest.raises(SystemExit, match="Queue A 3"):
-        make_server(artifact="", model=StubModel(), data_parallel=True)
-
-
 @pytest.fixture(scope="module")
 def servers(tmp_path_factory):
     """(gea's server, the port's) over artifacts of the same jittered
