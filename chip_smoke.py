@@ -163,14 +163,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 15. print one JSON line of the serving results, one of the training
    results, one of the trainer's, one of the R trainers', one of the
    evaluation's, one of the samplers', one of export and serving, one of
-   phase 14's, one of phase 16's, one of per-kernel results (per train step; `launches` counts
+   phase 14's, one of phase 16's, one of phase 17's, one of per-kernel results (per train step; `launches` counts
    phase 7's timed steps, `launches_trainer` the trainer's first run,
    `launches_r_separate` and `launches_r_iterative` the R trainers' first
    runs, `launches_eval` phase 11's tracked runs and evaluators,
    `launches_samplers` phase 12's runs, `launches_serving` phase 6's live
    `sample_filtered` and one call of each of phase 13's artifacts,
    `launches_graphed` phase 14(a)'s 2 replays of the G-LIS graph,
-   `launches_dp` phase 16(a)'s 10 DP steps), the card's name and power
+   `launches_dp` phase 16(a)'s 10 DP steps, `launches_batch` phase 17(a)'s
+   10 batch-norm steps), the card's name and power
    limit, and last `{"ok": true, "device": {...}}`;
 16. (run before the lines of 15 are printed) data parallelism at `gea`'s
    fifth milestone shape, G-LIS-3 at 160x160 with spatial_code 4, bf16,
@@ -192,7 +193,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    `train_r_iterative --multihost`, 40 steps each, exact launches; (d)
    `ServingModel.sharded()` over the visible cards against the single
    card, bit for bit in bf16 at batches 1, 3 and 64, and `serve_http
-   --data_parallel` answering 16 requests ([dp] lines).
+   --data_parallel` answering 16 requests ([dp] lines);
+17. (run before the lines of 15 are printed) `--norm batch` (`gea`'s
+   BatchNorm + LeakyReLU(0.2) in G, D and the reverter's trunk, with no
+   fused seed): (a) the flagship G-LIS step with `--norm batch`, bf16,
+   BCE, batch 64: 2 fp32 steps with kernels against 2 with plain versions
+   under deterministic algorithms (metrics, step 1's gradients, the
+   parameters, and the running statistics within STATS_TOL), exact
+   launches (LIS 6, TPReLU 17, seed 0 a step: G runs twice), 10 timed
+   eager steps (wall, images/s, device busy, idle share, by category;
+   `launches_batch` in the `kernels` line counts them), the K = 8
+   dispatcher's warm-up putting G and D back bit for bit, 16 eager steps
+   against 2 replays of a K = 8 graph (as phase 14(a): the graph's kernel
+   nodes equal 8 eager steps' counters) and an fp32 graphed chunk against
+   2 eager steps (phase 14(b)'s gates, and the running statistics); (b)
+   `train_glis --norm batch` on phase 12's demo JPEGs with `--data_backend
+   auto`, streamed and with `--data_cache` (40 steps, exact launches; the
+   decode `auto` chose), `train_r_separate` against the streamed run and
+   `train_r_iterative --r_chain_length 2`, 20 steps each; (c) whether g++
+   and libjpeg built the native loader on this host and in how many
+   seconds, its images/s against PIL threads on the demo JPEGs at crop 160,
+   and `auto`'s stream against an explicit `native` one, byte for byte
+   (where it cannot build, said so, and (b) decoded with PIL as `gea`'s
+   `auto` does); (d) `sample` on (b)'s run with exact launches, its
+   `export_model --with_scores 1` artifact against the live eval-mode G
+   and D (images bit for bit, equal launches), and one evaluation leaving
+   the running statistics bit for bit and every module's mode as it was
+   ([batch] lines, one {"batch_norm": ...} JSON line).
 
 Phases 3-5 also hold each kernel against its plain version (forward and
 gradients) at the shapes only the R trainers give it: TPReLU on R's head,
@@ -209,6 +236,7 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -243,7 +271,9 @@ from gea_torch.config import (
     TrainRSeparateConfig,
     generator_plan,
 )
-from gea_torch.data.pipeline import SyntheticDataset
+from gea_torch.data import native_build
+from gea_torch.data.native_loader import NativeFolderLoader
+from gea_torch.data.pipeline import FolderDataset, SyntheticDataset, list_images, make_dataset
 from gea_torch.eval import fid
 from gea_torch.models import Discriminator, GeneratorLIS, Reverter
 from gea_torch.interop import (
@@ -266,7 +296,8 @@ from gea_torch.train import (
     create_r_state,
 )
 from gea_torch.train.dispatch import StepDispatcher
-from gea_torch.train.runner import input_iterator, make_input_fn
+from gea_torch.ops.layers import eval_mode
+from gea_torch.train.runner import input_iterator, make_input_fn, state_modules
 from gea_torch.train.state import generator_config
 from gea_torch.utils.checkpoint import (
     best_record,
@@ -1063,7 +1094,7 @@ def _training(cfg, kernel_rows: dict, smi: str) -> dict:
 FP32_TOL = {"metrics_rel": 1e-4, "grad_rel_to_max": 2e-2, "params_apart_share": 2e-2}
 
 
-def fp32_agreement_of(label: str, two_steps, lr: float) -> dict:
+def fp32_agreement_of(label: str, two_steps, lr: float, tol: Optional[dict] = None) -> dict:
     """`two_steps(use_kernels)` -> (metrics of 2 fp32 steps, step 1's
     gradients, parameters after step 2), by name: with kernels against
     plain versions, beside a second run of the plain versions (the card's
@@ -1080,28 +1111,31 @@ def fp32_agreement_of(label: str, two_steps, lr: float) -> dict:
     after 2 steps, at most 2% of each tensor's elements more than lr / 5
     apart (a wrong backward moves them all). Measured on an H100 for the
     G-LIS step: kernels vs plain 3.9e-3 and 0.6%, plain vs itself 1.3e-3
-    and 0.4%."""
+    and 0.4%. `tol` replaces FP32_TOL."""
+    tol = tol or FP32_TOL
 
     def compare(a, b) -> dict:
         (ma, ga, pa), (mb, gb, pb) = a, b
+        shares = {n: ((pa[n] - pb[n]).abs() > lr / 5).float().mean().item() for n in pb}
+        grads = {n: (ga[n] - gb[n]).abs().max().item() / max(gb[n].abs().max().item(), 1e-30)
+                 for n in gb}
         return {
             "metrics_rel": max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-2)
                                for x, y in zip(ma, mb) for k in x),
-            "grad_rel_to_max": max((ga[n] - gb[n]).abs().max().item()
-                                   / max(gb[n].abs().max().item(), 1e-30) for n in gb),
-            "params_apart_share": max(((pa[n] - pb[n]).abs() > lr / 5).float().mean().item()
-                                      for n in pb),
+            "grad_rel_to_max": max(grads.values()),
+            "params_apart_share": max(shares.values()),
             "params_abs": max((pa[n] - pb[n]).abs().max().item() for n in pb),
+            "worst": [max(grads, key=grads.get), max(shares, key=shares.get)],
         }
 
     kernels, plain, again = two_steps(True), two_steps(False), two_steps(False)
     errs, spread = compare(kernels, plain), compare(again, plain)
-    print(f"[{label} fp32] 2 steps with kernels vs plain versions: {errs} (tol {FP32_TOL}); "
+    print(f"[{label} fp32] 2 steps with kernels vs plain versions: {errs} (tol {tol}); "
           f"plain vs plain again: {spread}; metrics {kernels[0][-1]}", flush=True)
-    for k in FP32_TOL:
-        if not errs[k] <= FP32_TOL[k]:
-            raise AssertionError(f"{label} fp32 step {k} {errs[k]:.3e} > {FP32_TOL[k]}")
-    return {"kernels_vs_plain": errs, "plain_vs_plain": spread, "tol": FP32_TOL}
+    for k in tol:
+        if not errs[k] <= tol[k]:
+            raise AssertionError(f"{label} fp32 step {k} {errs[k]:.3e} > {tol[k]}")
+    return {"kernels_vs_plain": errs, "plain_vs_plain": spread, "tol": tol}
 
 
 def two_fp32_steps(make_state, step, named, batches):
@@ -2866,7 +2900,7 @@ def golden_deviations(metrics: list, state, golden: dict) -> dict:
 
 
 def chunk_agreement(tag: str, cfg, make_state, build_step, real, draws: Optional[list],
-                    golden: Optional[dict] = None) -> dict:
+                    golden: Optional[dict] = None, named=None) -> dict:
     """Phase 14(b) for one trainer, fp32 without TF32, under deterministic
     algorithms: a graphed K = 2 chunk against 2 eager steps from the same
     params and draws (`draws`, or the state's own generator with None).
@@ -2876,7 +2910,10 @@ def chunk_agreement(tag: str, cfg, make_state, build_step, real, draws: Optional
     elements more than lr / 5 apart (Adam's first update is about lr * sign(g): a gradient
     near zero flips by 2 lr); the EMA shadow likewise against (1 - g_ema)
     * lr / 5. Both against the golden where there is one (metrics, the norm
-    of every tensor)."""
+    of every tensor). `named(state)` gives the parameters held to the share
+    gate (all of them by default); batch norm's running statistics, where
+    the models have them, are held to STATS_TOL."""
+    named = named or named_params
 
     def eager_steps():
         st, step = make_state(cfg.replace(steps_per_dispatch=1)), build_step(cfg)
@@ -2884,7 +2921,7 @@ def chunk_agreement(tag: str, cfg, make_state, build_step, real, draws: Optional
         return st, [{k: v.item() for k, v in step(st, real, **d).items()} for d in fed]
 
     def tensors(st) -> dict:
-        out = {n: (p, cfg.lr / 5) for n, p in named_params(st).items()}
+        out = {n: (p, cfg.lr / 5) for n, p in named(st).items()}
         out.update({f"g_ema.{n}": (t, (1 - cfg.g_ema) * cfg.lr / 5)
                     for n, t in getattr(st, "g_ema", {}).items()})
         return out
@@ -2914,6 +2951,14 @@ def chunk_agreement(tag: str, cfg, make_state, build_step, real, draws: Optional
     result = {"metrics_rel": worst, "params_apart_share": share, "eager": eager,
               "graphed": graphed, "eager_again_bitwise": same}
     bad = worst > CHUNK_METRICS_TOL or share > CHUNK_TOL or not same
+    stats, eager_stats = running_stats(state), running_stats(eager_state)
+    if stats:
+        same = same and all(torch.equal(t, running_stats(again_state)[n])
+                            for n, t in eager_stats.items())
+        result["eager_again_bitwise"] = same
+        result["stats_max_abs"] = max((t - eager_stats[n]).abs().max().item()
+                                      for n, t in stats.items())
+        bad = bad or not same or result["stats_max_abs"] > STATS_TOL
     if golden is not None:
         for label, metrics, st in (("eager", eager, eager_state), ("graphed", graphed, state)):
             result[f"golden_{label}"] = golden_deviations(metrics, st, golden)
@@ -2922,7 +2967,9 @@ def chunk_agreement(tag: str, cfg, make_state, build_step, real, draws: Optional
           f"K=2 chunk vs 2 eager steps: metrics rel {worst:.3e} (tol {CHUNK_METRICS_TOL}), "
           f"largest share of a tensor's elements more than lr/5 apart {share:.6f} (tol "
           f"{CHUNK_TOL}); eager vs eager "
-          f"again bit for bit: {same}" + "".join(
+          f"again bit for bit: {same}" + (
+              f"; running statistics max abs {result['stats_max_abs']:.3e} (tol {STATS_TOL})"
+              if "stats_max_abs" in result else "") + "".join(
               f"; vs the step golden ({label}): max abs {g['max_abs']:.3e}, max rel "
               f"{g['max_rel']:.3e}, off {g['off']}" for label in ("eager", "graphed")
               if (g := result.get(f"golden_{label}")) is not None), flush=True)
@@ -3537,6 +3584,409 @@ def dp_phase(tmp: str, kernel_rows: dict, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 17: --norm batch
+
+# Running statistics of two runs of the same steps, absolute: a conv bias
+# that feeds a batch norm has a gradient zero up to rounding, so Adam's
+# first update may move it by lr one way on one side and the other way on
+# the other (2 lr = 4e-4 at the default lr), which moves the next running
+# mean by 0.1 * 4e-4; an update applied twice moves it by 0.1 of the
+# batch statistic itself, 1e-2 or more.
+STATS_TOL = 1e-3
+# Batch norm's fp32 steps, kernels vs plain versions, are compared under
+# deterministic algorithms (plain vs plain is then bit for bit). Without
+# weight norm the LIS links' fc1 weights hold many elements whose step-1
+# gradient lies within the kernels' fp32 rounding (about 1e-2 of the
+# tensor's largest), and Adam's first update, about lr * sign(g), flips
+# them: 3.1-3.5% of fc1's elements were more than lr / 5 apart on an H100
+# 80GB HBM3 at 700 W; a wrong backward flips about half.
+BN_FP32_TOL = {**FP32_TOL, "params_apart_share": 0.1}
+BN_STEPS, BN_VIS, BN_R_STEPS = 40, 20, 20
+BN_FID_SAMPLES = 256
+LOADER_BATCHES = 10
+
+
+def with_norm(args: list, norm: str) -> list:
+    i = args.index("--norm")
+    return args[:i + 1] + [norm] + args[i + 2:]
+
+
+BN_ARGS = with_norm(TRAINER_ARGS, "batch")
+
+
+def running_stats(state) -> dict:
+    """Batch norm's running means and variances of a state's trained
+    players, by module and name ({} without batch norm)."""
+    return {f"{name}.{n}": t for name, _ in state.PLAYERS
+            for n, t in getattr(state, name).named_buffers() if n.endswith((".mean", ".var"))}
+
+
+def bn_fed(state) -> set:
+    """The conv biases whose output a batch norm takes: in train mode the
+    norm subtracts each channel's batch mean, so their gradient is zero up
+    to rounding and Adam's first update moves them by lr either way."""
+    out = set()
+    for name, _ in state.PLAYERS:
+        keys = getattr(state, name).state_dict().keys()
+        out |= {f"{name}.{k}" for k in keys if k.endswith(".conv.bias")
+                and k.replace(".conv.bias", ".act.mean") in keys}
+    return out
+
+
+def named_unfed(state) -> dict:
+    """`named_params` but the biases that feed a batch norm (`bn_fed`)."""
+    fed = bn_fed(state)
+    return {n: p for n, p in named_params(state).items() if n not in fed}
+
+
+def bn_launches(cfg) -> tuple:
+    """(launches of a batch-norm G-LIS step, of a render of every stage).
+    No seed kernel: `gea` turns the fused seed off under batch norm. A G
+    forward runs a LIS link per module and a TPReLU (LeakyReLU 0.2) after
+    each of its d batch norms; the step runs G twice (the first forward's
+    statistics are dropped) and D's trunk (d - 1 TPReLUs) three times: on
+    the reals, on the fakes and for G's loss."""
+    d = generator_plan(cfg.image_size)[1]
+    render = {"fused_tprelu": d, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 0}
+    return ({"fused_tprelu": 2 * d + 3 * (d - 1), "lis_residual_mlp": 2 * cfg.r_iterations,
+             "fused_seed": 0}, render)
+
+
+def bn_state(cfg, **kw):
+    return create_glis_state(cfg, init_generator_params(cfg, 0),
+                             init_discriminator_params(cfg, 1), **kw)
+
+
+def bn_warm_up_restores(cfg) -> dict:
+    """The K = 8 dispatcher's warm-up step leaves G and D as they were, bit
+    for bit: parameters and running statistics (Adam's state, which the
+    warm-up makes, starts at zeros as a fresh Adam's)."""
+    state, step = bn_state(cfg), build_glis_train_step(cfg)
+    dispatch = StepDispatcher(cfg, step)
+    real = real_batch(cfg)
+    dispatch._fill(state, [real] * GRAPH_K, [step.noise(state) for _ in range(GRAPH_K)])
+    dispatch._fill_lr(state, GRAPH_K)
+
+    def models():
+        return {name: getattr(state, name).state_dict() for name, _ in state.PLAYERS}
+
+    want = {k: {n: t.clone() for n, t in sd.items()} for k, sd in models().items()}
+    dispatch._warm_up(state)
+    diff = same(models(), want)
+    print(f"[batch] 17(a) the K={GRAPH_K} warm-up step put back every tensor it changed "
+          f"({len(running_stats(state))} running statistics among them): "
+          f"{'bit for bit' if not diff else diff[:8]}", flush=True)
+    if diff:
+        raise AssertionError(f"the warm-up changed {diff[:8]}")
+    return {"bitwise": True, "running_stats": len(running_stats(state))}
+
+
+def bn_fp32_agreement(cfg) -> dict:
+    """2 fp32 batch-norm steps with kernels against 2 with plain versions
+    under deterministic algorithms (`fp32_agreement_of` with BN_FP32_TOL,
+    the biases that feed a batch norm left out of its gradient and
+    parameter gates), and the running statistics within STATS_TOL, beside
+    a second plain run, which must then agree bit for bit."""
+    tcfg = cfg.replace(dtype="float32")
+    g_params, d_params = init_generator_params(tcfg, 0), init_discriminator_params(tcfg, 1)
+    real = real_batch(tcfg)
+    rng = np.random.default_rng(3)
+    zs = [torch.from_numpy(rng.standard_normal((BATCH, tcfg.code_size)).astype(np.float32)).cuda()
+          for _ in range(2)]
+    stats = []
+
+    def two_steps(use_kernels):
+        state = create_glis_state(tcfg, g_params, d_params, use_kernels=use_kernels)
+        out = two_fp32_steps(lambda: state, build_glis_train_step(tcfg), named_unfed,
+                             [(real, z) for z in zs])
+        stats.append({n: t.clone() for n, t in running_stats(state).items()})
+        return out
+
+    with deterministic():
+        out = fp32_agreement_of("batch", two_steps, tcfg.lr, BN_FP32_TOL)
+    kernels, plain, again = stats
+
+    def apart(a, b):
+        return max((a[n] - b[n]).abs().max().item() for n in b)
+
+    out["stats_max_abs"], out["stats_plain_vs_plain"] = apart(kernels, plain), apart(again, plain)
+    out["stats_moved"] = apart(plain, {n: torch.zeros_like(t) if n.endswith(".mean")
+                                       else torch.ones_like(t) for n, t in plain.items()})
+    print(f"[batch fp32] running statistics after 2 steps, kernels vs plain: max abs "
+          f"{out['stats_max_abs']:.3e} (tol {STATS_TOL}), plain vs plain "
+          f"{out['stats_plain_vs_plain']:.3e}; moved off their initial values by up to "
+          f"{out['stats_moved']:.3e}", flush=True)
+    if (out["stats_max_abs"] > STATS_TOL or not out["stats_moved"] > 10 * STATS_TOL
+            or out["stats_plain_vs_plain"] != 0 or out["plain_vs_plain"]["params_abs"] != 0):
+        raise AssertionError(f"batch-norm running statistics: {out}")
+    return out
+
+
+def bn_step(kernel_rows: dict, smi: str, tmp: str) -> dict:
+    """Phase 17(a): the batch-norm G-LIS step at flagship width, bf16,
+    batch 64, BCE."""
+    cfg = TrainGLISConfig.from_args(BN_ARGS)
+    per_step, _ = bn_launches(cfg)
+    out = {"fp32": bn_fp32_agreement(cfg)}
+    state, step = bn_state(cfg), build_glis_train_step(cfg)
+    real = real_batch(cfg)
+    fed = bn_fed(state)
+
+    ops.reset_launch_counts()
+    step(state, real)
+    counts = ops.launch_counts()
+    print(f"[batch] step 1 launches {counts} (want {per_step})", flush=True)
+    if counts != per_step:
+        raise AssertionError(f"launches per batch-norm step {counts} != {per_step}")
+    grads = {n: p.grad for n, p in named_params(state).items()}
+    bad = [n for n, g in grads.items() if g is None or not torch.isfinite(g).all()
+           or (n not in fed and not g.abs().max() > 0)]
+    if bad:
+        raise AssertionError(f"batch-norm step 1: no finite non-zero gradient for {bad}")
+    fed_max = max(grads[n].abs().max().item() for n in fed)
+    other_max = max(g.abs().max().item() for n, g in grads.items() if n not in fed)
+    print(f"[batch] step 1: every parameter has a finite gradient, non-zero but for the "
+          f"{len(fed)} conv biases that feed a batch norm (largest {fed_max:.3e}, against "
+          f"{other_max:.3e} elsewhere)", flush=True)
+    step(state, real)
+
+    stats0 = {n: t.clone() for n, t in running_stats(state).items()}
+    ops.reset_launch_counts()
+    walls, history = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, real)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        history.append({k: v.item() for k, v in metrics.items()})
+    counts = ops.launch_counts()
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    print(f"[batch] launch counts over {TRAIN_STEPS} timed steps: {counts} (want {want})",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"batch-norm launch counts {counts} != {want}")
+    for name, n in counts.items():
+        kernel_rows[name]["launches_batch"] = n
+        kernel_rows[name]["launches_per_batch_step"] = per_step[name]
+    stats = running_stats(state)
+    unmoved = [n for n, t in stats.items() if torch.equal(t, stats0[n])]
+    if (unmoved or not all(np.isfinite(v) for m in history for v in m.values())
+            or not all(bool(torch.isfinite(t).all()) for t in stats.values())
+            or not all(bool((t > 0).all()) for n, t in stats.items() if n.endswith(".var"))):
+        raise AssertionError(f"batch-norm steps: metrics {history[-1]}, statistics that did "
+                             f"not move {unmoved}")
+    wall = statistics.median(walls)
+    profiled = step_profile(lambda: step(state, real))
+    out["eager"] = {"step_wall_ms_median": wall * 1e3, "step_wall_ms": [w * 1e3 for w in walls],
+                    "images_per_s": BATCH / wall, "step_device_busy_ms": profiled["device_ms"],
+                    "step_device_idle_share": 1.0 - profiled["device_ms"] / (wall * 1e3),
+                    "step_by_category": profiled["by_category"],
+                    "launches": counts, "metrics_last": history[-1], "card": smi}
+    e = out["eager"]
+    print(f"[batch] flagship bf16 batch-norm step, batch {BATCH}: median wall "
+          f"{e['step_wall_ms_median']:.3f} ms of {TRAIN_STEPS} = {e['images_per_s']:.1f} "
+          f"images/s; device busy {e['step_device_busy_ms']:.3f} ms (torch.profiler), idle "
+          f"share {e['step_device_idle_share']:.3f}; {smi}", flush=True)
+    for cat, t in sorted(profiled["by_category"].items(), key=lambda kv: -kv[1]):
+        print(f"[batch] step by category: {t:8.4f} ms {cat}", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+
+    out["warm_up"] = bn_warm_up_restores(cfg.replace(steps_per_dispatch=GRAPH_K))
+    entry = (cfg.replace(steps_per_dispatch=GRAPH_K), bn_state, build_glis_train_step,
+             per_step, real)
+    with cudnn_tf32():
+        out["graphed"] = eager_vs_graphed("g-lis batch norm", entry, smi, tmp)
+    fp32 = TrainGLISConfig(**{**dataclasses.asdict(cfg), "dtype": "float32"})
+    out["graphed_fp32"] = chunk_agreement("g-lis batch norm", fp32, bn_state,
+                                          build_glis_train_step, real_batch(fp32), None,
+                                          named=named_unfed)
+    return out
+
+
+def bn_clis(tmp: str, folder: str, smi: str) -> dict:
+    """Phase 17(b): the three trainer CLIs with --norm batch: train_glis on
+    phase 12's demo JPEGs with --data_backend auto, streamed and with
+    --data_cache (exact launches: the steps' and 2 renders'), R-separate
+    against the streamed run, R-iterative at 80x80 --r_chain_length 2."""
+    cfg = TrainGLISConfig.from_args(BN_ARGS)
+    per_step, per_render = bn_launches(cfg)
+    want = launches(per_step, BN_STEPS, per_render, BN_STEPS // BN_VIS)
+    out = {}
+    folder_args = ["--dataset", "folder", "--dataroot", folder, "--synthetic_on_device", "false",
+                   "--data_backend", "auto", "--niter", str(BN_STEPS), "--vis_interval",
+                   str(BN_VIS), "--save_interval", str(BN_STEPS)]
+    for label, extra in (("streamed", []), ("data_cache", ["--data_cache", "true"])):
+        run = os.path.join(tmp, f"bn_{label}")
+        with cudnn_tf32():
+            state, stats, text, counts = counted_run(
+                "batch", f"train_glis --norm batch on the demo JPEGs ({label}), {BN_STEPS} steps "
+                f"and 2 renders", train_glis, BN_ARGS + folder_args + extra + ["--save_path", run],
+                want)
+        chose = [ln for ln in text.splitlines() if "decoded by" in ln]
+        out[label] = {"run": run, "images_per_sec": stats["images_per_sec"],
+                      "metrics": stats["metrics"], "launches": counts,
+                      "decoded_by": chose[0].split("decoded by ")[1].split(" ")[0]
+                      if chose else None}
+        if (not chose or not all(np.isfinite(v) for v in stats["metrics"].values())
+                or not os.path.isfile(os.path.join(run, "checkpoints", str(BN_STEPS), "state.pt"))):
+            raise AssertionError(f"batch-norm CLI ({label}): {out[label]}")
+        print(f"[batch] train_glis --norm batch --data_backend auto ({label}): "
+              f"{stats['images_per_sec']:.1f} img/s (meter); auto chose "
+              f"{out[label]['decoded_by']}; {smi}", flush=True)
+        if label == "streamed":
+            out["state"] = state
+    r_args = ["--batch_size", str(BATCH), "--niter", str(BN_R_STEPS), "--log_interval", "10",
+              "--vis_interval", str(BN_R_STEPS), "--save_interval", str(BN_R_STEPS)]
+    with cudnn_tf32():
+        _, sep, _ = run_cli(r_args + ["--g_path", out["streamed"]["run"], "--save_path",
+                                      os.path.join(tmp, "bn_rsep")], train_r_separate)
+        _, it, _ = run_cli(BN_ARGS + r_args + ["--r_chain_length", "2", "--save_path",
+                                               os.path.join(tmp, "bn_riter")], train_r_iterative)
+    for label, stats in (("r_separate", sep), ("r_iterative", it)):
+        out[label] = {"images_per_sec": stats["images_per_sec"], "metrics": stats["metrics"]}
+        if not all(np.isfinite(v) for v in stats["metrics"].values()):
+            raise AssertionError(f"batch-norm {label}: {stats['metrics']}")
+        print(f"[batch] {label} --norm batch, {BN_R_STEPS} steps: "
+              f"{stats['images_per_sec']:.1f} img/s (meter), metrics {stats['metrics']}; {smi}",
+              flush=True)
+    return out
+
+
+def loader_rate(dataset, batches: int) -> float:
+    it = dataset.batches(0)
+    next(it)  # the pool's start and first batch off the clock
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    return batches * dataset.batch_size / (time.perf_counter() - t0)
+
+
+def bn_loader(folder: str, smi: str) -> dict:
+    """Phase 17(c): the native loader on the card's host: whether g++ and
+    libjpeg built it and in how many seconds, images/s of PIL threads and,
+    where it built, of the native pool on the demo JPEGs at the flagship
+    crop, and the stream `auto` chose against an explicit `native` one,
+    byte for byte."""
+    import ctypes.util
+
+    lib = native_build.load_library()
+    out = {"built": lib is not None, "build_seconds": native_build.build_seconds,
+           "library": str(native_build.library_path()), "g++": shutil.which("g++"),
+           "jpeglib.h": os.path.exists("/usr/include/jpeglib.h"),
+           "libjpeg": ctypes.util.find_library("jpeg")}
+    cfg = TrainGLISConfig.from_args(BN_ARGS + ["--dataset", "folder", "--dataroot", folder])
+    decode = max(cfg.crop_size, cfg.image_size)
+    pil = FolderDataset(folder, BATCH, cfg.crop_size, decode, workers=cfg.data_workers)
+    out["pil_images_per_s"] = loader_rate(pil, LOADER_BATCHES)
+    where = (f"crop {cfg.crop_size} -> {decode}, {cfg.data_workers} workers, batch {BATCH}, "
+             f"{LOADER_BATCHES} batches")
+    if lib is None:
+        print(f"[batch] 17(c) the native loader did NOT build on this host (g++ at "
+              f"{out['g++']}, /usr/include/jpeglib.h present: {out['jpeglib.h']}, libjpeg "
+              f"found: {out['libjpeg']}): --data_backend auto decoded with PIL above, as "
+              f"gea's auto does; PIL threads {out['pil_images_per_s']:.1f} images/s at "
+              f"{where}; {smi}", flush=True)
+        return out
+    native = NativeFolderLoader(list_images(folder), BATCH, cfg.crop_size, decode,
+                                workers=cfg.data_workers)
+    out["native_images_per_s"] = loader_rate(native, LOADER_BATCHES)
+    native.close()
+    auto = make_dataset(cfg.replace(data_backend="auto"), seed=cfg.seed)
+    explicit = make_dataset(cfg.replace(data_backend="native"), seed=cfg.seed)
+    a, b = auto.batches(0), explicit.batches(0)
+    out["auto_equals_native"] = all(np.array_equal(next(a), next(b)) for _ in range(3))
+    auto.close()
+    explicit.close()
+    print(f"[batch] 17(c) native loader built by g++/libjpeg "
+          f"({'in %.2f s' % out['build_seconds'] if out['build_seconds'] else 'earlier'}): "
+          f"{out['native_images_per_s']:.1f} images/s against PIL's "
+          f"{out['pil_images_per_s']:.1f} at {where}; auto's stream equals an explicit "
+          f"native one for 3 batches: {out['auto_equals_native']}; {smi}", flush=True)
+    if not out["auto_equals_native"]:
+        raise AssertionError("--data_backend auto and native streams differ")
+    return out
+
+
+def bn_inference(tmp: str, run: str, state, smi: str) -> dict:
+    """Phase 17(d): `sample` from the streamed run (exact launches), its
+    export rendering what the live eval-mode G renders, bit for bit, with
+    the same launches, and one evaluation leaving the running statistics
+    as they were, bit for bit."""
+    cfg = TrainGLISConfig.load(os.path.join(run, "config.json"))
+    _, per_render = bn_launches(cfg)
+    out = {}
+    ops.reset_launch_counts()
+    sample.main(["--load_path", run, "--count", str(BATCH), "--batch_size", str(BATCH),
+                 "--save_path_samples", os.path.join(tmp, "bn_samples")])
+    out["sample_launches"] = ops.launch_counts()
+    if out["sample_launches"] != per_render:
+        raise AssertionError(f"sample launches {out['sample_launches']} != {per_render}")
+    art = os.path.join(tmp, "bn_art")
+    export_model.main(["--load_path", run, "--out", art, "--all_stages", "1",
+                       "--with_scores", "1"])
+    g, _ = load_generator(run)
+    live = ServingModel.from_modules(g, load_discriminator(run), all_stages=True)
+    d = generator_plan(cfg.image_size)[1]
+    scored = {**per_render, "fused_tprelu": per_render["fused_tprelu"] + d - 1}
+    model = serve.load(art)
+    z = np.random.default_rng(0).standard_normal((BATCH, cfg.code_size)).astype(np.float32)
+    counts = []
+    for fn in (model, live):
+        ops.reset_launch_counts()
+        counts.append((fn(z), ops.launch_counts()))
+    (got, got_n), (want, want_n) = counts
+    out["artifact_equals_live"] = all(np.array_equal(got[k], want[k]) for k in want)
+    out["artifact_launches"], out["live_launches"] = got_n, want_n
+    if not out["artifact_equals_live"] or got_n != want_n or want_n != scored:
+        raise AssertionError(f"batch-norm artifact vs live: {out}")
+    before = {k: v.clone() for k, v in running_stats(state).items()}
+    modes = [m.training for mod in state_modules(state) for m in mod.modules()]
+    fid_fn = train_glis.make_fid_fn(cfg.replace(fid_samples=BN_FID_SAMPLES), state.device)
+    t0 = time.perf_counter()
+    with eval_mode(*state_modules(state)):
+        out["fid"] = float(fid_fn(state))
+    out["eval_s"] = time.perf_counter() - t0
+    after = running_stats(state)
+    out["eval_left_stats"] = all(torch.equal(after[n], t) for n, t in before.items())
+    out["modes_restored"] = modes == [m.training for mod in state_modules(state)
+                                      for m in mod.modules()]
+    print(f"[batch] 17(d) sample: launches {out['sample_launches']} (want {per_render}); the "
+          f"exported artifact renders and scores {BATCH} codes as the live eval-mode G and D "
+          f"do, bit for bit: "
+          f"{out['artifact_equals_live']}, launches {got_n} = {want_n}; one evaluation "
+          f"({BN_FID_SAMPLES} samples, proxy-FID {out['fid']:.3f}, {out['eval_s']:.2f} s) left "
+          f"the {len(before)} running statistics bit for bit: {out['eval_left_stats']}, modes "
+          f"put back: {out['modes_restored']}; {smi}", flush=True)
+    if not (out["eval_left_stats"] and out["modes_restored"] and np.isfinite(out["fid"])):
+        raise AssertionError(f"batch-norm evaluation: {out}")
+    return out
+
+
+def batch_norm_phase(tmp: str, folder: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 17: --norm batch through the step, the CLIs, the native
+    loader and inference."""
+    t0 = time.perf_counter()
+    seconds = {}
+    out = {"config": "G-LIS-3 80x80 --norm batch, nf 64 / cap 512, bf16, BCE, batch 64"}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t
+
+    part("step", lambda: bn_step(kernel_rows, smi, tmp))
+    part("clis", lambda: bn_clis(tmp, folder, smi))
+    part("loader", lambda: bn_loader(folder, smi))
+    state = out["clis"].pop("state")
+    part("inference", lambda: bn_inference(tmp, out["clis"]["streamed"]["run"], state, smi))
+    out["seconds"], out["part_seconds"], out["card"] = time.perf_counter() - t0, seconds, smi
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+    print(f"[batch] phase 17 in {out['seconds']:.1f} s ({parts})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -3585,6 +4035,7 @@ def main() -> int:
             "r-separate": r_trainers["r_separate"]["cli"]["images_per_sec"],
             "r-iterative": r_trainers["r_iterative"]["cli"]["images_per_sec"]})
         parallel = dp_phase(tmp, rows, smi)
+        normed = batch_norm_phase(tmp, sampled["demo_data"]["folder"], rows, smi)
 
     kernels = []
     for name, row in rows.items():
@@ -3601,6 +4052,8 @@ def main() -> int:
             "launches_per_r_iterative_step": row["launches_per_r_iterative_step"],
             "launches_serving": row["launches_serving"],
             "launches_graphed": row["launches_graphed"], "launches_dp": row["launches_dp"],
+            "launches_batch": row["launches_batch"],
+            "launches_per_batch_step": row["launches_per_batch_step"],
             "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
             "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3631,6 +4084,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"data_parallel": parallel, "seconds": time.perf_counter() - t_start}),
           flush=True)
+    print(json.dumps({"batch_norm": normed, "seconds": time.perf_counter() - t_start},
+                     default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ The file holds the run's `config` (its config.json), its `step`, and the
 state_dicts of `generator`, `discriminator` and `reverter` (each where the
 run has one) in the layout of `gea/interop/torch_port.py`'s converters,
 which is the port's own module layout. An R-iterative run's generator is
-its single-stage conv core; an R-separate run holds R alone.
+its single-stage conv core; an R-separate run holds R alone. A `--norm
+batch` run is refused both ways, with `gea`'s error, as `gea` refuses it.
 
 Export a port run (the latest step; --step N, or -1 for best.json;
 --use_ema for G's EMA shadow) and import it into `gea`:
@@ -41,6 +42,18 @@ from gea_torch.utils.checkpoint import load_checkpoint, write_modules
 
 FORMAT = "gea-torch-v1"
 _MODULES = ("generator", "discriminator", "reverter")
+# `gea`'s refusal (gea/interop/torch_port.py::_check_norm): the format has
+# no key mapping for batch norm's running statistics.
+BATCH_NORM_REFUSED = (
+    "checkpoint conversion supports --norm weight|none; batch-norm "
+    "models keep running statistics in a separate flax collection "
+    "with no stable torch key mapping"
+)
+
+
+def _check_norm(raw_cfg: dict) -> None:
+    if raw_cfg.get("norm") == "batch":
+        raise SystemExit(BATCH_NORM_REFUSED)
 
 
 def _modules(raw_cfg: dict) -> dict:
@@ -62,6 +75,7 @@ def _modules(raw_cfg: dict) -> dict:
 def export_run(load_path: str, out: str, step: Optional[int], use_ema: bool) -> dict:
     with open(os.path.join(load_path, "config.json")) as f:
         raw_cfg = json.load(f)
+    _check_norm(raw_cfg)
     ckpt = load_checkpoint(load_path, step)
     payload = {"format": FORMAT, "config": raw_cfg, "step": int(ckpt.get("step", 0))}
     is_r_separate = "g_path" in raw_cfg
@@ -99,6 +113,7 @@ def import_torch(torch_path: str, out_run: str, step: Optional[int]) -> None:
         raise SystemExit(f"{torch_path!r} is not a {FORMAT} export; importing arbitrary torch "
                          "checkpoints requires the documented key schema")
     raw_cfg = payload["config"]
+    _check_norm(raw_cfg)
     ckpt_step = step if step is not None else int(payload.get("step", 0))
     modules = {}
     for name, module in _modules(raw_cfg).items():

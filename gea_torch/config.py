@@ -389,9 +389,8 @@ UNPORTED = {
     "model_shards": ((), "needs tensor parallelism"),
     "tp_min_width": ((), "needs tensor parallelism"),
     "use_pallas": ((), "moot: the port always runs its kernels on the card"),
-    "data_backend": (("pil",), "needs the native and grain loaders"),
+    "data_backend": (("pil", "native"), "needs the grain loader"),
     "lsun_classes": ((), "needs the LSUN reader"),
-    "norm": (("none",), "needs norm=batch in the models"),
 }
 
 
@@ -399,7 +398,7 @@ def refuse_unported(cfg: BaseConfig) -> None:
     """SystemExit naming every flag set to a value the port does not
     implement; none is silently ignored. The defaults are those of the
     config's own class, and a config checks the flags it has: the
-    trainers' have every one, the samplers' `norm` alone."""
+    trainers' have every one."""
     defaults = {f.name: f.default for f in dataclasses.fields(type(cfg))}
     bad = [
         f"--{name} {getattr(cfg, name)} ({why})"

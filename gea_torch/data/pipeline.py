@@ -1,18 +1,22 @@
 """Host-side dataset iteration (port of `gea/data/pipeline.py`).
 
-A thread pool decodes images to uint8 with PIL (which releases the GIL
-inside decode); batches go to the device as uint8 and the crop, resize,
-flip and normalise run there (`gea_torch/data/ondevice.py`). A `synthetic`
-mode yields deterministic pseudo-images.
+A folder of JPEGs is decoded by the native C++ pool where its library
+builds (`gea_torch/data/native_loader.py`, `--data_backend auto|native`),
+any other folder by a thread pool with PIL (which releases the GIL inside
+decode); batches go to the device as uint8 and the crop, resize, flip and
+normalise run there (`gea_torch/data/ondevice.py`). A `synthetic` mode
+yields deterministic pseudo-images.
 
 Every stream is counter-based: batch i of a seeded stream is a pure
 function of (seed, i), and epoch e's shuffle is
 `default_rng([seed, e]).permutation(n)`, so `batches(start_batch=N)`
-restarts mid-stream without decoding the skipped prefix. The bytes are
-those of `gea`'s streams for the same arguments. The trainer fast-forwards
-the stream to the resumed step, which makes resume deterministic.
+restarts mid-stream without decoding the skipped prefix (the native pool
+has an order of its own, also a pure function of (seed, i)). The bytes are
+those of `gea`'s streams for the same arguments and backend. The trainer
+fast-forwards the stream to the resumed step, which makes resume
+deterministic.
 
-Not ported yet: `gea`'s native C++ and grain loaders and its LSUN reader.
+Not ported yet: `gea`'s grain loader and its LSUN reader.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ from __future__ import annotations
 import os
 import pickle
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
+
+from gea_torch.data import native_loader
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
@@ -167,18 +173,28 @@ class ArrayDataset:
             yield self.data[idx]
 
 
+def all_jpeg(paths: List[str]) -> bool:
+    return all(p.lower().endswith((".jpg", ".jpeg")) for p in paths)
+
+
 class CachedFolderDataset(ArrayDataset):
-    """The whole folder decoded once (PIL threads) into one uint8 array;
-    shuffled batches are then served from memory."""
+    """The whole folder decoded once into one uint8 array, by the native
+    decode where its library builds and every file is a JPEG, else by PIL
+    (threads either way, as `gea`'s); shuffled batches are then served
+    from memory."""
 
     def __init__(self, root: str, batch_size: int, crop_size: int, decode_size: int,
                  workers: int = 4, seed: int = 0):
         paths = list_images(root)
         require_enough_images(len(paths), batch_size, root)
         data = np.empty((len(paths), decode_size, decode_size, 3), np.uint8)
+        decode = _decode
+        if all_jpeg(paths) and native_loader.native_available():
+            decode = native_loader.decode_square
+        self.backend = "native" if decode is not _decode else "pil"
         with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
             for i, arr in enumerate(pool.map(
-                    lambda p: _decode(p, crop_size, decode_size), paths)):
+                    lambda p: decode(p, crop_size, decode_size), paths)):
                 data[i] = arr
         super().__init__(data, batch_size, seed)
 
@@ -199,15 +215,51 @@ def make_dataset(cfg, seed: int = 0):
     if cfg.dataset == "synthetic":
         return SyntheticDataset(cfg.batch_size, decode_size, seed=seed)
     if cfg.dataset == "folder":
-        if cfg.data_backend not in ("auto", "pil"):
+        args = (cfg.dataroot, cfg.batch_size, cfg.crop_size, decode_size)
+        if cfg.data_cache:
+            return CachedFolderDataset(*args, workers=cfg.data_workers, seed=seed)
+        if cfg.data_backend not in ("auto", "native", "pil"):
             raise ValueError(f"data_backend {cfg.data_backend!r} is not ported to "
-                             "gea_torch yet; use auto or pil")
-        kind = CachedFolderDataset if cfg.data_cache else FolderDataset
-        return kind(cfg.dataroot, cfg.batch_size, cfg.crop_size, decode_size,
-                    workers=cfg.data_workers, seed=seed)
+                             "gea_torch yet; use auto, native or pil")
+        if cfg.data_backend in ("auto", "native"):
+            loader = _try_native_loader(*args, workers=cfg.data_workers, seed=seed)
+            if loader is not None:
+                return loader
+            if cfg.data_backend == "native":
+                raise RuntimeError(
+                    "native data backend requested but unavailable "
+                    "(no toolchain/libjpeg, or non-JPEG files in folder)"
+                )
+        return FolderDataset(*args, workers=cfg.data_workers, seed=seed)
     if cfg.dataset == "cifar10":
         return cifar10_dataset(cfg, seed)
     raise ValueError(f"dataset {cfg.dataset!r} is not ported to gea_torch yet")
+
+
+def _try_native_loader(root: str, batch_size: int, crop_size: int, decode_size: int,
+                       workers: int, seed: int) -> Optional[native_loader.NativeFolderLoader]:
+    """The C++ pool over `root` when its library builds and every file is
+    a JPEG; None otherwise (`gea`'s `_try_native_loader`)."""
+    if not native_loader.native_available():
+        return None
+    paths = list_images(root)
+    if not all_jpeg(paths):
+        return None
+    try:
+        return native_loader.NativeFolderLoader(paths, batch_size, crop_size, decode_size,
+                                                workers=workers, seed=seed)
+    except RuntimeError:
+        return None
+
+
+def backend_of(dataset) -> str:
+    """Which decode a folder dataset of `make_dataset` runs: "native" or
+    "pil" (and "none" for a dataset that decodes nothing)."""
+    if isinstance(dataset, native_loader.NativeFolderLoader):
+        return "native"
+    if isinstance(dataset, FolderDataset):
+        return "pil"
+    return getattr(dataset, "backend", "none")
 
 
 def cifar10_dataset(cfg, seed: int) -> ArrayDataset:

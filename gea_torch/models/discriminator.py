@@ -4,7 +4,8 @@ Stride-2 convs halve the resolution and double the channels down to the seed
 resolution; a dense head over the NHWC-flattened features gives one logit
 per image, returned in fp32. The first block is a LeakyReLU(0.2) with no
 norm; every later block's activation is the TPReLU kernel
-(`gea_torch.ops.tprelu.fused_tprelu`). Module and parameter names are those of
+(`gea_torch.ops.tprelu.fused_tprelu`), after a batch norm under
+`norm=batch`. Module and parameter names are those of
 `TorchDiscriminator` in `gea/interop/torch_port.py`.
 """
 
@@ -17,14 +18,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gea_torch.config import ModelConfig, generator_plan, resolve_device
-from gea_torch.ops.layers import Conv, Dense, TPReLU, norm_act
+from gea_torch.ops.layers import Conv, Dense, norm_act
 
 
 class DownBlock(nn.Module):
     def __init__(self, cin: int, cout: int, norm: str, first: bool, use_kernels: bool):
         super().__init__()
         self.conv = Conv(cin, cout, norm == "weight")
-        self.act: Optional[TPReLU] = None if first else norm_act(norm, cout, use_kernels)
+        self.act: Optional[nn.Module] = None if first else norm_act(norm, cout, use_kernels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
@@ -39,8 +40,6 @@ class DiscriminatorTrunk(nn.Module):
 
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True):
         super().__init__()
-        if cfg.norm == "batch":
-            raise NotImplementedError("norm=batch is not ported yet")
         s0, d = generator_plan(cfg.image_size)
         nf, cap = cfg.num_features, cfg.max_features
         downs, ch = [], 3

@@ -9,9 +9,16 @@ Kernels on this path (each with its plain PyTorch twin, chosen by
 
 * every LIS link -> `gea_torch.ops.lis.lis_residual_mlp`;
 * the seed segment `project -> project_act -> up1` -> `gea_torch.ops.seed.
-  fused_seed` (the `fused_seed=True` configuration of `gea`), for d >= 2;
+  fused_seed` (the `fused_seed=True` configuration of `gea`), for d >= 2
+  and `norm` weight or none: `gea` turns the fused seed off under batch
+  norm, whose statistics need the whole projected batch, so the seed then
+  runs as project -> BatchNorm -> LeakyReLU -> conv-transpose;
 * every activation after a conv outside the seed kernel (`up1_act`..) ->
-  `gea_torch.ops.tprelu.fused_tprelu`.
+  `gea_torch.ops.tprelu.fused_tprelu` (after the batch norm under
+  `norm=batch`, as LeakyReLU(0.2)).
+
+Under `norm=batch` the S stages render as one S*B batch, so the batch
+statistics run over all S*B images, as in `gea`.
 
 `gea`'s `subpixel_mode` and `rgb_pad` are XLA lowering knobs and are not
 ported. The module and parameter names are those of `TorchGeneratorLIS` in
@@ -26,13 +33,15 @@ import torch
 import torch.nn as nn
 
 from gea_torch.config import ModelConfig, generator_plan, resolve_device
-from gea_torch.ops.layers import ConvTranspose, Dense, TPReLU, norm_act
+from gea_torch.ops.layers import ConvTranspose, Dense, TPReLU, eval_mode, norm_act
 from gea_torch.ops.lis import lis_residual_mlp, lis_residual_mlp_plain
 from gea_torch.ops.seed import fused_seed, fused_seed_plain
 
 
 class LISModule(nn.Module):
-    """One learned-input-space residual block: z + MLP(z), as one kernel."""
+    """One learned-input-space residual block: z + MLP(z), as one kernel.
+    Its activation is a learned TPReLU under weight norm, else
+    LeakyReLU(0.2) (batch norm included: `gea`'s LIS has no batch norm)."""
 
     def __init__(self, code_size: int, hidden_mult: int = 1, norm: str = "weight",
                  use_kernels: bool = True):
@@ -41,7 +50,7 @@ class LISModule(nn.Module):
         hidden = code_size * hidden_mult
         self.use_kernels = use_kernels
         self.fc1 = Dense(code_size, hidden, wn)
-        self.act = norm_act(norm, hidden, use_kernels)
+        self.act = TPReLU(hidden, learned=wn, use_kernels=use_kernels)
         self.fc2 = Dense(hidden, code_size, wn)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
@@ -76,13 +85,12 @@ class GeneratorCore(nn.Module):
 
     def __init__(self, cfg: ModelConfig, use_kernels: bool = True):
         super().__init__()
-        if cfg.norm == "batch":
-            raise NotImplementedError("norm=batch is not ported yet")
         wn = cfg.norm == "weight"
         self.cfg = cfg
         self.use_kernels = use_kernels
         s0, d = generator_plan(cfg.image_size)
         self.s0, self.d = s0, d
+        self.seed_kernel = d >= 2 and cfg.norm != "batch"
         nf, cap = cfg.num_features, cfg.max_features
         self.c0 = min(nf * 2 ** (d - 1), cap)
         self.project = Dense(cfg.code_size, s0 * s0 * self.c0, wn)
@@ -114,11 +122,13 @@ class GeneratorCore(nn.Module):
         )
 
     def core(self, z: torch.Tensor, spatial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.d >= 2:
+        if self.seed_kernel:
             x = self.ups[0].act(self._seed(z))
         else:
             x = self.project(z).view(z.shape[0], self.s0, self.s0, self.c0)
             x = self.project_act(x)
+            if self.d >= 2:
+                x = self.ups[0](x)
         if self.cfg.spatial_code > 0:
             if spatial_noise is None:
                 raise ValueError(
@@ -192,6 +202,9 @@ class GeneratorLIS(GeneratorCore):
     def render(
         self, z: torch.Tensor, spatial_noise: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Render every stage (z0..zN); images in fp32."""
-        images, zs = self(z, spatial_noise, render_all_stages=True)
+        """Render every stage (z0..zN) in inference mode (batch norm on its
+        running statistics, as `gea`'s `render` applies train=False; the
+        module's mode is put back); images in fp32."""
+        with eval_mode(self):
+            images, zs = self(z, spatial_noise, render_all_stages=True)
         return images.float(), zs

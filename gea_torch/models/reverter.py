@@ -3,8 +3,9 @@
 R maps a generated image back to a code: the discriminator's conv trunk,
 then a dense head onto the code space (`fc1` -> activation -> `fc2`). The
 head's activation is the TPReLU kernel on a (B, hidden) input
-(`gea_torch.ops.tprelu.fused_tprelu`); with `norm=none` it is the
-LeakyReLU(0.2) of `gea`, written as a TPReLU with a = 0.2, b = 0. The
+(`gea_torch.ops.tprelu.fused_tprelu`); with `norm=none` or `batch` it is
+the LeakyReLU(0.2) of `gea`, written as a TPReLU with a = 0.2, b = 0 (the
+head has no batch norm; the trunk has, under `norm=batch`). The
 output is fp32. Module and parameter names are those of `TorchReverter` in
 `gea/interop/torch_port.py`.
 
@@ -29,7 +30,7 @@ import torch.nn as nn
 
 from gea_torch.config import ModelConfig, resolve_device
 from gea_torch.models.discriminator import DiscriminatorTrunk
-from gea_torch.ops.layers import Dense, norm_act
+from gea_torch.ops.layers import Dense, TPReLU
 
 
 class Reverter(nn.Module):
@@ -45,7 +46,7 @@ class Reverter(nn.Module):
         hidden = getattr(cfg, "r_hidden", 512)  # a model config has none
         self.trunk = DiscriminatorTrunk(cfg, use_kernels)
         self.fc1 = Dense(self.trunk.out_features, hidden, wn)
-        self.act = norm_act(cfg.norm, hidden, use_kernels)
+        self.act = TPReLU(hidden, learned=wn, use_kernels=use_kernels)
         self.fc2 = Dense(hidden, cfg.code_size, wn)
         self.to(dev)
 

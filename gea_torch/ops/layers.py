@@ -1,5 +1,5 @@
-"""Weight-normalised layers and the TPReLU activation (port of
-`gea/ops/layers.py`).
+"""Weight-normalised layers, the TPReLU activation and the batch-norm
+block (port of `gea/ops/layers.py`).
 
 Parameters live in fp32 and keep the `state_dict` names of the torch
 mirrors in `gea/interop/torch_port.py`: `weight_v`/`weight_g`/`bias` with
@@ -11,13 +11,25 @@ Activations between layers are NHWC tensors; the convolutions see them as
 NCHW views in `torch.channels_last` memory, so NHWC stays the physical
 layout and the TPReLU kernel sees rows of C contiguous channels. The
 convolutions and the dense head are library calls, as XLA computed them
-outside any Pallas kernel in `gea`.
+outside any Pallas kernel in `gea`; so are batch norm's reductions, which
+flax computed outside any kernel too.
+
+`BatchNormAct` (`--norm batch`) keeps running statistics, and runs in one
+of three modes, as `gea`'s `train`/`mutable` arguments choose them:
+
+* `module.train()`: batch statistics, and the running ones updated;
+* `module.train()` inside `frozen_stats(...)`: batch statistics, no update
+  (a pass whose new `batch_stats` `gea` drops);
+* `module.eval()`: the running statistics (`gea`'s `train=False`).
+
+`eval_mode(...)` puts modules into inference mode for a block and back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import torch
 import torch.nn as nn
@@ -133,8 +145,88 @@ class TPReLU(nn.Module):
         return op(x.contiguous(), self.a, self.b)
 
 
-def norm_act(norm: str, ch: int, use_kernels: bool = True) -> TPReLU:
-    """The activation after a conv for `--norm weight|none`."""
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch statistic
+BN_EPSILON = 1e-5
+
+
+class BatchNormAct(nn.Module):
+    """BatchNorm over every axis but the trailing (channel) one, then
+    LeakyReLU(0.2): `gea`'s `NormAct(norm="batch")`, flax's
+    `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` as flax 0.12 computes it.
+
+    The statistics are fp32 whatever the compute dtype: the mean and
+    E[x^2] - mean^2, clipped at 0 (the biased variance). The output is
+    (x - mean) * (scale * rsqrt(var + eps)) + bias in fp32, cast to the
+    input's dtype, then the LeakyReLU as the TPReLU kernel with a = 0.2,
+    b = 0 (its plain version with `use_kernels=False`). The running mean
+    and variance are persistent buffers (`mean` 0 and `var` 1 at first),
+    updated in place under no_grad, so a CUDA graph captures the update;
+    `torch.nn.BatchNorm2d` is not used, as it keeps the unbiased variance."""
+
+    def __init__(self, ch: int, use_kernels: bool = True):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+        self.register_buffer("mean", torch.zeros(ch))
+        self.register_buffer("var", torch.ones(ch))
+        self.act = TPReLU(ch, learned=False, use_kernels=use_kernels)
+        self.update_stats = True  # off inside `frozen_stats`
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x32.mean(dims)
+            var = (x32.square().mean(dims) - mean.square()).clamp_min(0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    self.mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
+                    self.var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)
+        else:
+            mean, var = self.mean, self.var
+        y = (x32 - mean) * (self.scale * torch.rsqrt(var + BN_EPSILON)) + self.bias
+        return self.act(y.to(x.dtype))
+
+
+def batch_norms(*modules) -> Iterator[BatchNormAct]:
+    for m in modules:
+        if m is not None:
+            yield from (b for b in m.modules() if isinstance(b, BatchNormAct))
+
+
+@contextlib.contextmanager
+def frozen_stats(*modules):
+    """Batch norm inside `modules` (None is skipped) normalises with batch
+    statistics in train mode but updates no running statistic."""
+    bns = list(batch_norms(*modules))
+    kept = [b.update_stats for b in bns]
+    for b in bns:
+        b.update_stats = False
+    try:
+        yield
+    finally:
+        for b, k in zip(bns, kept):
+            b.update_stats = k
+
+
+@contextlib.contextmanager
+def eval_mode(*modules):
+    """`modules` (None is skipped) in inference mode, each submodule's
+    mode put back afterwards."""
+    kept = [(m, m.training) for mod in modules if mod is not None for m in mod.modules()]
+    for mod in modules:
+        if mod is not None:
+            mod.eval()
+    try:
+        yield
+    finally:
+        for m, training in kept:
+            m.training = training
+
+
+def norm_act(norm: str, ch: int, use_kernels: bool = True) -> nn.Module:
+    """The block after a conv: `--norm weight` a learned TPReLU, `none`
+    LeakyReLU(0.2), `batch` BatchNorm then LeakyReLU(0.2)."""
     if norm == "batch":
-        raise NotImplementedError("norm=batch is not ported yet")
+        return BatchNormAct(ch, use_kernels)
     return TPReLU(ch, learned=norm == "weight", use_kernels=use_kernels)

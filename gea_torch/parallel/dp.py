@@ -11,7 +11,11 @@ points where `gea` `pmean`s:
   player that the player's `.grad`s are views of (`zero_grads`,
   `mean_grads`): nothing is copied, and the buffer keeps one address for a
   CUDA graph that captures the all-reduce;
-* one all-reduce of the step's stacked metrics (`mean_metrics`).
+* one all-reduce of the step's stacked metrics (`mean_metrics`);
+* under `norm=batch`, one all-reduce a player after the step of its
+  running statistics (`mean_stats`), which are views of one flat fp32
+  buffer too (`stats_buffer`); each rank normalises with its own batch
+  statistics, as each of `gea`'s devices does.
 
 Each is a SUM divided by the world size, as `pmean` is, so that gloo (the
 CPU) and NCCL (the card) do the same arithmetic. `DistributedDataParallel`
@@ -37,10 +41,12 @@ wait for the card.
 from __future__ import annotations
 
 import weakref
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
+
+from gea_torch.ops.layers import batch_norms
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -58,6 +64,8 @@ class DataParallel:
         # module -> (flat buffer, [(parameter, its view)]); a state that
         # is dropped takes its buffers with it.
         self._grads = weakref.WeakKeyDictionary()
+        # module -> (flat buffer or None, [(batch norm, buffer name, view)]).
+        self._stats = weakref.WeakKeyDictionary()
 
     @property
     def lead(self) -> bool:
@@ -99,6 +107,43 @@ class DataParallel:
         if self.size > 1:
             flat.div_(self.size)
 
+    def stats_buffer(self, module: torch.nn.Module) -> Optional[torch.Tensor]:
+        """The flat fp32 buffer whose views are the module's batch-norm
+        running statistics (made on the first call, with their values; the
+        buffers are re-registered as the views), or None without batch
+        norm. Made before a CUDA graph's capture (`replicate` makes it),
+        it keeps one address for the graph."""
+        if module not in self._stats:
+            owners = [(b, n) for b in batch_norms(module) for n in ("mean", "var")]
+            flat = None
+            views = []
+            if owners:
+                flat = torch.cat([getattr(b, n).detach().float().reshape(-1)
+                                  for b, n in owners])
+                at = 0
+                for b, n in owners:
+                    t = getattr(b, n)
+                    view = flat[at:at + t.numel()].view_as(t)
+                    b.register_buffer(n, view)
+                    views.append((b, n, view))
+                    at += t.numel()
+            self._stats[module] = (flat, views)
+        flat, views = self._stats[module]
+        if any(b._buffers[n] is not v for b, n, v in views):
+            raise RuntimeError("a running statistic is no longer a view of its flat buffer; "
+                               "the all-reduce would miss it")
+        return flat
+
+    def mean_stats(self, module: torch.nn.Module) -> None:
+        """The module's running statistics averaged over the ranks, in one
+        all-reduce (none without batch norm)."""
+        flat = self.stats_buffer(module)
+        if flat is None:
+            return
+        dist.all_reduce(flat)
+        if self.size > 1:
+            flat.div_(self.size)
+
     def mean_metrics(self, metrics: Metrics) -> Metrics:
         """The step's 0-d metrics averaged over the ranks, in one
         all-reduce."""
@@ -111,9 +156,12 @@ class DataParallel:
     def replicate(self, state) -> None:
         """Broadcast the lead's train state to every rank, in place: the
         trained modules' parameters and buffers, their Adam's state, the
-        EMA shadow, the generator's state and the step."""
+        EMA shadow, the generator's state and the step. Each trained
+        module's running statistics become views of its flat buffer first
+        (`stats_buffer`), before any capture."""
         for name, tag in state.PLAYERS:
             module = getattr(state, name)
+            self.stats_buffer(module)
             for t in [*module.parameters(), *module.buffers()]:
                 self._broadcast(t.data)
             opt = getattr(state, f"opt_{tag}")

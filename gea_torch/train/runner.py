@@ -39,9 +39,10 @@ import torch
 
 from gea_torch.data.hostpre import host_downsample_uint8, host_preprocess
 from gea_torch.data.ondevice import preprocess_batch, synthetic_batch
-from gea_torch.data.pipeline import device_crop_size, make_dataset
+from gea_torch.data.pipeline import backend_of, device_crop_size, make_dataset
 from gea_torch.config import dispatch_chunk, resolve_device
 from gea_torch.data.prefetch import device_prefetch
+from gea_torch.ops.layers import eval_mode
 from gea_torch.parallel import DataParallel, join, launcher_env, resolve_num_devices, spawn
 from gea_torch.utils.checkpoint import (
     best_record,
@@ -60,6 +61,11 @@ DATA_SEED_MIX = 0x5EED  # `gea`'s data key is PRNGKey(seed ^ 0x5EED)
 
 def is_lead(dp) -> bool:
     return dp is None or dp.lead
+
+
+def state_modules(state) -> list:
+    """Every model a train state holds (trained or frozen)."""
+    return [m for m in vars(state).values() if isinstance(m, torch.nn.Module)]
 
 
 def prepare_run(cfg, dp=None) -> str:
@@ -139,6 +145,10 @@ def input_iterator(cfg, device: torch.device, seed: int, start_step: int = 0,
 
         return device_cached_iterator(cfg, device, seed, start_step=start_step)
     ds = make_dataset(cfg, seed=seed)
+    if cfg.dataset == "folder" and is_lead(dp):
+        print(f"[gea_torch] data: {cfg.dataroot} decoded by {backend_of(ds)} "
+              f"(--data_backend {cfg.data_backend}"
+              f"{', --data_cache' if cfg.data_cache else ''})", flush=True)
     crop = device_crop_size(cfg)
     batches = ds.batches(start_step)
     if not cfg.on_device_pipeline:
@@ -231,6 +241,10 @@ class TrainLoop:
     meter's rates as `perf/<key>` into <run>/tb (and each FID as
     `train/fid`); where `torch.utils.tensorboard` cannot be loaded it says
     so and goes on.
+
+    `vis_fn` and `fid_fn` run with every model of the state in inference
+    mode (batch norm on its running statistics, which they leave as they
+    were; `gea` applies them with train=False), each mode put back after.
 
     `fid_fn(state) -> float` (`--fid_interval`) scores the current model at
     every crossed multiple of fid_interval and at niter: the loop appends
@@ -378,7 +392,8 @@ class TrainLoop:
 
     def _track_fid(self, step: int) -> Tuple[bool, bool]:
         """One evaluation: (saved as a new best, stop early)."""
-        fid = float(self.fid_fn(self.state))
+        with eval_mode(*state_modules(self.state)):
+            fid = float(self.fid_fn(self.state))
         is_best = fid < self._best_fid
         self._evals_since_best = 0 if is_best else self._evals_since_best + 1
         patience = getattr(self.cfg, "stop_patience", 0)
@@ -489,7 +504,8 @@ class TrainLoop:
                              if self.dp is not None else ""), flush=True)
 
             if crossed(cfg.vis_interval) and self.vis_fn is not None and self.lead:
-                self.vis_fn(self.state, it)
+                with eval_mode(*state_modules(self.state)):
+                    self.vis_fn(self.state, it)
                 self.plotter.plot(os.path.join(self.run_dir, "plots", "loss.png"))
 
             saved_for_best = stop_early = False

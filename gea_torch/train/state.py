@@ -130,11 +130,14 @@ def create_glis_state(
     seed: Optional[int] = None,
     device: str | torch.device = "cuda",
     use_kernels: bool = True,
+    g_stats=None,
+    d_stats=None,
 ) -> GLISTrainState:
     """G and D from `gea`-layout param trees (the port's own seeded
-    `init_*_params` where none is given), fresh Adam for both, and the
-    trainer's generator seeded with `seed` (cfg.seed by default). CUDA
-    unless the caller asks for the CPU."""
+    `init_*_params` where none is given) and, under `norm=batch`, their
+    `batch_stats` trees (initial running statistics where none is given),
+    fresh Adam for both, and the trainer's generator seeded with `seed`
+    (cfg.seed by default). CUDA unless the caller asks for the CPU."""
     dev = resolve_device(device)
     seed = cfg.seed if seed is None else seed
     if g_params is None:
@@ -142,9 +145,9 @@ def create_glis_state(
     if d_params is None:
         d_params = init_discriminator_params(cfg, seed + 1)
     g = GeneratorLIS(cfg, device=dev, use_kernels=use_kernels)
-    g.load_state_dict(generator_state_from_jax_params(g_params, cfg), strict=True)
+    g.load_state_dict(generator_state_from_jax_params(g_params, cfg, g_stats), strict=True)
     d = Discriminator(cfg, device=dev, use_kernels=use_kernels)
-    d.load_state_dict(discriminator_state_from_jax_params(d_params, cfg), strict=True)
+    d.load_state_dict(discriminator_state_from_jax_params(d_params, cfg, d_stats), strict=True)
     sched = (cfg.lr_schedule, cfg.niter, cfg.lr_final, chunked(cfg))
     opt_g, sched_g = make_optimizer(g.parameters(), cfg.lr, cfg.beta1, cfg.beta2, *sched)
     opt_d, sched_d = make_optimizer(d.parameters(), cfg.lr, cfg.beta1, cfg.beta2, *sched)
@@ -158,14 +161,15 @@ def create_glis_state(
 
 
 def _reverter(cfg: TrainRConfig, r_params, seed: int, dev: torch.device,
-              use_kernels: bool) -> Tuple[Reverter, torch.optim.Adam,
-                                          Optional[torch.optim.lr_scheduler.LambdaLR]]:
+              use_kernels: bool, r_stats=None) -> Tuple[
+                  Reverter, torch.optim.Adam, Optional[torch.optim.lr_scheduler.LambdaLR]]:
     """R from a `gea`-layout tree (seeded `init_reverter_params` where none
-    is given) and a fresh Adam with the config's schedule."""
+    is given; `r_stats` its batch_stats) and a fresh Adam with the config's
+    schedule."""
     if r_params is None:
         r_params = init_reverter_params(cfg, seed)
     r = Reverter(cfg, device=dev, use_kernels=use_kernels)
-    r.load_state_dict(reverter_state_from_jax_params(r_params, cfg), strict=True)
+    r.load_state_dict(reverter_state_from_jax_params(r_params, cfg, r_stats), strict=True)
     opt, sched = make_optimizer(r.parameters(), cfg.lr, cfg.beta1, cfg.beta2,
                                 cfg.lr_schedule, cfg.niter, cfg.lr_final, chunked(cfg))
     return r, opt, sched
@@ -193,7 +197,9 @@ class RSeparateTrainState:
 
 
 def freeze(module: Optional[torch.nn.Module]) -> None:
-    """Inference mode and no parameter gradients, in place."""
+    """Inference mode (batch norm on its running statistics, as `gea`
+    applies the frozen models with train=False) and no parameter
+    gradients, in place."""
     if module is not None:
         module.eval().requires_grad_(False)
 
@@ -206,6 +212,7 @@ def create_r_state(
     seed: Optional[int] = None,
     device: str | torch.device = "cuda",
     use_kernels: bool = True,
+    r_stats=None,
 ) -> RSeparateTrainState:
     """R-separate's state (`gea`'s `create_r_state`): R seeded with `seed`
     (cfg.seed by default), fresh Adam, the trainer's generator seeded with
@@ -213,7 +220,7 @@ def create_r_state(
     caller asks for the CPU."""
     dev = resolve_device(device)
     seed = cfg.seed if seed is None else seed
-    r, opt_r, sched_r = _reverter(cfg, r_params, seed, dev, use_kernels)
+    r, opt_r, sched_r = _reverter(cfg, r_params, seed, dev, use_kernels, r_stats)
     freeze(generator)
     freeze(discriminator)
     return RSeparateTrainState(
@@ -252,11 +259,13 @@ def generator_config(cfg: TrainRIterativeConfig) -> TrainRIterativeConfig:
 
 
 def add_reverter(state: GLISTrainState, cfg: TrainRConfig, r_params=None,
-                 seed: Optional[int] = None, use_kernels: bool = True) -> RIterativeTrainState:
+                 seed: Optional[int] = None, use_kernels: bool = True,
+                 r_stats=None) -> RIterativeTrainState:
     """`gea`'s `add_reverter`: a G/D state plus R, seeded with seed + 101,
     and its Adam."""
     seed = cfg.seed if seed is None else seed
-    r, opt_r, sched_r = _reverter(cfg, r_params, seed + 101, state.device, use_kernels)
+    r, opt_r, sched_r = _reverter(cfg, r_params, seed + 101, state.device, use_kernels,
+                                  r_stats)
     return RIterativeTrainState(
         generator=state.generator, discriminator=state.discriminator, reverter=r,
         opt_g=state.opt_g, opt_d=state.opt_d, opt_r=opt_r, sched_g=state.sched_g,
@@ -272,10 +281,13 @@ def create_r_iterative_state(
     seed: Optional[int] = None,
     device: str | torch.device = "cuda",
     use_kernels: bool = True,
+    g_stats=None,
+    d_stats=None,
+    r_stats=None,
 ) -> RIterativeTrainState:
     """R-iterative's state: G (r_iterations=0) and D as `create_glis_state`
-    makes them, then `add_reverter`. CUDA unless the caller asks for the
-    CPU."""
+    makes them, then `add_reverter` (`*_stats`: batch_stats trees under
+    `norm=batch`). CUDA unless the caller asks for the CPU."""
     glis = create_glis_state(generator_config(cfg), g_params, d_params, seed, device,
-                             use_kernels)
-    return add_reverter(glis, cfg, r_params, seed, use_kernels)
+                             use_kernels, g_stats, d_stats)
+    return add_reverter(glis, cfg, r_params, seed, use_kernels, r_stats)

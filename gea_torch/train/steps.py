@@ -12,6 +12,14 @@ then the EMA of G's parameters when `g_ema > 0`.
   step instead; `remat` recomputes G's forward in its backward
   (`torch.utils.checkpoint`).
 * D runs one forward over real and all fakes together.
+* `norm=batch` follows `gea`'s batch-norm path. G's forward is not shared
+  (None, the default, means shared unless batch norm): the first forward's
+  new running statistics are dropped (`frozen_stats`) and the G step's
+  forward keeps them, so G's move once a step. D runs separate forwards on
+  the real batch and on the flat fakes, each updating D's statistics, real
+  first; WGAN-GP's penalty and the G step's D pass normalise with batch
+  statistics and update nothing. A recompute under `remat` updates
+  nothing either.
 * The G loss is differentiated with respect to the images only
   (`autograd.grad`), so nothing accumulates into D's parameters, and the
   image gradient, cast to the images' dtype, is pulled back through G.
@@ -28,19 +36,23 @@ metrics as 0-d tensors on the device, so it never waits for the device.
 Data parallelism (`dp`, a `gea_torch.parallel.DataParallel`): the step
 runs on this rank's slab of the global batch, and D's gradients, G's and
 the metrics are averaged over the ranks where `gea` `pmean`s them, after
-each player's backward (and its microbatches' mean) and before its update.
+each player's backward (and its microbatches' mean) and before its update;
+each rank normalises with its own batch statistics, and the running
+statistics are averaged over the ranks after the step.
 Its own draws are this rank's rows of the global batch's
 (`DataParallel.rows`).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from gea_torch.config import TrainGLISConfig, stage_weights
+from gea_torch.ops.layers import frozen_stats
 from gea_torch.train import losses
 from gea_torch.train.state import GLISTrainState
 
@@ -48,15 +60,38 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def check_accum(cfg: TrainGLISConfig) -> int:
-    """K microbatches per update; `norm=batch` is refused, as in `gea`:
-    per-microbatch batch statistics would change its semantics."""
+    """K microbatches per update; `norm=batch` is refused with `gea`'s
+    error: per-microbatch batch statistics would change its semantics."""
     accum = max(1, int(cfg.grad_accum))
     if accum > 1 and cfg.norm == "batch":
         raise ValueError(
-            "grad_accum > 1 requires norm weight|none: batch statistics would "
-            "be computed per microbatch"
+            "--grad_accum > 1 requires --norm weight|none: batch "
+            "statistics would be computed per-microbatch, changing the "
+            "reference's full-batch BatchNorm semantics"
         )
     return accum
+
+
+def stats_once(fn: Callable, *modules) -> Callable:
+    """fn, whose calls after the first update no running statistic of
+    `modules`: a forward recomputed in the backward (`remat`) normalises
+    as the first did and must not move the statistics again."""
+    calls = []
+
+    def once(*args):
+        with frozen_stats(*modules) if calls else contextlib.nullcontext():
+            calls.append(None)
+            return fn(*args)
+
+    return once
+
+
+def mean_stats(dp, *modules) -> None:
+    """With `dp`, each module's running statistics averaged over the ranks
+    (`gea` pmeans its batch_stats after the step)."""
+    if dp is not None:
+        for m in modules:
+            dp.mean_stats(m)
 
 
 def _update(opt: torch.optim.Optimizer, sched) -> None:
@@ -145,7 +180,7 @@ def mean_metrics(metrics: Metrics, dp=None) -> Metrics:
 
 
 def build_glis_train_step(
-    cfg: TrainGLISConfig, share_g_forward: bool = True, dp=None
+    cfg: TrainGLISConfig, share_g_forward: Optional[bool] = None, dp=None
 ) -> Callable[..., Metrics]:
     """Returns step(state, real, z=None, spatial_noise=None, gp_eps=None)
     -> metrics. `real` (B, H, W, 3) in [-1, 1]; z (B, code); spatial_noise
@@ -159,6 +194,9 @@ def build_glis_train_step(
     use_gp = cfg.gan_loss == "wgan-gp"
     accum = check_accum(cfg)
     stage_w = device_weights(weights)
+    batch_norm = cfg.norm == "batch"
+    # `gea`: None = shared unless batch norm; batch norm never shares.
+    share = share_g_forward is not False and not batch_norm
 
     def draws(state: GLISTrainState, batch: int, z=None, sn=None, eps=None):
         """z, spatial noise and eps, each drawn where not given, in this
@@ -180,26 +218,35 @@ def build_glis_train_step(
             with torch.no_grad():
                 return g(z, sn)[0]
         if cfg.remat:
-            return checkpoint(lambda z_, sn_: g(z_, sn_)[0], z, sn, use_reentrant=False,
+            return checkpoint(stats_once(lambda z_, sn_: g(z_, sn_)[0], g), z, sn,
+                              use_reentrant=False,
                               preserve_rng_state=False)  # G's forward draws nothing
         return g(z, sn)[0]
 
     def d_loss(d, real, fakes, eps, w):
         batch = real.shape[0]
         flat = fakes.reshape(-1, *fakes.shape[2:])
-        logits = d(torch.cat([real.to(flat.dtype), flat]))
-        logits_real = logits[:batch]
-        logits_fake = logits[batch:].reshape(n_stages, batch)
+        if batch_norm:
+            # Separate forwards keep each population's batch statistics.
+            logits_real = d(real)
+            logits_fake = d(flat)
+        else:
+            logits = d(torch.cat([real.to(flat.dtype), flat]))
+            logits_real, logits_fake = logits[:batch], logits[batch:]
+        logits_fake = logits_fake.reshape(n_stages, batch)
         loss = d_real_fn(logits_real) + losses.staged_apply(d_fake_fn, logits_fake, w)
         if use_gp:
-            loss = loss + cfg.gp_weight * losses.gradient_penalty(d, real, fakes[-1], eps)
+            with frozen_stats(d):
+                gp = losses.gradient_penalty(d, real, fakes[-1], eps)
+            loss = loss + cfg.gp_weight * gp
         return loss, logits_real, logits_fake
 
     def g_backward(d, images, w) -> torch.Tensor:
         """The G loss against D, and its gradient pulled back through the
         graph of `images` into G's parameters."""
         leaf = images.detach().requires_grad_(True)
-        logits = d(leaf.reshape(-1, *leaf.shape[2:])).reshape(n_stages, leaf.shape[1])
+        with frozen_stats(d):
+            logits = d(leaf.reshape(-1, *leaf.shape[2:])).reshape(n_stages, leaf.shape[1])
         loss = losses.staged_apply(g_fn, logits, w)
         (d_images,) = torch.autograd.grad(loss, leaf)
         images.backward(d_images.to(images.dtype))
@@ -217,7 +264,8 @@ def build_glis_train_step(
         real, z, sn, eps = inputs(state, real, z, spatial_noise, gp_eps)
         w = stage_w(real.device)
 
-        fakes_live = g_images(g, z, sn, grad=share_g_forward)
+        with contextlib.nullcontext() if share else frozen_stats(g):
+            fakes_live = g_images(g, z, sn, grad=share)
         zero_grads(state.opt_d, d, dp)
         loss_d, logits_real, logits_fake = d_loss(d, real, fakes_live.detach(), eps, w)
         loss_d.backward()
@@ -225,11 +273,12 @@ def build_glis_train_step(
         _update(state.opt_d, state.sched_d)
 
         zero_grads(state.opt_g, g, dp)
-        if not share_g_forward:
+        if not share:
             fakes_live = g_images(g, z, sn, grad=True)
         loss_g = g_backward(d, fakes_live, w)
         mean_grads(g, 1, dp)
         _update(state.opt_g, state.sched_g)
+        mean_stats(dp, g, d)
         finish(state)
         return mean_metrics({
             "loss_d": loss_d.detach(),

@@ -29,16 +29,25 @@ for the full batch) into K microbatches and divides the summed gradients
 by K; R-separate's frozen renders and mining weights stay full-batch.
 `remat` recomputes, in the backward, R-separate's corrected render and its
 scoring, and each of R-iterative's chain links and its first render
-(`torch.utils.checkpoint`). z and spatial noise are inputs of the step;
+(`torch.utils.checkpoint`); a recompute updates no running statistic. z and spatial noise are inputs of the step;
 where the caller gives none, the step draws them from the state's
 `torch.Generator` on the device. The step updates the state in place and
 returns its metrics as 0-d tensors on the device.
+
+`norm=batch` follows `gea`. R-separate's frozen G and D run on their
+running statistics (inference mode, `state.freeze`); R normalises with
+batch statistics and updates its running ones once a step. R-iterative's
+D-step unroll updates nothing; D takes the real batch, then the flat chain
+renders, each forward updating its statistics; the G/R unroll threads G's
+statistics through all 1 + T renders and R's through the T links; the G/R
+loss's D pass updates nothing (`frozen_stats`).
 
 With `dp` (data parallelism, as in `gea_torch.train.steps`) each rank
 trains on its slab of the global batch (R-separate: its rows of the global
 draws, and the mining weights normalised over its own slab, as `gea`'s
 shard is), and each trained player's gradients and the metrics are
-averaged over the ranks before the updates.
+averaged over the ranks before the updates, and the trained players'
+running statistics after the step.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from gea_torch.config import TrainRIterativeConfig, TrainRSeparateConfig
+from gea_torch.ops.layers import frozen_stats
 from gea_torch.train import losses
 from gea_torch.train.state import RIterativeTrainState, RSeparateTrainState
 from gea_torch.train.steps import (
@@ -60,17 +70,22 @@ from gea_torch.train.steps import (
     local_batch,
     mean_grads,
     mean_metrics,
+    mean_stats,
     microbatches,
+    stats_once,
     to_device,
     zero_grads,
 )
 
 
-def _remat(fn: Callable) -> Callable:
-    """fn, with its forward recomputed in the backward. The segments draw
-    no random numbers, so no RNG state is kept for the recompute (nor read
-    from the generator inside a CUDA graph's capture)."""
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+def _remat(fn: Callable, *modules) -> Callable:
+    """fn, with its forward recomputed in the backward, where the running
+    statistics of `modules` stay as the first call left them. The
+    segments draw no random numbers, so no RNG state is kept for the
+    recompute (nor read from the generator inside a CUDA graph's
+    capture)."""
+    return lambda *args: checkpoint(stats_once(fn, *modules), *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def build_r_separate_step(cfg: TrainRSeparateConfig, dp=None) -> Callable[..., Metrics]:
@@ -126,6 +141,7 @@ def build_r_separate_step(cfg: TrainRSeparateConfig, dp=None) -> Callable[..., M
             sums += torch.stack([loss.detach(), loss_mse.detach(), loss_adv.detach(), norm])
         mean_grads(r, accum, dp)
         _update(state.opt_r, state.sched_r)
+        mean_stats(dp, r)
         state.step += 1
         sums = sums / accum
         return mean_metrics({"loss_r": sums[0], "loss_r_mse": sums[1], "loss_r_adv": sums[2],
@@ -171,7 +187,7 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
 
         first, next_link = render, link
         if cfg.remat and torch.is_grad_enabled():
-            first, next_link = _remat(render), _remat(link)
+            first, next_link = _remat(render, g), _remat(link, g, r)
         zs, imgs = [z0], [first(z0)]
         for _ in range(cfg.r_chain_length):
             z_next, img_next = next_link(zs[-1], imgs[-1])
@@ -191,7 +207,7 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
         zero_grads(state.opt_d, d, dp)
         loss_d = d_real = 0.0
         for real_mb, z_mb, sn_mb in mbs:
-            with torch.no_grad():
+            with torch.no_grad(), frozen_stats(g, r):
                 fakes, _ = unroll(g, r, z_mb, sn_mb)
             logits_real = d(real_mb)
             logits_fake = d(fakes.reshape(-1, *fakes.shape[2:])).reshape(n_links, -1)
@@ -210,7 +226,8 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
         loss_g = loss_sim = 0.0
         for _, z_mb, sn_mb in mbs:
             images, zs = unroll(g, r, z_mb, sn_mb)
-            logits = d(images.reshape(-1, *images.shape[2:])).reshape(n_links, -1)
+            with frozen_stats(d):
+                logits = d(images.reshape(-1, *images.shape[2:])).reshape(n_links, -1)
             adv = losses.staged_loss(logits, weights, 1.0)
             sim = losses.z_similarity_loss(zs[1:] - zs[:-1])
             (adv + cfg.lambda_r * sim).backward(inputs=trained)
@@ -220,6 +237,7 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
         mean_grads(r, accum, dp)
         _update(state.opt_g, state.sched_g)
         _update(state.opt_r, state.sched_r)
+        mean_stats(dp, g, d, r)
         state.step += 1
         return mean_metrics({"loss_d": loss_d / accum, "loss_g": loss_g / accum,
                              "loss_r_sim": loss_sim / accum, "d_real": d_real / accum}, dp)

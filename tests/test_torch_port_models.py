@@ -180,10 +180,24 @@ def test_init_params_have_flax_tree(spatial_code):
 
 
 def test_norm_batch_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        GeneratorLIS(small_cfg(norm="batch"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Discriminator(small_cfg(norm="batch"), device="cpu")
+    """The name predates the port of `norm=batch`: G and D now build with
+    batch norm (no longer raising), G's seed off the fused kernel as in
+    `gea`, and load the interop's batch-norm state_dicts strictly."""
+    from gea_torch.interop import (
+        discriminator_state_from_jax_params,
+        generator_state_from_jax_params,
+    )
+    from gea_torch.ops.layers import BatchNormAct, batch_norms
+
+    cfg = small_cfg(norm="batch")
+    g = GeneratorLIS(cfg, device="cpu")
+    d = Discriminator(cfg, device="cpu")
+    assert not g.seed_kernel and isinstance(g.project_act, BatchNormAct)
+    assert len(list(batch_norms(g))) == g.d and len(list(batch_norms(d))) == g.d - 1
+    g.load_state_dict(generator_state_from_jax_params(init_generator_params(cfg, 0), cfg),
+                      strict=True)
+    d.load_state_dict(discriminator_state_from_jax_params(init_discriminator_params(cfg, 0),
+                                                          cfg), strict=True)
 
 
 def test_default_device_needs_cuda(monkeypatch):

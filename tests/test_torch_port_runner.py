@@ -321,8 +321,7 @@ def test_restore_refuses_another_schedule(tmp_path):
 
 REFUSED = [
     ["--model_shards", "2"], ["--tp_min_width", "8"],
-    ["--use_pallas"], ["--data_backend", "native"],
-    ["--data_backend", "grain"], ["--lsun_classes", "tower"], ["--norm", "batch"],
+    ["--use_pallas"], ["--data_backend", "grain"], ["--lsun_classes", "tower"],
     ["--dataset", "lsun"],
 ]
 

@@ -346,8 +346,10 @@ def test_threshold_on_a_non_bce_run_warns(runs, tmp_path, capsys):
 def test_sample_refuses(runs):
     with pytest.raises(SystemExit, match="--load_path is required"):
         sample.main(["--device", "cpu"])
-    with pytest.raises(SystemExit, match="norm batch"):
-        sample.main(["--load_path", runs["glis"][1], "--device", "cpu", "--norm", "batch"])
+    # --norm batch is ported: the sampler's config no longer refuses it.
+    from gea_torch.config import SampleConfig, refuse_unported
+
+    refuse_unported(SampleConfig(norm="batch"))
 
 
 def test_read_run_points_gea_runs_to_the_converter(runs):

@@ -27,16 +27,22 @@ from gea_torch.train import (
 from gea_torch.train import runner
 
 
-def port_state(trainer: str, cfg, init, dp=None, share_g_forward: bool = True):
-    """(state, step) of `trainer` on the CPU from `gea`-layout params."""
+def port_state(trainer: str, cfg, init, dp=None, share_g_forward: bool = True, stats=None):
+    """(state, step) of `trainer` on the CPU from `gea`-layout params (and,
+    under `norm=batch`, `stats`: the batch_stats trees by player tag)."""
+    stats = stats or {}
     if trainer == "glis":
-        return (create_glis_state(cfg, *init, device="cpu"),
+        return (create_glis_state(cfg, *init, device="cpu", g_stats=stats.get("g"),
+                                  d_stats=stats.get("d")),
                 build_glis_train_step(cfg, share_g_forward, dp=dp))
     if trainer == "r_separate":
-        g = generator_from_jax_params(init[0], cfg, device="cpu")
-        d = discriminator_from_jax_params(init[1], cfg, device="cpu")
-        return create_r_state(cfg, g, d, init[2], device="cpu"), build_r_separate_step(cfg, dp)
-    return (create_r_iterative_state(cfg, init["g"], init["d"], init["r"], device="cpu"),
+        g = generator_from_jax_params(init[0], cfg, device="cpu", batch_stats=stats.get("g"))
+        d = discriminator_from_jax_params(init[1], cfg, device="cpu",
+                                          batch_stats=stats.get("d"))
+        return (create_r_state(cfg, g, d, init[2], device="cpu", r_stats=stats.get("r")),
+                build_r_separate_step(cfg, dp))
+    return (create_r_iterative_state(cfg, init["g"], init["d"], init["r"], device="cpu",
+                                     **{f"{k}_stats": v for k, v in stats.items()}),
             build_r_iterative_step(cfg, dp))
 
 
@@ -52,24 +58,33 @@ def snapshot(state, metrics) -> dict:
     return out
 
 
-def run_steps(state, step, reals, draws, bias=None) -> list:
+def run_steps(state, step, reals, draws, bias=None, sync=None) -> list:
     """One snapshot after each step, fed `draws` (one noise dict a step)
     and `reals`; with `bias`, D's head bias takes those values after each
-    step (`test_torch_port_train.py` says why)."""
+    step (`test_torch_port_train.py` says why); with `sync`, the named
+    parameters of each trained module (by tag) take the step's values
+    (`test_torch_port_batchnorm_steps.py` says why)."""
+    modules = {tag: getattr(state, name) for name, tag in state.PLAYERS}
     out = []
     for i, (real, drawn) in enumerate(zip(reals, draws)):
         noise = {k: None if v is None else torch.from_numpy(v) for k, v in drawn.items()}
         out.append(snapshot(state, step(state, real, **noise)))
-        if bias is not None:
-            with torch.no_grad():
+        with torch.no_grad():
+            if bias is not None:
                 state.discriminator.head.bias.copy_(torch.from_numpy(bias[i]))
+            for tag, values in (sync[i] if sync else {}).items():
+                params = dict(modules[tag].named_parameters())
+                for k, v in values.items():
+                    params[k].copy_(torch.from_numpy(v))
     return out
 
 
 def rank_max_spread(state) -> float:
-    """The largest difference between the ranks' trained parameters."""
-    flat = torch.cat([p.detach().reshape(-1) for name, _ in state.PLAYERS
-                      for p in getattr(state, name).parameters()])
+    """The largest difference between the ranks' trained parameters and
+    buffers (batch norm's running statistics among them)."""
+    flat = torch.cat([t.detach().reshape(-1).float() for name, _ in state.PLAYERS
+                      for t in [*getattr(state, name).parameters(),
+                                *getattr(state, name).buffers()]])
     every = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
     dist.all_gather(every, flat)
     return max((t - every[0]).abs().max().item() for t in every)
@@ -82,10 +97,11 @@ def parity(device, cases: dict) -> dict:
     dp = DataParallel(device)
     out = {}
     for name, case in cases.items():
-        state, step = port_state(case["trainer"], case["cfg"], case["init"], dp)
+        state, step = port_state(case["trainer"], case["cfg"], case["init"], dp,
+                                 stats=case.get("stats"))
         reals = [None if r is None else dp.rows(torch.from_numpy(r)) for r in case["reals"]]
         draws = [per_rank[dp.rank] for per_rank in case["draws"]]
-        snaps = run_steps(state, step, reals, draws, case.get("bias"))
+        snaps = run_steps(state, step, reals, draws, case.get("bias"), case.get("sync"))
         out[name] = {"steps": snaps, "spread": rank_max_spread(state)}
     return out
 
