@@ -219,7 +219,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    `export_model --with_scores 1` artifact against the live eval-mode G
    and D (images bit for bit, equal launches), and one evaluation leaving
    the running statistics bit for bit and every module's mode as it was
-   ([batch] lines, one {"batch_norm": ...} JSON line).
+   ([batch] lines, one {"batch_norm": ...} JSON line);
+18. tensor parallelism, LSUN and grain: (a) the flagship G-LIS step (bf16,
+   BCE, batch 64, --g_ema 0.999) with --model_shards 2 on two spawned
+   ranks, data 1 x model 2, both on cuda:0 in a gloo group (NCCL refuses
+   two ranks on one card; where gloo refuses CUDA tensors the collectives
+   are staged through host copies, and the phase says so): each rank's
+   launches a step equal phase 7's (`launches_tp`), its bytes of
+   parameters, EMA and Adam against the single process's, wall and
+   device ms a step (two processes sharing one card: not a speed), and 2
+   fp32 steps under deterministic algorithms against 2 single-process
+   steps (phase 16's gates); (b) `train_glis --model_shards 2` on the one
+   card raises `gea`'s "needs multiple devices" SystemExit; (c) phase 12's
+   demo JPEGs as two LSUN class folders, `train_glis --dataset lsun
+   --lsun_classes tower,church_outdoor` for 10 steps with exact launches,
+   and an LMDB-only class raising `gea`'s lmdb message where lmdb is
+   missing; (d) whether grain imports: if it does, `train_glis
+   --data_backend grain` for 10 steps and its first epoch equal to the
+   PIL stream's as a multiset; if not, `--data_backend grain` raises ([tp]
+   lines, one {"tensor_parallel": ...} JSON line).
 
 Phases 3-5 also hold each kernel against its plain version (forward and
 gradients) at the shapes only the R trainers give it: TPReLU on R's head,
@@ -233,6 +251,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -246,6 +265,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gea_torch import FLAGSHIP, ops, serve, serve_http
 from gea_torch.cli import (
@@ -286,6 +306,7 @@ from gea_torch.interop import (
 from gea_torch.ops import build
 from gea_torch.parallel import DataParallel, join
 from gea_torch.parallel.mesh import Launch, free_port
+from gea_torch.parallel.tp import Collectives, TensorParallel, resident_bytes
 from gea_torch.serve import ServingModel
 from gea_torch.train import (
     build_glis_train_step,
@@ -3987,6 +4008,409 @@ def batch_norm_phase(tmp: str, folder: str, kernel_rows: dict, smi: str) -> dict
     return out
 
 
+# ------------------------------- phase 18: tensor parallelism, LSUN, grain
+
+TP_SHARDS, TP_TIMED, TP_TIMEOUT_S = 2, 5, 300
+TP_STEPS = 10  # the LSUN and grain CLI runs
+TP_CONFIG = ("G-LIS-3 80x80, code 256, weight norm, nf 64 / cap 512, bf16, BCE, batch 64, "
+             "--g_ema 0.999, --model_shards 2, tp_min_width 64")
+GRAIN_IMAGES = 320  # 5 batches of 64: one epoch of either stream
+
+
+def tp_config(**kw) -> TrainGLISConfig:
+    return TrainGLISConfig.from_args(TRAINER_ARGS).replace(
+        g_ema=0.999, model_shards=TP_SHARDS, **kw)
+
+
+def gloo_carries_cuda() -> bool:
+    """Whether this torch's gloo all-reduces and all-gathers CUDA tensors
+    (every rank tries; both must agree)."""
+    try:
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        out = torch.empty(TP_SHARDS, 4, device="cuda")
+        dist.all_gather(list(out.unbind(0)), t)
+        return bool((out == TP_SHARDS).all())
+    except RuntimeError as e:
+        print(f"[tp] gloo refuses CUDA tensors here ({e}); the phase stages them through "
+              "host copies", flush=True)
+        return False
+
+
+class HostStaged(Collectives):
+    """TP's collectives with each CUDA tensor copied to the host and back
+    around the gloo call: what the phase hands a TensorParallel where gloo
+    refuses CUDA tensors."""
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        h = t.cpu()
+        super().all_reduce(h)
+        t.copy_(h)
+
+    def all_gather(self, out: torch.Tensor, t: torch.Tensor) -> None:
+        h = torch.empty(out.shape, dtype=out.dtype)
+        super().all_gather(h, t.cpu())
+        out.copy_(h)
+
+
+# Where the models call each kernel's wrapper (module, name): the names a
+# recording swaps for a spy that keeps the inputs and calls the wrapper.
+KERNEL_SITES = (("gea_torch.models.generator", "lis_residual_mlp"),
+                ("gea_torch.models.generator", "fused_seed"),
+                ("gea_torch.ops.layers", "fused_tprelu"))
+
+
+@contextlib.contextmanager
+def recorded_inputs(store: dict):
+    """Within: the first call's inputs at each (kernel, shape, dtype) the
+    models give a kernel, detached copies, into `store`; the calls still
+    launch the kernels."""
+    saved = []
+    for module, name in KERNEL_SITES:
+        mod = importlib.import_module(module)
+        fn = getattr(mod, name)
+
+        def spy(*args, _fn=fn, _name=name):
+            key = (_name, tuple(args[0].shape), args[0].dtype)
+            if key not in store:
+                store[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a
+                                   for a in args)
+            return _fn(*args)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, spy)
+    try:
+        yield store
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_recorded(store: dict, rows: int, tag: str) -> dict:
+    """Each recorded kernel input against the kernel's plain version at
+    check_kernels' TOL; every kernel must have been recorded, LIS and the
+    seed at this rank's `rows` (the seed on the S stages' stacked rows)."""
+    got = {name for name, _, _ in store}
+    if got != set(KERNEL):
+        raise AssertionError(f"{tag}: recorded {sorted(got)}, not every kernel of the step")
+    out = {}
+    with torch.no_grad():
+        for (name, shape, dt), args in sorted(store.items(), key=str):
+            if name != "fused_tprelu" and shape[0] % rows:
+                raise AssertionError(f"{tag}: {name} at {shape}, not this rank's {rows} rows")
+            label = f"{tag} {name} {shape}"
+            out[f"{name} {shape} {str(dt)[6:]}"] = compare(
+                name, label, dt, KERNEL[name](*args), PLAIN[name](*args))
+    return out
+
+
+def single_memory(cfg, params, real) -> dict:
+    """A single process's train state on this card: `resident_bytes`, and
+    the allocator's bytes kept after two steps and at their peak, each over
+    what was allocated before the state was made."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = create_glis_state(cfg, *params)
+    step = build_glis_train_step(cfg)
+    step(state, real)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, real)
+    torch.cuda.synchronize()
+    out = {"resident": resident_bytes(state), "allocated": torch.cuda.memory_allocated() - base,
+           "peak": torch.cuda.max_memory_allocated() - base}
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_fp32(tp) -> dict:
+    """2 fp32 steps of the TP step against 2 single-process steps on the
+    same card from the same params and draws, under deterministic
+    algorithms: phase 16's gates (metrics within CHUNK_METRICS_TOL, at most
+    CHUNK_TOL of each parameter's and EMA tensor's elements more than
+    lr / 5 and (1 - g_ema) lr / 5 apart). The lead alone runs the single
+    process and compares."""
+    cfg = tp_config(dtype="float32")
+    params, real = dp_params(cfg), real_batch(cfg)
+    with deterministic():
+        if tp.lead:
+            single = create_glis_state(cfg, *params)
+            step = build_glis_train_step(cfg)
+            m_single = [{k: v.item() for k, v in step(single, real).items()} for _ in range(2)]
+        state = create_glis_state(cfg, *params)
+        step = build_glis_train_step(cfg, dp=tp)
+        tp.replicate(state)
+        with recorded_inputs({}) as inputs:
+            m_tp = [{k: v.item() for k, v in step(state, tp.rows(real)).items()}
+                    for _ in range(2)]
+        view = tp.full_view(state)
+    kernels = check_recorded(inputs, tp.local, f"rank {tp.rank} fp32")
+    if not tp.lead:
+        return {"kernels": kernels}
+    limits = {n: (p, cfg.lr / 5) for n, p in named_params(single).items()}
+    limits.update({f"g_ema.{n}": (t, (1 - cfg.g_ema) * cfg.lr / 5)
+                   for n, t in single.g_ema.items()})
+    got = {**named_params(state), **{f"g_ema.{n}": t for n, t in view.g_ema.items()}}
+    share = max(((got[n] - t).abs() > limit).float().mean().item()
+                for n, (t, limit) in limits.items())
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-2) for a, b in zip(m_tp, m_single) for k in b)
+    out = {"metrics_rel": rel, "params_apart_share": share, "tp": m_tp, "single": m_single,
+           "kernels": kernels}
+    print(f"[tp] 18(a) fp32, deterministic: 2 TP steps (world 2, one card) vs 2 single-process "
+          f"steps: metrics rel {rel:.3e} (tol {CHUNK_METRICS_TOL}), largest share of a "
+          f"tensor's elements apart {share:.6f} (tol {CHUNK_TOL})", flush=True)
+    if rel > CHUNK_METRICS_TOL or share > CHUNK_TOL:
+        raise AssertionError(f"the fp32 TP step disagrees with the single process: {out}")
+    return out
+
+
+def tp_rank_body(rank: int) -> dict:
+    dev = torch.device("cuda", 0)
+    carries = gloo_carries_cuda()
+    cfg = tp_config()
+    params, real = dp_params(cfg), real_batch(cfg)
+    single = single_memory(cfg, params, real)
+    tp = TensorParallel(dev, TP_SHARDS, cfg.batch_size, 1, cfg.tp_min_width)
+    if not carries:
+        tp.comm = HostStaged(tp.comm.model_group)
+    rows = tp.rows(real)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = create_glis_state(cfg, *params)
+    step = build_glis_train_step(cfg, dp=tp)
+    tp.replicate(state)
+    with recorded_inputs({}) as inputs:
+        step(state, rows)  # warm-up: Adam's lazy state, the kernels' first calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step(state, rows)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    memory = {"resident": resident_bytes(state), "allocated": torch.cuda.memory_allocated() - base,
+              "peak": torch.cuda.max_memory_allocated() - base}
+    want = glis_launches(cfg)[0]
+    kernels = check_recorded(inputs, tp.local, f"rank {rank} bf16")
+    busy, wall, prof = profiled(lambda: step(state, rows), TP_TIMED)
+    del state
+    torch.cuda.empty_cache()
+    fp32 = tp_fp32(tp)
+    every = [None] * TP_SHARDS
+    dist.all_gather_object(every, {
+        "rank": rank, "launches": counts, "memory": memory, "single": single,
+        "kernels": {"bf16": kernels, "fp32": fp32.pop("kernels")},
+        "busy_ms": busy / TP_TIMED, "wall_ms": wall / TP_TIMED})
+    if any(e["launches"] != want for e in every):
+        raise AssertionError(f"TP launches a step {[e['launches'] for e in every]} != {want}")
+    for e in every:
+        got, whole = sum(e["memory"]["resident"].values()), sum(e["single"]["resident"].values())
+        if not got < whole:
+            raise AssertionError(f"rank {e['rank']} keeps {got} bytes of state, the single "
+                                 f"process {whole}")
+    return {"gloo_carries_cuda": carries, "ranks": every, "want": want, "fp32": fp32,
+            "top_kernels": [(n, ms / TP_TIMED) for n, ms, _ in prof[:8]]}
+
+
+def tp_rank(rank: int, port: int, results) -> None:
+    """One of phase 18(a)'s two ranks: both on cuda:0, in a gloo group
+    (NCCL refuses two ranks on one card)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP_SHARDS, rank=rank)
+    try:
+        out = tp_rank_body(rank)
+        if rank == 0:
+            results.put(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_step(kernel_rows: dict, smi: str) -> dict:
+    """18(a): the TP step at data 1 x model 2 on the one card (two spawned
+    processes); each rank's launches a step (`launches_tp`), state bytes
+    against the single process's, wall and busy, and the fp32 gates."""
+    import torch.multiprocessing as mp
+
+    results = mp.get_context("spawn").SimpleQueue()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tp_rank, nprocs=TP_SHARDS, join=False, start_method="spawn",
+                             args=(free_port(), results))
+    got = None
+    try:
+        while not ctx.join(timeout=0.5):
+            if got is None and not results.empty():
+                got = results.get()
+            if time.perf_counter() - t0 > TP_TIMEOUT_S:
+                raise TimeoutError(f"phase 18(a)'s ranks did not end within {TP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    out = json.loads(results.get() if got is None else got)
+    out["seconds"] = time.perf_counter() - t0
+    for name, c in out["ranks"][0]["launches"].items():
+        kernel_rows[name]["launches_tp"] = c
+    mib = lambda n: f"{n / 2**20:.1f} MiB"  # noqa: E731
+    for r in out["ranks"]:
+        mem, one = r["memory"], r["single"]
+        print(f"[tp] 18(a) {TP_CONFIG}, gloo{'' if out['gloo_carries_cuda'] else ' via host'}: "
+              f"rank {r['rank']} launches a step {r['launches']} (phase 7's {out['want']}); "
+              f"state kept {mem['resident']} = {mib(sum(mem['resident'].values()))} against "
+              f"the single process's {one['resident']} = "
+              f"{mib(sum(one['resident'].values()))}; allocated after a step "
+              f"{mib(mem['allocated'])} (single {mib(one['allocated'])}), peak over a step "
+              f"{mib(mem['peak'])} (single {mib(one['peak'])}); a step {r['wall_ms']:.3f} ms "
+              f"wall, {r['busy_ms']:.3f} ms of this process's device time (two processes "
+              f"sharing one card: not a TP speed); {smi}", flush=True)
+        for dt, errs in r["kernels"].items():
+            print(f"[tp] 18(a) rank {r['rank']} {dt}: the kernels on this rank's own inputs "
+                  f"vs plain (check_kernels' TOL), max|err| {errs}", flush=True)
+    print(f"[tp] 18(a) rank 0's top device kernels a step {out['top_kernels']}", flush=True)
+    return out
+
+
+def tp_refusal(tmp: str) -> dict:
+    """18(b): --model_shards 2 on one visible card raises `gea`'s
+    SystemExit before anything runs."""
+    want = f"--model_shards {TP_SHARDS} needs multiple devices (1 visible)"
+    try:
+        run_cli(TRAINER_ARGS + ["--model_shards", str(TP_SHARDS), "--niter", "1",
+                                "--save_path", os.path.join(tmp, "tp_refused")])
+    except SystemExit as e:
+        if str(e) != want:
+            raise AssertionError(f"--model_shards {TP_SHARDS}: {e!r}, not {want!r}") from e
+        print(f"[tp] 18(b) train_glis --model_shards {TP_SHARDS} on {torch.cuda.device_count()} "
+              f"card: SystemExit {str(e)!r}", flush=True)
+        return {"message": str(e)}
+    raise AssertionError(f"--model_shards {TP_SHARDS} ran on one card")
+
+
+def linked_folder(root: str, paths: list) -> str:
+    os.makedirs(root, exist_ok=True)
+    for p in paths:
+        os.symlink(p, os.path.join(root, os.path.basename(p)))
+    return root
+
+
+def folder_run(tag: str, label: str, args: list, run: str) -> dict:
+    """TP_STEPS steps of train_glis on a folder dataset with exact
+    launches (the steps' and one render's)."""
+    cfg = TrainGLISConfig.from_args(TRAINER_ARGS)
+    per_step, per_render = glis_launches(cfg)
+    _, stats, text, counts = counted_run(
+        "tp", label, train_glis, TRAINER_ARGS + args + [
+            "--synthetic_on_device", "false", "--niter", str(TP_STEPS), "--vis_interval",
+            str(TP_STEPS), "--save_interval", str(TP_STEPS), "--save_path", run],
+        launches(per_step, TP_STEPS, per_render, 1))
+    chose = [ln for ln in text.splitlines() if "decoded by" in ln]
+    if (not chose or not all(np.isfinite(v) for v in stats["metrics"].values())
+            or not os.path.isfile(os.path.join(run, "checkpoints", str(TP_STEPS), "state.pt"))):
+        raise AssertionError(f"{label}: {stats['metrics']}, {chose}")
+    return {**cli_summary(stats, counts), "decoded_by": chose[0].split("decoded by ")[1]}
+
+
+def lsun_phase(tmp: str, folder: str, smi: str) -> dict:
+    """18(c): the demo JPEGs as two LSUN class folders, train_glis
+    --dataset lsun --lsun_classes on both; an LMDB-only class raises
+    `gea`'s lmdb message where lmdb is missing."""
+    from gea_torch.data.lsun import resolve_lsun_root
+
+    paths = list_images(folder)
+    root = os.path.join(tmp, "lsun")
+    half = len(paths) // 2
+    linked_folder(os.path.join(root, "tower"), paths[:half])
+    linked_folder(os.path.join(root, "church_outdoor"), paths[half:])
+    out = folder_run("tp", f"train_glis --dataset lsun --lsun_classes tower,church_outdoor "
+                     f"({len(paths)} demo JPEGs), {TP_STEPS} steps and 1 render",
+                     ["--dataset", "lsun", "--dataroot", root, "--lsun_classes",
+                      "tower,church_outdoor"], os.path.join(tmp, "tp_lsun"))
+    os.makedirs(os.path.join(root, "bedroom_train_lmdb"))
+    open(os.path.join(root, "bedroom_train_lmdb", "data.mdb"), "wb").close()
+    have_lmdb = importlib.util.find_spec("lmdb") is not None
+    try:
+        resolve_lsun_root(TrainGLISConfig(dataset="lsun", dataroot=root,
+                                          lsun_classes="bedroom"))
+    except Exception as e:  # noqa: BLE001 -- which error, is the check
+        out["lmdb_only"] = f"{type(e).__name__}: {e}"
+        if not have_lmdb and not (isinstance(e, RuntimeError)
+                                  and "needs the 'lmdb' package" in str(e)):
+            raise AssertionError(f"the LMDB-only class without lmdb: {e!r}") from e
+    else:
+        raise AssertionError("an empty LMDB-only class resolved")
+    if os.path.exists(os.path.join(root, "bedroom_train_images", ".complete")):
+        raise AssertionError("a failed export left its marker")
+    out["lmdb_importable"] = have_lmdb
+    print(f"[tp] 18(c) lsun: {out['images_per_sec']:.1f} img/s (meter), decoded by "
+          f"{out['decoded_by']}; lmdb importable: {have_lmdb}; the LMDB-only class: "
+          f"{out['lmdb_only']}; {smi}", flush=True)
+    return out
+
+
+def image_multiset(batches) -> list:
+    return sorted(hashlib.sha256(img.tobytes()).hexdigest() for b in batches for img in b)
+
+
+def grain_phase(tmp: str, folder: str, smi: str) -> dict:
+    """18(d): whether grain imports here; if it does, train_glis
+    --data_backend grain on GRAIN_IMAGES demo JPEGs and its first epoch
+    against the PIL stream's as a multiset; if not, --data_backend grain
+    raises."""
+    try:
+        import grain
+    except ImportError as e:
+        print(f"[tp] 18(d) grain does not import on this machine ({e})", flush=True)
+        cfg = TrainGLISConfig.from_args(TRAINER_ARGS).replace(
+            dataset="folder", dataroot=folder, data_backend="grain")
+        try:
+            make_dataset(cfg)
+        except ImportError as refused:
+            print(f"[tp] 18(d) --data_backend grain raises {type(refused).__name__}: {refused}",
+                  flush=True)
+            return {"grain_importable": False, "refused": str(refused)}
+        raise AssertionError("--data_backend grain ran without grain") from e
+    version = getattr(grain, "__version__", "?")
+    sub = linked_folder(os.path.join(tmp, "grain_jpegs"), list_images(folder)[:GRAIN_IMAGES])
+    out = folder_run("tp", f"train_glis --data_backend grain ({GRAIN_IMAGES} demo JPEGs), "
+                     f"{TP_STEPS} steps and 1 render",
+                     ["--dataset", "folder", "--dataroot", sub, "--data_backend", "grain"],
+                     os.path.join(tmp, "tp_grain"))
+    cfg = TrainGLISConfig.from_args(TRAINER_ARGS).replace(dataset="folder", dataroot=sub)
+    epoch = GRAIN_IMAGES // cfg.batch_size
+    streams = {b: make_dataset(cfg.replace(data_backend=b)).batches(0) for b in ("grain", "pil")}
+    sets = {b: image_multiset(next(it) for _ in range(epoch)) for b, it in streams.items()}
+    out.update(grain_importable=True, version=version,
+               first_epoch_equal=sets["grain"] == sets["pil"])
+    print(f"[tp] 18(d) grain {version}: {out['images_per_sec']:.1f} img/s (meter); its first "
+          f"epoch's {GRAIN_IMAGES} images equal the PIL stream's as a multiset: "
+          f"{out['first_epoch_equal']}; {smi}", flush=True)
+    if not out["first_epoch_equal"]:
+        raise AssertionError("grain's first epoch is not the PIL stream's images")
+    return out
+
+
+def tp_phase(tmp: str, folder: str, kernel_rows: dict, smi: str) -> dict:
+    """Phase 18: tensor parallelism on the one card, LSUN and grain."""
+    t0 = time.perf_counter()
+    out = {"config": TP_CONFIG}
+    seconds = out["part_seconds"] = {}
+    for name, fn in (("step", lambda: tp_step(kernel_rows, smi)),
+                     ("refusal", lambda: tp_refusal(tmp)),
+                     ("lsun", lambda: lsun_phase(tmp, folder, smi)),
+                     ("grain", lambda: grain_phase(tmp, folder, smi))):
+        t = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = smi
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+    print(f"[tp] phase 18 in {out['seconds']:.1f} s ({parts})", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -4036,6 +4460,7 @@ def main() -> int:
             "r-iterative": r_trainers["r_iterative"]["cli"]["images_per_sec"]})
         parallel = dp_phase(tmp, rows, smi)
         normed = batch_norm_phase(tmp, sampled["demo_data"]["folder"], rows, smi)
+        sharded = tp_phase(tmp, sampled["demo_data"]["folder"], rows, smi)
 
     kernels = []
     for name, row in rows.items():
@@ -4052,7 +4477,7 @@ def main() -> int:
             "launches_per_r_iterative_step": row["launches_per_r_iterative_step"],
             "launches_serving": row["launches_serving"],
             "launches_graphed": row["launches_graphed"], "launches_dp": row["launches_dp"],
-            "launches_batch": row["launches_batch"],
+            "launches_batch": row["launches_batch"], "launches_tp": row["launches_tp"],
             "launches_per_batch_step": row["launches_per_batch_step"],
             "max_abs_err": row["max_abs_err"],
             "max_err": row["max_abs_err"], "max_abs_err_fp32": row["max_abs_err_fp32"],
@@ -4085,6 +4510,8 @@ def main() -> int:
     print(json.dumps({"data_parallel": parallel, "seconds": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"batch_norm": normed, "seconds": time.perf_counter() - t_start},
+                     default=str), flush=True)
+    print(json.dumps({"tensor_parallel": sharded, "seconds": time.perf_counter() - t_start},
                      default=str), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -31,8 +31,20 @@ spawned process each, with the batch split and the gradients averaged
 
 On the CPU, `--device cpu --num_devices 2` runs two gloo ranks.
 
-The flags are `gea`'s, plus `--device`; flags the port does not implement
-yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
+Tensor parallelism: `--model_shards M` (with `--num_devices N`, M dividing
+N; one host) runs `gea`'s single program on the global batch over a
+(N / M, M) world, each rank keeping the full parameters and gradients and
+its shards of the Adam state and EMA of each parameter wider than
+`--tp_min_width` (`gea_torch.parallel.tp`); its checkpoints hold the
+gathered state, so a single-process run resumes them.
+
+`--dataset lsun --lsun_classes a,b` reads LSUN class folders or exported
+LMDBs (`gea_torch.data.lsun`); `--data_backend grain` decodes with `gea`'s
+grain chain (`gea_torch.data.grain_loader`, where grain is installed).
+
+The flags are `gea`'s, plus `--device`; `--use_pallas`, which the port
+does not implement, raises SystemExit when set
+(`gea_torch.config.refuse_unported`).
 """
 
 from __future__ import annotations

@@ -23,11 +23,13 @@ A tiny run on the CPU in a fresh directory, then its resume:
 With `--fid_interval N` the run scores the proxy-FID of the chain's end
 G(z_T) every N steps (`make_fid_fn`) and pins the best joint G/R snapshot.
 
-`--num_devices N` and `--multihost` split the batch over ranks, as in
-`gea_torch.cli.train_glis`.
+`--num_devices N` and `--multihost` split the batch over ranks, and
+`--model_shards M` shards the trained modules' Adam state and EMA over a
+(N / M, M) world, as in `gea_torch.cli.train_glis`.
 
-The flags are `gea`'s, plus `--device`; flags the port does not implement
-yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
+The flags are `gea`'s, plus `--device`; `--use_pallas`, which the port
+does not implement, raises SystemExit when set
+(`gea_torch.config.refuse_unported`).
 """
 
 from __future__ import annotations

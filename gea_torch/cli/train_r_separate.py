@@ -22,11 +22,13 @@ With `--fid_interval N` the run scores the proxy-FID of the corrected
 samples G(blend(z, R(G(z)), --fid_correction_strength)) every N steps
 against the G run's dataset (`make_fid_fn`) and pins the best R snapshot.
 
-`--num_devices N` and `--multihost` split the batch over ranks, as in
-`gea_torch.cli.train_glis`.
+`--num_devices N` and `--multihost` split the batch over ranks, and
+`--model_shards M` shards the trained modules' Adam state and EMA over a
+(N / M, M) world, as in `gea_torch.cli.train_glis`.
 
-The flags are `gea`'s, plus `--device`; flags the port does not implement
-yet raise SystemExit when set (`gea_torch.config.refuse_unported`).
+The flags are `gea`'s, plus `--device`; `--use_pallas`, which the port
+does not implement, raises SystemExit when set
+(`gea_torch.config.refuse_unported`).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 samplers' `SampleConfig` and `SampleInterpolationsConfig`, and the
 reverser trainers' `TrainRConfig`, `TrainRSeparateConfig` and
 `TrainRIterativeConfig`, with `gea`'s flag names, defaults and choices),
-`stage_weights`, the flags the port does not implement yet, and device
+`stage_weights`, the one flag the port does not implement, and device
 resolution for the port's entry points."""
 
 from __future__ import annotations
@@ -139,7 +139,9 @@ class DataConfig(BaseConfig):
     batch_size: int = _flag(64, "global batch size")
     data_workers: int = _flag(4, "host-side decode worker threads")
     data_backend: str = _flag(
-        "auto", "image decode backend: auto and pil decode with PIL threads here",
+        "auto", "image decode backend: native C++ pool (JPEG), PIL threads, grain "
+        "(MapDataset pipeline), or auto (native when it builds and the folder is "
+        "all-JPEG, else PIL)",
         choices=("auto", "native", "pil", "grain"))
     data_cache: bool = _flag(
         False, "decode the whole folder once into host RAM (uint8) and serve "
@@ -202,8 +204,13 @@ class TrainGLISConfig(ModelConfig, DataConfig):
     log_interval: int = _flag(50, "stdout loss print every N iterations")
     num_devices: int = _flag(
         0, "data-parallel device count; 0 = all visible devices (one process on the CPU)")
-    model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
-    tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
+    model_shards: int = _flag(
+        1, "tensor parallelism: shard wide output-channel axes over a 'model' axis of "
+        "this size (must divide the device count; the rest is the 'data' axis). 1 = "
+        "pure data parallel. Single-host")
+    tp_min_width: int = _flag(
+        64, "model_shards > 1: only shard state leaves whose last axis is at least this "
+        "wide (narrow leaves replicate)")
     steps_per_dispatch: int = _flag(
         1, "fuse K train steps into one dispatch (one CUDA graph replay on the card) - "
         "amortizes the host's per-launch cost; log/vis/save cadences fire at chunk "
@@ -317,8 +324,10 @@ class TrainRConfig(ModelConfig, DataConfig):
     log_interval: int = _flag(50, "stdout loss print every N iterations")
     num_devices: int = _flag(0, "data-parallel devices; 0 = all visible (one process on "
                              "the CPU)")
-    model_shards: int = _flag(1, "tensor parallelism (not ported yet)")
-    tp_min_width: int = _flag(64, "tensor parallelism (not ported yet)")
+    model_shards: int = _flag(
+        1, "tensor parallelism over a 'model' axis of this size (single-host; "
+        "gea_torch/parallel/tp.py). 1 = pure data parallel")
+    tp_min_width: int = _flag(64, "model_shards > 1: min last-axis width for a leaf to shard")
     steps_per_dispatch: int = _flag(
         1, "fuse K train steps into one dispatch (one CUDA graph replay on the card); "
         "log/vis/save cadences fire at chunk boundaries")
@@ -382,15 +391,11 @@ class TrainRIterativeConfig(TrainRConfig):
     r_hidden: int = _flag(512, "hidden width of the reverser FC head")
 
 
-# Flags that the port does not implement yet, each with the values it
-# accepts besides its default, and why it refuses the others; the three
-# trainers' configs share the list.
+# Flags that the port does not implement, each with the values it accepts
+# besides its default, and why it refuses the others; the three trainers'
+# configs share the list.
 UNPORTED = {
-    "model_shards": ((), "needs tensor parallelism"),
-    "tp_min_width": ((), "needs tensor parallelism"),
     "use_pallas": ((), "moot: the port always runs its kernels on the card"),
-    "data_backend": (("pil", "native"), "needs the grain loader"),
-    "lsun_classes": ((), "needs the LSUN reader"),
 }
 
 
@@ -406,10 +411,8 @@ def refuse_unported(cfg: BaseConfig) -> None:
         if name in defaults and getattr(cfg, name) != defaults[name]
         and getattr(cfg, name) not in ok
     ]
-    if getattr(cfg, "dataset", None) == "lsun":
-        bad.append("--dataset lsun (needs the LSUN reader)")
     if bad:
-        raise SystemExit("not implemented in gea_torch yet: " + "; ".join(bad))
+        raise SystemExit("not implemented in gea_torch: " + "; ".join(bad))
 
 
 def dispatch_chunk(cfg) -> int:

@@ -16,7 +16,10 @@ those of `gea`'s streams for the same arguments and backend. The trainer
 fast-forwards the stream to the resumed step, which makes resume
 deterministic.
 
-Not ported yet: `gea`'s grain loader and its LSUN reader.
+`--dataset lsun` reads the folder that `gea_torch.data.lsun` resolves (a
+class folder, an LMDB exported once, or a symlink farm of several), with
+the same backends; `--data_backend grain` takes `gea`'s grain chain
+(`gea_torch.data.grain_loader`), whose order is grain's own.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from gea_torch.data import native_loader
+from gea_torch.data.lsun import FARM_PREFIX
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 
@@ -50,8 +54,21 @@ def epoch_permutation(seed: int, epoch: int, n: int) -> np.ndarray:
 
 
 def list_images(root: str) -> List[str]:
+    """Every image file under `root`, each folder's files sorted, as
+    `gea`'s walk lists them. Only in an LSUN class farm (a `root` named
+    `lsun.FARM_PREFIX`...), whose class folders are symlinks, are symlinked
+    folders followed, each real folder once (a cycle of links ends there):
+    `gea`'s walk follows none, and so finds no image in a farm."""
+    follow = os.path.basename(os.path.normpath(root)).startswith(FARM_PREFIX)
+    seen = set()
     out: List[str] = []
-    for dirpath, _dirnames, filenames in os.walk(root):
+    for dirpath, dirnames, filenames in os.walk(root, followlinks=follow):
+        if follow:
+            real = os.path.realpath(dirpath)
+            if real in seen:
+                dirnames[:] = []
+                continue
+            seen.add(real)
         for fn in sorted(filenames):
             if fn.lower().endswith(IMG_EXTENSIONS):
                 out.append(os.path.join(dirpath, fn))
@@ -214,13 +231,22 @@ def make_dataset(cfg, seed: int = 0):
     decode_size = max(cfg.crop_size, cfg.image_size)
     if cfg.dataset == "synthetic":
         return SyntheticDataset(cfg.batch_size, decode_size, seed=seed)
-    if cfg.dataset == "folder":
-        args = (cfg.dataroot, cfg.batch_size, cfg.crop_size, decode_size)
+    if cfg.dataset in ("folder", "lsun"):
+        root = cfg.dataroot
+        if cfg.dataset == "lsun":
+            from gea_torch.data.lsun import resolve_lsun_root
+
+            root = resolve_lsun_root(cfg)
+        args = (root, cfg.batch_size, cfg.crop_size, decode_size)
         if cfg.data_cache:
             return CachedFolderDataset(*args, workers=cfg.data_workers, seed=seed)
+        if cfg.data_backend == "grain":
+            from gea_torch.data.grain_loader import GrainFolderLoader
+
+            return GrainFolderLoader(list_images(root), *args[1:], workers=cfg.data_workers,
+                                     seed=seed)
         if cfg.data_backend not in ("auto", "native", "pil"):
-            raise ValueError(f"data_backend {cfg.data_backend!r} is not ported to "
-                             "gea_torch yet; use auto, native or pil")
+            raise ValueError(f"unknown data_backend {cfg.data_backend!r}")
         if cfg.data_backend in ("auto", "native"):
             loader = _try_native_loader(*args, workers=cfg.data_workers, seed=seed)
             if loader is not None:
@@ -233,7 +259,7 @@ def make_dataset(cfg, seed: int = 0):
         return FolderDataset(*args, workers=cfg.data_workers, seed=seed)
     if cfg.dataset == "cifar10":
         return cifar10_dataset(cfg, seed)
-    raise ValueError(f"dataset {cfg.dataset!r} is not ported to gea_torch yet")
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
 def _try_native_loader(root: str, batch_size: int, crop_size: int, decode_size: int,
@@ -253,8 +279,8 @@ def _try_native_loader(root: str, batch_size: int, crop_size: int, decode_size: 
 
 
 def backend_of(dataset) -> str:
-    """Which decode a folder dataset of `make_dataset` runs: "native" or
-    "pil" (and "none" for a dataset that decodes nothing)."""
+    """Which decode a folder dataset of `make_dataset` runs: "native",
+    "pil" or "grain" (and "none" for a dataset that decodes nothing)."""
     if isinstance(dataset, native_loader.NativeFolderLoader):
         return "native"
     if isinstance(dataset, FolderDataset):

@@ -171,13 +171,19 @@ class BatchNormAct(nn.Module):
         self.register_buffer("var", torch.ones(ch))
         self.act = TPReLU(ch, learned=False, use_kernels=use_kernels)
         self.update_stats = True  # off inside `frozen_stats`
+        # (x32, dims) -> (mean, mean of squares) over every rank's rows,
+        # under tensor parallelism (`TensorParallel.batch_moments`).
+        self.sync = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x32.mean(dims)
-            var = (x32.square().mean(dims) - mean.square()).clamp_min(0.0)
+            if self.sync is None:
+                mean, mean_sq = x32.mean(dims), x32.square().mean(dims)
+            else:
+                mean, mean_sq = self.sync(x32, dims)
+            var = (mean_sq - mean.square()).clamp_min(0.0)
             if self.update_stats:
                 with torch.no_grad():
                     self.mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)

@@ -55,6 +55,10 @@ class DataParallel:
     """This process's rank in the started process group (`mesh.join`),
     with the flat gradient buffers of the modules it trains."""
 
+    # Each rank runs its own slab with its own stream and draws (`gea`'s
+    # shard_map); `TensorParallel`'s ranks share the single program's.
+    single_program = False
+
     def __init__(self, device: torch.device):
         self.device = device
         self.rank = dist.get_rank()
@@ -75,6 +79,33 @@ class DataParallel:
         """This rank's rows of a global-batch tensor."""
         n = t.shape[0] // self.size
         return t[self.rank * n:(self.rank + 1) * n]
+
+    def world_rows(self, n: int) -> int:
+        """The global batch of which this rank's `n` rows are its `rows`."""
+        return n * self.size
+
+    def local_rows(self, batch_size: int) -> int:
+        """This rank's share of a global batch."""
+        return batch_size // self.size
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean over the batch of a per-row tensor: this rank's slab,
+        as each of `gea`'s devices takes it."""
+        return t.mean()
+
+    def local_params(self, module: torch.nn.Module):
+        """(name, tensor) of each parameter as this rank stores it."""
+        return list(module.named_parameters())
+
+    def updated(self, module: torch.nn.Module) -> None:
+        """After `module`'s update: nothing (every rank holds it whole)."""
+
+    def full_view(self, state):
+        """The state as checkpoints and FID read it: itself."""
+        return state
+
+    def _all_reduce(self, t: torch.Tensor) -> None:
+        dist.all_reduce(t)
 
     def zero_grads(self, module: torch.nn.Module) -> None:
         """Zero the module's flat gradient buffer (made on the first call),
@@ -103,7 +134,7 @@ class DataParallel:
                                "would miss it")
         if accum > 1:
             flat.div_(accum)
-        dist.all_reduce(flat)
+        self._all_reduce(flat)
         if self.size > 1:
             flat.div_(self.size)
 
@@ -140,7 +171,7 @@ class DataParallel:
         flat = self.stats_buffer(module)
         if flat is None:
             return
-        dist.all_reduce(flat)
+        self._all_reduce(flat)
         if self.size > 1:
             flat.div_(self.size)
 
@@ -148,7 +179,7 @@ class DataParallel:
         """The step's 0-d metrics averaged over the ranks, in one
         all-reduce."""
         stacked = torch.stack([v.float() for v in metrics.values()])
-        dist.all_reduce(stacked)
+        self._all_reduce(stacked)
         if self.size > 1:
             stacked = stacked / self.size
         return dict(zip(metrics, stacked.unbind()))

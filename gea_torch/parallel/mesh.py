@@ -21,8 +21,14 @@ dp`).
 `join` starts the process group once a process (a second trainer in the
 same process joins the group the first one started, as `gea` initialises
 `jax.distributed` once). There is no fallback: a failed NCCL start raises,
-and no path runs on fewer ranks or on the CPU instead. `--model_shards`
-(the `model` axis) is not ported.
+and no path runs on fewer ranks or on the CPU instead.
+
+`--model_shards M` makes the world 2-D, as `gea`'s `make_mesh(n,
+model_shards=M)` reshapes its devices to (-1, M): rank r sits at (data
+r // M, model r % M) (`mesh_coords`), and each data row of M ranks has a
+process group of its own (`model_groups`) for the all-gathers of
+`gea_torch.parallel.tp`; its sums run over the whole world. `tp_world`
+checks the flags with `gea`'s messages.
 """
 
 from __future__ import annotations
@@ -55,6 +61,33 @@ def resolve_num_devices(num_devices: int, device: torch.device) -> int:
     if num_devices > visible:
         raise ValueError(f"requested {num_devices} devices but only {visible} visible")
     return num_devices
+
+
+def tp_world(model_shards: int, num_devices: int, multihost: bool) -> None:
+    """`gea`'s checks of `--model_shards M` over `num_devices` ranks
+    (`gea/train/runner.py::resolve_mesh`, `gea/parallel/mesh.py::make_mesh`)."""
+    if model_shards <= 1:
+        return
+    if multihost:
+        raise SystemExit("--model_shards is single-host only (DP covers pods)")
+    if num_devices <= 1:
+        raise SystemExit(f"--model_shards {model_shards} needs multiple devices "
+                         f"({num_devices} visible)")
+    if num_devices % model_shards:
+        raise ValueError(f"model_shards {model_shards} must divide the device count "
+                         f"{num_devices}")
+
+
+def mesh_coords(rank: int, model_shards: int) -> tuple:
+    """(data, model) coordinates of `rank` in the (-1, M) world."""
+    return divmod(rank, model_shards)
+
+
+def model_groups(size: int, model_shards: int) -> list:
+    """One process group per data row: ranks d*M .. d*M + M - 1. Every
+    rank makes every group, in the same order, as `new_group` requires."""
+    return [dist.new_group(list(range(d, d + model_shards)))
+            for d in range(0, size, model_shards)]
 
 
 @dataclass(frozen=True)

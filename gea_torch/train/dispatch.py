@@ -59,7 +59,9 @@ graphs on the old tensors: build a new dispatcher after it.
 Under data parallelism the step's all-reduces (`gea_torch.parallel.dp`)
 are captured with it: NCCL can be captured once its communicator exists,
 and the warm-up's eager step issues them first. They reduce the players'
-flat gradient buffers, whose addresses the graph keeps.
+flat gradient buffers, whose addresses the graph keeps. Tensor
+parallelism's all-gathers (`gea_torch.parallel.tp`) are captured the same
+way: they fill the players' own parameters from flat shard buffers.
 """
 
 from __future__ import annotations
@@ -122,12 +124,15 @@ def schedules_off(state):
 
 def updated_tensors(state) -> List[torch.Tensor]:
     """Every tensor a train step updates in place: the trained modules'
-    parameters and buffers, their Adam's state, the EMA shadow."""
+    parameters and buffers, their Adam's parameters (the shards under tensor
+    parallelism) and state, the EMA shadow."""
     out = []
     for name, tag in state.PLAYERS:
         module = getattr(state, name)
+        opt = getattr(state, f"opt_{tag}")
         out += [*module.parameters(), *module.buffers()]
-        for st in getattr(state, f"opt_{tag}").state.values():
+        out += [p for group in opt.param_groups for p in group["params"]]
+        for st in opt.state.values():
             out += [v for v in st.values() if torch.is_tensor(v)]
     return out + list(getattr(state, "g_ema", {}).values())
 

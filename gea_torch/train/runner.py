@@ -17,6 +17,11 @@ decides collectively: a trip on one rank makes every rank save (the lead
 writes) and exit 19 together, where a rank that left alone would leave the
 others waiting in a collective.
 
+Under tensor parallelism (`--model_shards`, `gea_torch.parallel.tp`) the
+ranks run one program: each reads the single process's stream and keeps
+its rows, and the checkpoints and FID read the state gathered from the
+shards (`TrainLoop._full`, a collective that every rank joins).
+
 Per-step randomness is keyed by the global step, so a resumed run draws
 what a run never interrupted would: the data stream fast-forwards to the
 resumed step (`input_iterator(start_step=...)`), the flip mask and the
@@ -44,6 +49,8 @@ from gea_torch.config import dispatch_chunk, resolve_device
 from gea_torch.data.prefetch import device_prefetch
 from gea_torch.ops.layers import eval_mode
 from gea_torch.parallel import DataParallel, join, launcher_env, resolve_num_devices, spawn
+from gea_torch.parallel.mesh import tp_world
+from gea_torch.parallel.tp import TensorParallel
 from gea_torch.utils.checkpoint import (
     best_record,
     latest_step,
@@ -76,15 +83,23 @@ def prepare_run(cfg, dp=None) -> str:
     return run_dir
 
 
+def tp_shards(cfg) -> int:
+    """Size of the 'model' axis (1 = pure data parallel)."""
+    return max(1, cfg.model_shards)
+
+
 def check_batch(cfg, num_chips: int = 1) -> None:
-    """The global batch must split over the ranks, and each rank's batch
-    into --grad_accum microbatches."""
+    """The global batch must split over the ranks, and each data shard's
+    batch into --grad_accum microbatches: under --model_shards M the batch
+    splits over the num_chips / M data shards only (`gea`'s rule)."""
     if cfg.batch_size % num_chips:
         raise ValueError(f"batch_size {cfg.batch_size} must divide over {num_chips} devices")
     accum = max(1, cfg.grad_accum)
-    per_device = cfg.batch_size // num_chips
+    tp = tp_shards(cfg)
+    per_device = cfg.batch_size // max(1, num_chips // tp)
     if per_device % accum:
-        what = "batch_size" if num_chips == 1 else "per-device batch"
+        what = ("batch_size" if num_chips == 1 else "per-device batch" if tp == 1
+                else "per-data-shard batch")
         raise ValueError(f"{what} {per_device} must divide by --grad_accum {accum}")
 
 
@@ -116,10 +131,24 @@ def no_input() -> Iterator[None]:
     return (None for _ in itertools.count())
 
 
+def single_program(dp) -> bool:
+    """True under tensor parallelism: the ranks run the single process's
+    program (its stream, its draws), each on its rows."""
+    return getattr(dp, "single_program", False)
+
+
+def stream_dp(dp):
+    """The `dp` that splits the input stream: None under tensor
+    parallelism, whose ranks read the single process's stream and keep
+    their rows (`make_input_fn`)."""
+    return None if single_program(dp) else dp
+
+
 def rank_data(cfg, seed: int, dp=None) -> Tuple[Any, int]:
     """(cfg with this rank's batch, this rank's data seed): each rank
     streams its slab from a stream of its own, seeded seed + 7919 * rank
     (`gea`'s multihost processes)."""
+    dp = stream_dp(dp)
     if dp is None or dp.size == 1:
         return cfg, seed
     return cfg.replace(batch_size=cfg.batch_size // dp.size), seed + 7919 * dp.rank
@@ -132,10 +161,11 @@ def input_iterator(cfg, device: torch.device, seed: int, start_step: int = 0,
     batches for the on-device preprocess (at decode resolution, or at
     image_size with --host_resize; gathered on the device with
     --device_data_cache); float32 batches with --on_device_pipeline false.
-    Under `dp`, this rank's slab (`rank_data`)."""
+    Under `dp`, this rank's slab (`rank_data`); under tensor parallelism
+    the single process's stream."""
     if synthetic_on_device(cfg):
         return no_input()
-    if cfg.device_data_cache and dp is not None and dp.size > 1:
+    if cfg.device_data_cache and stream_dp(dp) is not None and dp.size > 1:
         raise ValueError("--device_data_cache is single-host for now (the cache "
                          "replication protocol over non-addressable devices is not "
                          "wired); use --data_cache")
@@ -145,7 +175,7 @@ def input_iterator(cfg, device: torch.device, seed: int, start_step: int = 0,
 
         return device_cached_iterator(cfg, device, seed, start_step=start_step)
     ds = make_dataset(cfg, seed=seed)
-    if cfg.dataset == "folder" and is_lead(dp):
+    if cfg.dataset in ("folder", "lsun") and is_lead(dp):
         print(f"[gea_torch] data: {cfg.dataroot} decoded by {backend_of(ds)} "
               f"(--data_backend {cfg.data_backend}"
               f"{', --data_cache' if cfg.data_cache else ''})", flush=True)
@@ -167,7 +197,11 @@ def make_input_fn(cfg, device: torch.device, dp=None) -> Callable[[Optional[torc
     """(batch from `input_iterator`, step) -> the real batch, float32 in
     [-1, 1] on the device: the synthetic draw, or the on-device preprocess,
     run just before the step. Under `dp`, this rank's batch, drawn and
-    flipped with the rank mixed in (`step_generator`)."""
+    flipped with the rank mixed in (`step_generator`); under tensor
+    parallelism this rank's rows of the single process's batch."""
+    if single_program(dp):
+        whole = make_input_fn(cfg, device)
+        return lambda batch, step: dp.rows(whole(batch, step))
     gen_at = step_generator(device, 0 if dp is None else dp.rank)
     if synthetic_on_device(cfg):
         batch = rank_data(cfg, cfg.seed, dp)[0].batch_size
@@ -358,13 +392,19 @@ class TrainLoop:
             out[key] = statistics.median(xs) if xs else 0.0
         return out
 
-    def _save(self, step: int) -> None:
-        """An asynchronous save with retention that spares the best
-        snapshots; the save in flight before it is then durable. The
-        lead's alone."""
+    def _full(self):
+        """The state as checkpoints and FID read it (`full_view`: under
+        tensor parallelism gathered from the shards, a collective that
+        every rank joins at the same points)."""
+        return self.state if self.dp is None else self.dp.full_view(self.state)
+
+    def _save(self, step: int, view) -> None:
+        """An asynchronous save of `view` (`_full`) with retention that
+        spares the best snapshots; the save in flight before it is then
+        durable. The lead's alone."""
         if not self.lead:
             return
-        save_checkpoint(self.run_dir, step, self.state, keep=self.cfg.keep_checkpoints,
+        save_checkpoint(self.run_dir, step, view, keep=self.cfg.keep_checkpoints,
                         async_save=True, protect=(self._committed_best_step, self._best_step))
         self._commit_pending_best()
 
@@ -373,8 +413,9 @@ class TrainLoop:
         nothing, so a NaN state never evicts the finite checkpoints. Every
         rank calls it, the lead writes, and no rank goes on (to exit or
         raise) before the file is written."""
+        view = self._full()
         if self.lead:
-            save_checkpoint(self.run_dir, step, self.state)
+            save_checkpoint(self.run_dir, step, view)
             self._commit_pending_best()
         if self.dp is not None:
             self.dp.barrier()
@@ -390,10 +431,11 @@ class TrainLoop:
             self._committed_best_step = step
             self._pending_best = None
 
-    def _track_fid(self, step: int) -> Tuple[bool, bool]:
-        """One evaluation: (saved as a new best, stop early)."""
+    def _track_fid(self, step: int, view) -> Tuple[bool, bool]:
+        """One evaluation of `view` (`_full`): (saved as a new best, stop
+        early)."""
         with eval_mode(*state_modules(self.state)):
-            fid = float(self.fid_fn(self.state))
+            fid = float(self.fid_fn(view))
         is_best = fid < self._best_fid
         self._evals_since_best = 0 if is_best else self._evals_since_best + 1
         patience = getattr(self.cfg, "stop_patience", 0)
@@ -412,7 +454,7 @@ class TrainLoop:
         if is_best:
             # The save runs in the background; best.json points at it at
             # the next moment it is known durable.
-            self._save(step)
+            self._save(step, view)
             self._best_fid, self._best_step = fid, step
             self._pending_best = (step, fid)
         return is_best, stop
@@ -509,13 +551,17 @@ class TrainLoop:
                 self.plotter.plot(os.path.join(self.run_dir, "plots", "loss.png"))
 
             saved_for_best = stop_early = False
-            if cfg.fid_interval > 0 and (crossed(cfg.fid_interval) or it == cfg.niter):
+            fid_now = cfg.fid_interval > 0 and (crossed(cfg.fid_interval) or it == cfg.niter)
+            # Every rank decides alike whether FID or a save reads the state.
+            view = self._full() if fid_now or crossed(cfg.save_interval) or it == cfg.niter \
+                else None
+            if fid_now:
                 if self.fid_fn is not None and self.lead:
-                    saved_for_best, stop_early = self._track_fid(it)
+                    saved_for_best, stop_early = self._track_fid(it, view)
                 if self.dp is not None:
                     stop_early = self.dp.broadcast_flag(stop_early)
             if (crossed(cfg.save_interval) or it == cfg.niter or stop_early) and not saved_for_best:
-                self._save(it)
+                self._save(it, view)
             self.step_s.append(time.perf_counter() - t0)
             if stop_early:
                 break
@@ -527,9 +573,18 @@ class TrainLoop:
         return self.state
 
 
+def rank_parallel(device: torch.device, cfg):
+    """This rank's `dp`: a `TensorParallel` under --model_shards > 1, else
+    a `DataParallel`."""
+    if tp_shards(cfg) > 1:
+        return TensorParallel(device, tp_shards(cfg), cfg.batch_size, max(1, cfg.grad_accum),
+                              cfg.tp_min_width)
+    return DataParallel(device)
+
+
 def _rank_stats(device: torch.device, train: Callable, cfg) -> Dict[str, Any]:
     """One spawned rank of `run_trainer`: its stats (rank 0's are kept)."""
-    return train(device, cfg, DataParallel(device))[1]
+    return train(device, cfg, rank_parallel(device, cfg))[1]
 
 
 def run_trainer(cfg, train: Callable, build_state: Callable) -> Tuple[Any, Dict[str, Any]]:
@@ -541,9 +596,13 @@ def run_trainer(cfg, train: Callable, build_state: Callable) -> Tuple[Any, Dict[
       (`gea_torch.parallel.launcher_env`); `--fid_interval` is refused with
       more than one process, as in `gea`.
     * `--num_devices N` > 1: N spawned ranks on this host; the lead's
-      state is read back from its last checkpoint.
+      state is read back from its last checkpoint. With `--model_shards
+      M` they form a (N / M, M) world of tensor parallelism (`gea`'s checks
+      first: `tp_world`).
     * otherwise one process on one device, without collectives."""
     device = resolve_device(cfg.device)
+    if tp_shards(cfg) > 1:
+        tp_world(tp_shards(cfg), resolve_num_devices(cfg.num_devices, device), cfg.multihost)
     if cfg.multihost:
         launch = launcher_env()
         if cfg.fid_interval > 0 and launch.size > 1:
@@ -559,8 +618,13 @@ def run_trainer(cfg, train: Callable, build_state: Callable) -> Tuple[Any, Dict[
     if n == 1:
         return train(device, cfg)
     check_batch(cfg, n)
-    print(f"[gea_torch] data parallel: {n} ranks on {device.type}, "
-          f"{cfg.batch_size // n} of the batch of {cfg.batch_size} each", flush=True)
+    if tp_shards(cfg) > 1:
+        print(f"[gea_torch] tensor parallel: {n} ranks on {device.type} (data "
+              f"{n // tp_shards(cfg)} x model {tp_shards(cfg)}), the global batch of "
+              f"{cfg.batch_size} as one program", flush=True)
+    else:
+        print(f"[gea_torch] data parallel: {n} ranks on {device.type}, "
+              f"{cfg.batch_size // n} of the batch of {cfg.batch_size} each", flush=True)
     stats = spawn(_rank_stats, n, device, args=(train, cfg))
     state = build_state(device, cfg)
     if latest_step(cfg.save_path) is not None:

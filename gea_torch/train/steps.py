@@ -41,6 +41,12 @@ each rank normalises with its own batch statistics, and the running
 statistics are averaged over the ranks after the step.
 Its own draws are this rank's rows of the global batch's
 (`DataParallel.rows`).
+
+Tensor parallelism (`dp`, a `gea_torch.parallel.tp.TensorParallel`) uses
+the same hooks with the single program's semantics: the rows of the single
+process's draws and batch, batch statistics over every rank, and after
+each update the all-gather of the updated player's shards (`_update`);
+the EMA shadow updates this rank's shards (`local_params`).
 """
 
 from __future__ import annotations
@@ -94,18 +100,22 @@ def mean_stats(dp, *modules) -> None:
             dp.mean_stats(m)
 
 
-def _update(opt: torch.optim.Optimizer, sched) -> None:
+def _update(opt: torch.optim.Optimizer, sched, module: torch.nn.Module, dp=None) -> None:
+    """`module`'s update; with `dp`, then its `updated` hook (the
+    all-gather of tensor parallelism's shards)."""
     opt.step()
     if sched is not None:
         sched.step()
+    if dp is not None:
+        dp.updated(module)
 
 
 def draw(state, draw_fn, shape, dp=None) -> torch.Tensor:
     """`draw_fn` (torch.randn or torch.rand) of `shape` from the state's
     generator on its device; with `dp`, shape[0] is this rank's batch, and
     the global batch is drawn and this rank's rows kept."""
-    world = 1 if dp is None else dp.size
-    t = draw_fn((shape[0] * world, *shape[1:]), generator=state.rng, device=state.device)
+    n = shape[0] if dp is None else dp.world_rows(shape[0])
+    t = draw_fn((n, *shape[1:]), generator=state.rng, device=state.device)
     return t if dp is None else dp.rows(t)
 
 
@@ -152,7 +162,7 @@ def microbatches(t: Optional[torch.Tensor], batch: int, accum: int) -> list:
 
 def local_batch(cfg, dp=None) -> int:
     """This rank's share of the global batch."""
-    return cfg.batch_size // (1 if dp is None else dp.size)
+    return cfg.batch_size if dp is None else dp.local_rows(cfg.batch_size)
 
 
 def zero_grads(opt: torch.optim.Optimizer, module: torch.nn.Module, dp=None) -> None:
@@ -254,8 +264,10 @@ def build_glis_train_step(
 
     def finish(state: GLISTrainState) -> None:
         if cfg.g_ema > 0:
+            params = (state.generator.named_parameters() if dp is None
+                      else dp.local_params(state.generator))
             with torch.no_grad():
-                for name, p in state.generator.named_parameters():
+                for name, p in params:
                     state.g_ema[name].mul_(cfg.g_ema).add_(p, alpha=1.0 - cfg.g_ema)
         state.step += 1
 
@@ -270,14 +282,14 @@ def build_glis_train_step(
         loss_d, logits_real, logits_fake = d_loss(d, real, fakes_live.detach(), eps, w)
         loss_d.backward()
         mean_grads(d, 1, dp)
-        _update(state.opt_d, state.sched_d)
+        _update(state.opt_d, state.sched_d, d, dp)
 
         zero_grads(state.opt_g, g, dp)
         if not share:
             fakes_live = g_images(g, z, sn, grad=True)
         loss_g = g_backward(d, fakes_live, w)
         mean_grads(g, 1, dp)
-        _update(state.opt_g, state.sched_g)
+        _update(state.opt_g, state.sched_g, g, dp)
         mean_stats(dp, g, d)
         finish(state)
         return mean_metrics({
@@ -305,14 +317,14 @@ def build_glis_train_step(
             d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
             d_fake = d_fake + torch.sigmoid(logits_fake[-1].detach()).mean()
         mean_grads(d, accum, dp)
-        _update(state.opt_d, state.sched_d)
+        _update(state.opt_d, state.sched_d, d, dp)
 
         zero_grads(state.opt_g, g, dp)
         loss_g = 0.0
         for _, z_mb, sn_mb, _ in mbs:
             loss_g = loss_g + g_backward(d, g_images(g, z_mb, sn_mb, grad=True), w)
         mean_grads(g, accum, dp)
-        _update(state.opt_g, state.sched_g)
+        _update(state.opt_g, state.sched_g, g, dp)
         finish(state)
         return mean_metrics({"loss_d": loss_d / accum, "loss_g": loss_g / accum,
                              "d_real": d_real / accum, "d_fake_final": d_fake / accum}, dp)

@@ -47,7 +47,10 @@ trains on its slab of the global batch (R-separate: its rows of the global
 draws, and the mining weights normalised over its own slab, as `gea`'s
 shard is), and each trained player's gradients and the metrics are
 averaged over the ranks before the updates, and the trained players'
-running statistics after the step.
+running statistics after the step. Under tensor parallelism (`dp` a
+`TensorParallel`) the steps keep the single program's semantics: the rows
+of the single process's draws, the mining weights normalised over the
+global batch, batch statistics over every rank.
 """
 
 from __future__ import annotations
@@ -118,7 +121,10 @@ def build_r_separate_step(cfg: TrainRSeparateConfig, dp=None) -> Callable[..., M
             mine_w = None
             if use_mine:
                 defect = 1.0 - torch.sigmoid(d(final_img).float())
-                defect = defect / (defect.mean() + 1e-8)  # over the whole batch
+                # Over the whole batch: this rank's slab under DP, the
+                # global batch under TP (`batch_mean`).
+                mean = defect.mean() if dp is None else dp.batch_mean(defect)
+                defect = defect / (mean + 1e-8)
                 mine_w = (1.0 - cfg.r_mine_weight) + cfg.r_mine_weight * defect
 
         zero_grads(state.opt_r, r, dp)
@@ -140,7 +146,7 @@ def build_r_separate_step(cfg: TrainRSeparateConfig, dp=None) -> Callable[..., M
             norm = torch.linalg.vector_norm(z_pred.detach() - code, dim=-1).mean()
             sums += torch.stack([loss.detach(), loss_mse.detach(), loss_adv.detach(), norm])
         mean_grads(r, accum, dp)
-        _update(state.opt_r, state.sched_r)
+        _update(state.opt_r, state.sched_r, r, dp)
         mean_stats(dp, r)
         state.step += 1
         sums = sums / accum
@@ -217,7 +223,7 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
             loss_d = loss_d + loss.detach()
             d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
         mean_grads(d, accum, dp)
-        _update(state.opt_d, state.sched_d)
+        _update(state.opt_d, state.sched_d, d, dp)
 
         # G and R together against the updated D.
         zero_grads(state.opt_g, g, dp)
@@ -235,8 +241,8 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
             loss_sim = loss_sim + sim.detach()
         mean_grads(g, accum, dp)
         mean_grads(r, accum, dp)
-        _update(state.opt_g, state.sched_g)
-        _update(state.opt_r, state.sched_r)
+        _update(state.opt_g, state.sched_g, g, dp)
+        _update(state.opt_r, state.sched_r, r, dp)
         mean_stats(dp, g, d, r)
         state.step += 1
         return mean_metrics({"loss_d": loss_d / accum, "loss_g": loss_g / accum,

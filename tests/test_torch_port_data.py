@@ -8,6 +8,7 @@ it shrinks) within 1e-6 for the same flip mask. Every stream restarts at
 any batch: batch i is a pure function of (seed, i).
 """
 
+import os
 import pickle
 import threading
 import time
@@ -113,14 +114,27 @@ def test_dataset_restarts_at_any_batch(kind, img_dir, cifar_dir):
     assert_batches_equal(take(port.batches(5), 3), full[5:])
 
 
-def test_make_dataset_refuses_what_is_not_ported(img_dir):
-    """grain and LSUN (the native backend is ported: its cases are in
-    test_torch_port_native_loader.py)."""
-    with pytest.raises(ValueError, match="not ported"):
+def test_make_dataset_refuses_what_is_not_ported(img_dir, tmp_path):
+    """Every backend and dataset of `gea` is ported: grain and LSUN select
+    their loaders (`tests/test_torch_port_lsun_grain.py` holds their bytes
+    to `gea`'s; the native backend's cases are in
+    test_torch_port_native_loader.py); what make_dataset still refuses is
+    a value `gea` has no loader for, and a folder too small for a batch."""
+    from gea_torch.data.grain_loader import GrainFolderLoader
+
+    grain = pipeline.make_dataset(TrainGLISConfig(dataset="folder", dataroot=img_dir,
+                                                  batch_size=4, data_backend="grain"))
+    assert isinstance(grain, GrainFolderLoader) and pipeline.backend_of(grain) == "grain"
+    os.symlink(img_dir, tmp_path / "tower")
+    lsun = pipeline.make_dataset(TrainGLISConfig(dataset="lsun", dataroot=str(tmp_path),
+                                                 lsun_classes="tower", batch_size=4,
+                                                 data_backend="pil"))
+    assert isinstance(lsun, pipeline.FolderDataset) and len(lsun) == 12
+    with pytest.raises(ValueError, match="unknown data_backend 'bogus'"):
         pipeline.make_dataset(TrainGLISConfig(dataset="folder", dataroot=img_dir,
-                                              batch_size=4, data_backend="grain"))
-    with pytest.raises(ValueError, match="not ported"):
-        pipeline.make_dataset(TrainGLISConfig(dataset="lsun", dataroot=img_dir))
+                                              batch_size=4).replace(data_backend="bogus"))
+    with pytest.raises(ValueError, match="unknown dataset 'bogus'"):
+        pipeline.make_dataset(TrainGLISConfig().replace(dataset="bogus"))
     with pytest.raises(ValueError, match="batch_size"):
         pipeline.make_dataset(TrainGLISConfig(dataset="folder", dataroot=img_dir,
                                               batch_size=64))

@@ -221,18 +221,18 @@ def test_link_weights_and_staged_loss_match_gea(rng):
 
 @pytest.mark.parametrize("cls", [TrainRIterativeConfig, TrainRSeparateConfig])
 def test_r_configs_refuse_unported_flags(cls):
-    """Each R config refuses every flag on the list (which G-LIS shares)
-    and --dataset lsun, and accepts the FID flags."""
+    """Each R config refuses every flag on the list (which G-LIS shares:
+    --use_pallas alone), and accepts the FID flags and the flags of tensor
+    parallelism, LSUN and grain."""
     from gea_torch.config import refuse_unported
 
     assert set(UNPORTED) <= {f.name for f in dataclasses.fields(cls)}
     assert not {"fid_interval", "fid_samples", "stop_patience"} & set(UNPORTED)
     refuse_unported(cls(fid_interval=5, fid_samples=64))
-    bad = {"data_backend": "grain", "lsun_classes": "tower", "use_pallas": True,
-           "dataset": "lsun"}
-    for name, value in bad.items():
-        with pytest.raises(SystemExit, match=name if name != "dataset" else "lsun"):
-            refuse_unported(cls(**{name: value}))
+    with pytest.raises(SystemExit, match="use_pallas"):
+        refuse_unported(cls(use_pallas=True))
+    refuse_unported(cls(data_backend="grain", lsun_classes="tower", dataset="lsun",
+                        model_shards=2, tp_min_width=8))
     refuse_unported(cls(num_devices=1, norm="none", data_backend="pil"))
     refuse_unported(cls(norm="batch", data_backend="native"))
 

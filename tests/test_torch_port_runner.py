@@ -12,8 +12,10 @@ the RSS guard. Flags the port does not implement raise.
 
 import os
 
+import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from gea_torch.cli import train_glis
 from gea_torch.config import UNPORTED, TrainGLISConfig
@@ -319,15 +321,11 @@ def test_restore_refuses_another_schedule(tmp_path):
         ckpt.restore_checkpoint(str(tmp_path), cosine)
 
 
-REFUSED = [
-    ["--model_shards", "2"], ["--tp_min_width", "8"],
-    ["--use_pallas"], ["--data_backend", "grain"], ["--lsun_classes", "tower"],
-    ["--dataset", "lsun"],
-]
+REFUSED = [["--use_pallas"]]
 
 
 def test_every_unported_flag_is_in_the_refusals():
-    assert {a[0][2:] for a in REFUSED} - {"dataset"} == set(UNPORTED)
+    assert {a[0][2:] for a in REFUSED} == set(UNPORTED) == {"use_pallas"}
 
 
 @pytest.mark.parametrize("extra", REFUSED, ids=lambda a: a[0][2:] + "=" + "".join(a[1:]))
@@ -335,6 +333,32 @@ def test_unported_flag_raises(tmp_path, extra):
     with pytest.raises(SystemExit, match=extra[0]):
         cli(tmp_path, "run", "--niter", "1", *extra)
     assert not os.path.exists(tmp_path / "run")
+
+
+@pytest.mark.parametrize("extra,error,match", [
+    (["--model_shards", "2"], SystemExit, r"--model_shards 2 needs multiple devices \(1 visible\)"),
+    (["--tp_min_width", "8", "--model_shards", "3", "--num_devices", "4"], ValueError,
+     "model_shards 3 must divide the device count 4"),
+    (["--data_backend", "grain", "--dataset", "folder", "--dataroot", "{few}"], ValueError,
+     "grain loader input has 2 images but batch_size is 4"),
+    (["--lsun_classes", "tower", "--dataset", "lsun", "--dataroot", "{few}"],
+     FileNotFoundError, "no LSUN lmdb for class 'tower'"),
+    (["--dataset", "lsun", "--dataroot", "{few}"], FileNotFoundError,
+     "no LSUN lmdb for class 'bedroom'"),
+], ids=["model_shards=2", "tp_min_width=8", "data_backend=grain", "lsun_classes=tower",
+        "dataset=lsun"])
+def test_tp_and_data_flags_check_their_values(tmp_path, extra, error, match):
+    """The flags this port refused until tensor parallelism, the LSUN
+    reader and the grain loader were ported, each with a bad value: `gea`'s
+    error, before a step runs (`tests/test_torch_port_tp_cli.py` and
+    `tests/test_torch_port_lsun_grain.py` run their good values)."""
+    few = tmp_path / "few"
+    few.mkdir()
+    for i in range(2):
+        Image.fromarray(np.full((8, 8, 3), 40 * i, np.uint8)).save(few / f"{i}.jpg")
+    with pytest.raises(error, match=match):
+        cli(tmp_path, "run", "--niter", "1", *[a.format(few=few) for a in extra])
+    assert not os.path.exists(tmp_path / "run" / "checkpoints")
 
 
 @pytest.mark.parametrize("extra,error,match", [
