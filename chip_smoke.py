@@ -15,15 +15,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
    take (bytes or operations), the device time of an empty kernel launch
    (the floor of any launch) and, for the seed, the bf16 library composite
    (cuBLAS GEMM, TPReLU, cuDNN transposed conv; a yardstick the port never
-   calls);
+   calls); TPReLU's backward kernel (`fused_tprelu_backward`) at every
+   TPReLU shape, in fp32 and bf16, with da and db and without: dx equal to
+   the plain version's bit for bit, da and db within BWD_SUM_TOL, its time
+   beside the plain version's, the bound (x and g read, dx written) and
+   the empty launch;
 4. at the train step's shapes, in fp32 and bf16: each kernel's
-   `torch.autograd.Function` (kernel forward, eager backward) against
-   autograd through its plain version, gradients of every input within a
-   stated tolerance, and the device time of each backward;
+   `torch.autograd.Function` (kernel forward; TPReLU's backward the
+   kernel, LIS's and the seed's eager) against autograd through its plain
+   version, gradients of every input within a stated tolerance, and the
+   device time of each backward;
 5. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
    ragged batch, at s0 = 4 and 7, with c1 and code that are not multiples
    of the tiles; the LIS link at a batch that is not a multiple of its row
-   tile and at widths below one tile;
+   tile and at widths below one tile; TPReLU and its backward at C = 3, 5,
+   96 and 1000, one row and rows that are not a multiple of a tile, the
+   backward with da and db at each and, at each, without them or with an
+   fp32 cotangent into bf16 x;
 6. build flagship-width G and D from seeded random params in `gea`'s tree
    layout and run `ServingModel.from_modules(G, D).sample_filtered(64,
    oversample=4, batch_size=64)` in bf16 with the launch counters zeroed just before and
@@ -34,13 +42,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7. the main path, the G-LIS train step (`gea_torch.train`) at flagship
    width in bf16 with batch 64 and BCE: 2 warm-up steps, of which the first
    checks that every parameter of G and D got a finite, non-zero gradient
-   and that one step launches seed 1, LIS 3 and TPReLU 9 times; then 10
+   and that one step launches seed 1, LIS 3, TPReLU 9 and TPReLU's
+   backward 9 times; then 10
    steps timed on the host clock with the launch counters zeroed just
    before and read just after; every parameter moved; the device time of
    one step (CUDA events behind a spin; whether the spin covered the
    step's enqueue is checked and printed), the device's idle share and a
-   torch.profiler breakdown of one step by category, with the eager
-   backward of each port kernel and Adam on their own; then 2 fp32 steps
+   torch.profiler breakdown of one step by category, with the backward
+   of each port kernel's Function (TPReLU's its kernel, by name; LIS's and
+   the seed's eager) and Adam on their own; then 2 fp32 steps
    with kernels against 2 with plain versions (metrics, step 1's
    gradients, parameters), beside a second run of the plain versions;
 8. the trainer, `python -m gea_torch.cli.train_glis` called in-process at
@@ -63,19 +73,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. R-separate, `python -m gea_torch.cli.train_r_separate` called
    in-process against phase 8's main run directory as its frozen G (and D):
    40 steps with renders and saves at 20, with exactly 40 steps' and 2
-   renders' launches (TPReLU 13, LIS 6, seed 2 a step; 10, 6, 2 a render);
+   renders' launches (TPReLU 13, its backward 10, LIS 6, seed 2 a step;
+   10, 0, 6, 2 a render);
    the run directory's artifacts; every parameter of R got a finite,
    non-zero gradient and moved; the frozen G and D are unchanged bit for
    bit and hold no gradient; a bitwise checkpoint round trip of the R
    state; 10 bare steps timed as in phase 7 (wall, images/s, device time,
    idle share, a torch.profiler breakdown by category with each port
-   kernel's forward and eager backward on their own); a relaunch resuming
+   kernel's forward and backward on their own); a relaunch resuming
    at 40 to 60 with exact launches; 2 fp32 steps with kernels against 2
    with plain versions beside a second plain run;
 10. R-iterative, `python -m gea_torch.cli.train_r_iterative` in-process at
    flagship width with `--r_chain_length 2 --lambda_r 0.9` and synthetic
-   data drawn on the device: the same list (TPReLU 43, seed 6 a step; 17,
-   3 a render), with G, D and R all trained;
+   data drawn on the device: the same list (TPReLU 43, its backward 26,
+   seed 6 a step; 17, 0, 3 a render), with G, D and R all trained;
 11. evaluation (`gea_torch.eval.fid`, the trainers' `--fid_interval` and
    the offline evaluators), on the run directories phases 8-10 leave:
    both feature networks on the card, fp32 without TF32, against the golden
@@ -163,15 +174,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
 15. print one JSON line of the serving results, one of the training
    results, one of the trainer's, one of the R trainers', one of the
    evaluation's, one of the samplers', one of export and serving, one of
-   phase 14's, one of phase 16's, one of phase 17's, one of per-kernel results (per train step; `launches` counts
-   phase 7's timed steps, `launches_trainer` the trainer's first run,
+   phase 14's, one of phase 16's, one of phase 17's, one of phase 18's,
+   one of per-kernel results (four: the three forwards and TPReLU's
+   backward; per train step; `launches` counts phase 7's timed steps,
+   `launches_trainer` the trainer's first run,
    `launches_r_separate` and `launches_r_iterative` the R trainers' first
    runs, `launches_eval` phase 11's tracked runs and evaluators,
    `launches_samplers` phase 12's runs, `launches_serving` phase 6's live
    `sample_filtered` and one call of each of phase 13's artifacts,
    `launches_graphed` phase 14(a)'s 2 replays of the G-LIS graph,
    `launches_dp` phase 16(a)'s 10 DP steps, `launches_batch` phase 17(a)'s
-   10 batch-norm steps), the card's name and power
+   10 batch-norm steps, `launches_tp` phase 18(a)'s step a rank;
+   `step_profile_ms` the kernel's time in phase 7's profiled step, by
+   name), the card's name and power
    limit, and last `{"ok": true, "device": {...}}`;
 16. (run before the lines of 15 are printed) data parallelism at `gea`'s
    fifth milestone shape, G-LIS-3 at 160x160 with spatial_code 4, bf16,
@@ -200,7 +215,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    BCE, batch 64: 2 fp32 steps with kernels against 2 with plain versions
    under deterministic algorithms (metrics, step 1's gradients, the
    parameters, and the running statistics within STATS_TOL), exact
-   launches (LIS 6, TPReLU 17, seed 0 a step: G runs twice), 10 timed
+   launches (LIS 6, TPReLU 17, its backward 13 without da and db, seed 0 a
+   step: G runs twice), 10 timed
    eager steps (wall, images/s, device busy, idle share, by category;
    `launches_batch` in the `kernels` line counts them), the K = 8
    dispatcher's warm-up putting G and D back bit for bit, 16 eager steps
@@ -229,7 +245,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    parameters, EMA and Adam against the single process's, wall and
    device ms a step (two processes sharing one card: not a speed), and 2
    fp32 steps under deterministic algorithms against 2 single-process
-   steps (phase 16's gates); (b) `train_glis --model_shards 2` on the one
+   steps (phase 16's gates); in both, every kernel's inputs at the rank's
+   own shapes (TPReLU's backward too) held against its plain version;
+   (b) `train_glis --model_shards 2` on the one
    card raises `gea`'s "needs multiple devices" SystemExit; (c) phase 12's
    demo JPEGs as two LSUN class folders, `train_glis --dataset lsun
    --lsun_classes tower,church_outdoor` for 10 steps with exact launches,
@@ -351,6 +369,7 @@ TOL = {
 }
 SOURCES = {
     "fused_tprelu": ("triton", "gea_torch/ops/tprelu.py", "gea/ops/pallas/tprelu.py:50"),
+    "fused_tprelu_backward": ("triton", "gea_torch/ops/tprelu.py", "gea/ops/pallas/tprelu.py:80"),
     "lis_residual_mlp": ("cuda", "gea_torch/csrc/lis.cu", "gea/ops/pallas/lis.py:89"),
     "fused_seed": ("cuda", "gea_torch/csrc/seed.cu", "gea/ops/pallas/seed.py:129"),
 }
@@ -420,7 +439,8 @@ def device_profile(fn) -> tuple:
 # Kernel names by what they do, for the render + score breakdown; the
 # first rule that matches wins.
 CATEGORIES = (
-    ("port kernels", ("seed_tap_gemm", "seed_kernel_f32", "lis_kernel", "tprelu_kernel")),
+    ("port kernels", ("seed_tap_gemm", "seed_kernel_f32", "lis_kernel", "tprelu_kernel",
+                      "tprelu_grad_")),
     ("library convs (cuDNN)", ("xmma", "cudnn", "cutlass", "nhwc", "implicit_gemm")),
     ("library matmuls (cuBLAS)", ("gemm", "gemv")),
     ("eager elementwise and reductions", ("at::native",)),
@@ -630,6 +650,170 @@ def check_kernels(cfg) -> dict:
     return results
 
 
+def backward_cases(cfg):
+    """(label, launches per train step, make(dtype) -> x, a, b, g) of
+    TPReLU's backward at every TPReLU case's shape: each TPReLU of the
+    step is differentiated, with da and db. g comes in x's dtype, as the
+    bf16 step hands it on."""
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for name, label, _, per_step, make in cases(cfg):
+        if name == "fused_tprelu":
+            def make_bwd(dt, make=make):
+                (x, a, b), _, _ = make(dt)
+                return x, a, b, randn(x.shape, gen, 0.1, dt)
+            out.append((label, per_step, make_bwd))
+    return out
+
+
+def backward_cost(x, need_ab: bool) -> tuple:
+    """(bytes, operations) of one TPReLU backward: x and g read and dx
+    written once, a and b read and da and db written in fp32; about 4
+    operations an element for dx, 6 more for the two products and sums."""
+    m_c, c = x.numel(), x.shape[-1]
+    return 3 * m_c * x.element_size() + 16 * c, (10 if need_ab else 4) * m_c
+
+
+def function_backward_cost(name: str, args) -> tuple:
+    """(bytes, operations) of one backward of `name`'s Function, every
+    gradient asked for, from `gea`'s `_bwd`: each saved input it needs and
+    the cotangent read once, each gradient written once (the small vectors
+    in fp32); LIS recomputes the hidden row and runs four more products,
+    the seed recomputes the projection, then takes its two gradients and
+    the transposed conv's two."""
+    if name == "fused_tprelu":
+        return backward_cost(args[0], True)
+    z = args[0]
+    e = z.element_size()
+    if name == "lis_residual_mlp":
+        (b, c), h = z.shape, args[1].shape[1]
+        return e * (3 * b * c + 4 * c * h) + 4 * (6 * h + c), 10 * b * c * h
+    wp, wc, s0 = args[1], args[5], args[7]
+    (n, code), p = z.shape, wp.shape[1]
+    c0, c1, out = wc.shape[2], wc.shape[3], n * (2 * s0) ** 2 * wc.shape[3]
+    conv = 2 * n * (2 * s0) ** 2 * 4 * c0 * c1
+    return (e * (2 * n * code + 2 * code * p + 32 * c0 * c1 + out) + 4 * (2 * p + 4 * c0 + 2 * c1),
+            6 * n * code * p + 2 * conv)
+
+
+# TPReLU's backward: the kernel and its plain version round the same
+# products to the same type and sum them in fp32, in another order, in both
+# dtypes. Sound runs read about 5e-7 of the largest da and db; a kernel
+# that left a bf16 rounding out reads about 1e-3 (`check_backward` prints
+# what each left-out rounding would read).
+BWD_SUM_TOL = 1e-5
+
+
+def compare_backward(label: str, dt, args) -> tuple:
+    """TPReLU's backward kernel against its plain version on `args` (x, a,
+    b, g, need_ab): dx equal bit for bit (the same roundings, no sum), da
+    and db within BWD_SUM_TOL of their largest magnitude (sums in another
+    order). (largest relative da/db error, largest |error|)."""
+    got, want = ops.fused_tprelu_backward(*args), ops.fused_tprelu_backward_plain(*args)
+    torch.cuda.synchronize()
+    if got[0].dtype != want[0].dtype or not torch.equal(got[0], want[0]):
+        bad = (got[0].float() != want[0].float()).sum().item()
+        raise AssertionError(f"fused_tprelu_backward {label} {dt}: dx differs from the plain "
+                             f"version at {bad} elements ({got[0].dtype} vs {want[0].dtype})")
+    rel, abs_err = 0.0, 0.0
+    for what, k, p in (("da", got[1], want[1]), ("db", got[2], want[2])):
+        if (k is None) != (p is None):
+            raise AssertionError(f"fused_tprelu_backward {label}: {what} {k} vs {p}")
+        if p is None:
+            continue
+        if k.dtype != p.dtype or not torch.isfinite(k).all():
+            raise AssertionError(f"fused_tprelu_backward {label} {dt}: {what} {k.dtype} vs "
+                                 f"{p.dtype}, finite {torch.isfinite(k).all().item()}")
+        err = (k.float() - p.float()).abs().max().item()
+        abs_err = max(abs_err, err)
+        rel = max(rel, err / max(p.float().abs().max().item(), 1e-30))
+    if not rel <= BWD_SUM_TOL:
+        raise AssertionError(f"fused_tprelu_backward {label} {dt}: da/db differ by {rel:.3e} "
+                             f"of their max > {BWD_SUM_TOL}")
+    return rel, abs_err
+
+
+def left_out_roundings(x, a, b, g) -> dict:
+    """What `compare_backward` would read (relative da/db error) from a
+    kernel that left out one of the plain version's bf16 roundings: the
+    products g*s and g*(1 - fprime) kept in fp32, or 1 - fprime kept in
+    fp32 (products still rounded). Eager ops on the plain version's
+    inputs; bf16 x and g."""
+    _, da, db = ops.fused_tprelu_backward_plain(x, a, b, g)
+    s = x - b.to(x.dtype)
+    neg = s < 0
+    q = 1 - torch.where(neg, a.to(x.dtype), torch.ones_like(x))  # 1 - fprime, in bf16
+    q32 = 1 - torch.where(neg, a.to(x.dtype), torch.ones_like(x)).float()
+    axes = tuple(range(x.dim() - 1))
+    gf, zero = g.float(), torch.zeros((), device=x.device)
+    variants = {
+        "products in fp32": (torch.where(neg, gf * s.float(), zero).sum(axes),
+                             (gf * q.float()).sum(axes)),
+        "1 - fprime in fp32": (da, (gf * q32).to(torch.bfloat16).float().sum(axes)),
+    }
+    out = {}
+    for what, (va, vb) in variants.items():
+        out[what] = max(((v.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                        for v, w in ((va, da), (vb, db)))
+    return out
+
+
+def check_backward(cfg, rows: dict) -> None:
+    """Phase 3 for TPReLU's backward kernel at every TPReLU case's shape,
+    in fp32 and bf16, with da and db and without them: `compare_backward`,
+    and the kernel's time beside the plain version's, the bound and the
+    empty launch. The bf16 calls with da and db (the G-LIS step's) make
+    its row, summed per train step."""
+    floor_ms = rows["fused_tprelu"]["empty_launch_ms"]
+    row = rows["fused_tprelu_backward"] = {
+        "name": "fused_tprelu_backward", "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bound_by": "bytes", "render_ms": 0.0, "render_plain_ms": 0.0, "render_bound_ms": 0.0,
+        "max_abs_err": 0.0, "max_abs_err_fp32": 0.0, "shapes": [], "composite_ms": None,
+        "empty_launch_ms": floor_ms, "backward_ms": None, "backward_step_ms": None,
+        "max_rel_err_da_db": 0.0, "left_out": {},
+    }
+    for label, per_step, make in backward_cases(cfg):
+        for dt in (torch.float32, torch.bfloat16):
+            x, a, b, g = make(dt)
+            if dt == torch.bfloat16 and per_step:
+                for what, r in left_out_roundings(x, a, b, g).items():
+                    row["left_out"][what] = min(row["left_out"].get(what, 1.0), r)
+                    print(f"[kernel] fused_tprelu_backward {label:44s} bf16 a kernel with "
+                          f"{what} would read da/db max|err|/max {r:.3e} (tol {BWD_SUM_TOL})",
+                          flush=True)
+            for need in (True, False):
+                args = (x, a, b, g, need)
+                rel, abs_err = compare_backward(label, dt, args)
+                k_ms = time_ms(lambda: ops.fused_tprelu_backward(*args))
+                p_ms = time_ms(lambda: ops.fused_tprelu_backward_plain(*args))
+                b_ms, b_by = bound(*backward_cost(x, need), dt)
+                print(f"[kernel] fused_tprelu_backward {label:44s} {str(dt)[6:]:8s} "
+                      f"{'dx, da, db' if need else 'dx only':10s} dx bit for bit; da/db "
+                      f"max|err|/max {rel:.3e} (tol {BWD_SUM_TOL})  kernel {k_ms:.4f} ms  "
+                      f"plain {p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  empty launch "
+                      f"{floor_ms:.4f} ms  x{per_step if need else 0}/step", flush=True)
+                row["max_rel_err_da_db"] = max(row["max_rel_err_da_db"], rel)
+                key = "max_abs_err" if dt == torch.bfloat16 else "max_abs_err_fp32"
+                row[key] = max(row[key], abs_err)
+                if dt == torch.bfloat16 and need:
+                    row["ms"] += per_step * k_ms
+                    row["plain_ms"] += per_step * p_ms
+                    row["bound_ms"] += per_step * b_ms
+                    row["shapes"].append({"shape": label, "per_step": per_step, "ms": k_ms,
+                                          "plain_ms": p_ms, "bound_ms": b_ms})
+            del x, a, b, g
+    print(f"[kernel] fused_tprelu_backward per G-LIS step (bf16, with da and db): kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms",
+          flush=True)
+    missed = row["left_out"]["products in fp32"]
+    print(f"[kernel] fused_tprelu_backward: sound runs read at most {row['max_rel_err_da_db']:.3e}"
+          f" of da/db's max; a kernel with a rounding left out at least {row['left_out']} (tol "
+          f"{BWD_SUM_TOL})", flush=True)
+    if not missed > BWD_SUM_TOL:
+        raise AssertionError(f"BWD_SUM_TOL {BWD_SUM_TOL} would pass a kernel that left the bf16 "
+                             f"product rounding out ({missed:.3e})")
+
+
 def check_edges() -> dict:
     """Shapes the flagship never reaches, which exercise the kernels' masks:
     a ragged batch, the smallest and largest s0, widths that are not tile
@@ -642,6 +826,31 @@ def check_edges() -> dict:
         (7, 256, 5, 512, 256),
     ]
     lis_shapes = [(30, 256, 256), (30, 40, 48), (1, 256, 512)]  # (batch, code, hidden)
+    # (rows, channels): C not a power of two, one row, rows that are not a
+    # multiple of the backward's tile (32 rows at C = 64) nor of the forward's;
+    # the backward with da and db at each, and at each one more case: dx
+    # only, or an fp32 cotangent into bf16 x (eager promotion: the products
+    # in fp32; with fp32 x that is the first case again).
+    tprelu_shapes = [((777, 3), "dx only"), ((130, 5), "fp32 g"), ((333, 96), "dx only"),
+                     ((45, 1000), "fp32 g"), ((1, 64), "dx only"), ((4097, 64), "fp32 g"),
+                     ((3, 2, 7, 96), "dx only")]
+    for dt in (torch.float32, torch.bfloat16):
+        for shape, extra in tprelu_shapes:
+            c = shape[-1]
+            x, g = randn(shape, gen, 1.0, dt), randn(shape, gen, 0.1, dt)
+            a, b = torch.rand(c, generator=gen).cuda() * 0.5, randn(c, gen, 0.1)
+            label = f"TPReLU {shape}"
+            errs[f"{label} {str(dt)[6:]}"] = compare("fused_tprelu", label, dt, ops.fused_tprelu(
+                x, a, b), ops.fused_tprelu_plain(x, a, b))
+            variants = [(g, True)]
+            if extra == "dx only":
+                variants.append((g, False))
+            elif dt == torch.bfloat16:
+                variants.append((g.float(), True))
+            for g_, need in variants:
+                what = (f"backward {label} g {str(g_.dtype)[6:]} "
+                        f"{'dx, da, db' if need else 'dx only'}")
+                errs[f"{what} {str(dt)[6:]}"] = compare_backward(what, dt, (x, a, b, g_, need))[0]
     for dt in (torch.float32, torch.bfloat16):
         for batch, code, s0, c0, c1 in seed_shapes:
             p = s0 * s0 * c0
@@ -677,8 +886,9 @@ GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def check_grads(cfg, kernel_rows: dict) -> dict:
-    """Each kernel's Function (kernel forward, eager backward) against
-    autograd through its plain version at every case's shape (the R
+    """Each kernel's Function (kernel forward; TPReLU's backward a kernel
+    too, LIS's and the seed's eager) against autograd through its plain
+    version at every case's shape (the R
     trainers differentiate through the scoring and R-only shapes too), for
     one random cotangent; the device time of each Function's backward in
     bf16 at the train step's shapes, summed per train step into the
@@ -688,6 +898,7 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
     for name, label, _, per_step, make in cases(cfg):
         row = kernel_rows[name]
         row.setdefault("backward_ms", 0.0)
+        row.setdefault("backward_bound_ms", 0.0)
         for dt in (torch.float32, torch.bfloat16):
             args, _, _ = make(dt)
             grads, backward, cot = [], None, None
@@ -716,12 +927,20 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
             if dt == torch.bfloat16 and per_step:
                 with cudnn_tf32():  # as the train step is timed
                     bwd_ms = time_ms(backward)
+                b_ms, b_by = bound(*function_backward_cost(name, args), dt)
                 row["backward_ms"] += per_step * bwd_ms
-                extra = f"  backward {bwd_ms:.4f} ms x{per_step}/step"
+                row["backward_bound_ms"] += per_step * b_ms
+                extra = (f"  backward {bwd_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}) "
+                         f"x{per_step}/step")
             errs[f"{name} {label} {str(dt)[6:]}"] = rel
-            print(f"[grad] {name:16s} {label:60s} {str(dt)[6:]:8s} max|err|/max|grad| "
-                  f"{rel:.3e} (tol {GRAD_TOL[dt]}){extra}", flush=True)
+            print(f"[grad] {name:16s} {label:60s} {str(dt)[6:]:8s} kernel forward, "
+                  f"{BACKWARD_KIND[name]}: max|err|/max|grad| {rel:.3e} (tol "
+                  f"{GRAD_TOL[dt]}){extra}", flush=True)
             del args, grads, backward
+    for name in PORT_BACKWARD.values():
+        row = kernel_rows[name]
+        print(f"[grad] {name} backward ({BACKWARD_KIND[name]}) per G-LIS step, bf16: "
+              f"{row['backward_ms']:.4f} ms, bound {row['backward_bound_ms']:.4f} ms", flush=True)
     return errs
 
 
@@ -744,8 +963,8 @@ def serving(cfg, kernel_rows: dict) -> dict:
 
     renders = COUNT * OVERSAMPLE // BATCH
     n_act = 2 * (generator_plan(cfg.image_size)[1] - 1)
-    want = {"fused_tprelu": n_act * renders, "lis_residual_mlp": cfg.r_iterations * renders,
-            "fused_seed": renders}
+    want = {"fused_tprelu": n_act * renders, "fused_tprelu_backward": 0,
+            "lis_residual_mlp": cfg.r_iterations * renders, "fused_seed": renders}
     print(f"[serve] launch counts over {renders} renders: {counts} (want {want})", flush=True)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -873,14 +1092,20 @@ def fp32_agreement(cfg) -> dict:
 
 # --------------------------------------------------------------- train step
 
-# Device kernels under these autograd nodes are the eager backward of a port
-# kernel's Function.
+# Device kernels under these autograd nodes are the backward of a port
+# kernel's Function: eager ops, except where they are a port kernel by name
+# (TPReLU's backward is its own kernel, `fused_tprelu_backward`).
 PORT_BACKWARD = {"FusedTPReLUBackward": "fused_tprelu",
                  "LISResidualMLPBackward": "lis_residual_mlp",
                  "FusedSeedBackward": "fused_seed"}
-# Device kernels of the port's forwards, by name.
-PORT_FORWARD = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
-                "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed"}
+# How each Function's backward runs.
+BACKWARD_KIND = {"fused_tprelu": "kernel backward, fused_tprelu_backward",
+                 "lis_residual_mlp": "eager backward", "fused_seed": "eager backward"}
+# Device kernels of the port, by name: the forwards and TPReLU's backward
+# (its two kernels, tprelu_grad_kernel and tprelu_grad_reduce).
+PORT_KERNELS = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
+                "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed",
+                "tprelu_grad_": "fused_tprelu_backward"}
 BACKWARD_CAT, OPTIMIZER_CAT = "eager backward of port kernels", "optimizer (Adam)"
 
 
@@ -888,8 +1113,11 @@ def step_profile(fn) -> dict:
     """torch.profiler (CPU and CUDA) over one call of `fn`: the device time
     of its kernels and copies by category and by kernel. A kernel launched
     under the autograd node of a port kernel's backward, or under Adam's
-    step, counts in those categories instead of the one its name gives;
-    one launched under any autograd node counts as backward."""
+    step, counts in those categories instead of the one its name gives,
+    unless it is a port kernel by name; one launched under any autograd
+    node counts as backward. `port_kernel_ms` holds each port kernel's
+    time by name (TPReLU's backward kernels as `fused_tprelu_backward`),
+    `port_backward_ms` each Function's backward, kernel or eager."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -923,19 +1151,22 @@ def step_profile(fn) -> dict:
             backward_ms += ms if in_backward else 0.0
             if port is None and not optim:
                 continue
+            if port is not None and kernel_category(k.name) == "port kernels":
+                backward[port] += ms
+                continue
             cats[kernel_category(k.name)] -= ms
             cat = BACKWARD_CAT if port is not None else OPTIMIZER_CAT
             cats[cat] = cats.get(cat, 0.0) + ms
             if port is not None:
                 backward[port] += ms
-    forward = dict.fromkeys(PORT_BACKWARD.values(), 0.0)
+    by_port = dict.fromkeys(PORT_KERNELS.values(), 0.0)
     for name, ms, _ in rows:
-        port = next((k for key, k in PORT_FORWARD.items() if key in name), None)
+        port = next((k for key, k in PORT_KERNELS.items() if key in name), None)
         if port is not None:
-            forward[port] += ms
+            by_port[port] += ms
     return {"device_ms": sum(r[1] for r in rows), "backward_device_ms": backward_ms,
             "launches": sum(r[2] for r in rows), "by_category": cats,
-            "port_forward_ms": forward, "port_backward_ms": backward, "by_kernel": rows}
+            "port_kernel_ms": by_port, "port_backward_ms": backward, "by_kernel": rows}
 
 
 def cycles_per_ms() -> float:
@@ -1011,9 +1242,7 @@ def _training(cfg, kernel_rows: dict, smi: str) -> dict:
     real = real_batch(cfg)
     params = named_params(state)
     before = {n: p.detach().clone() for n, p in params.items()}
-    _, d = generator_plan(cfg.image_size)
-    per_step = {"fused_tprelu": 3 * (d - 1), "lis_residual_mlp": cfg.r_iterations,
-                "fused_seed": 1}
+    per_step = glis_launches(tcfg)[0]
 
     # Warm-up step 1: launches per step, and a gradient for every parameter.
     ops.reset_launch_counts()
@@ -1103,8 +1332,13 @@ def _training(cfg, kernel_rows: dict, smi: str) -> dict:
     for cat, t in sorted(profiled["by_category"].items(), key=lambda kv: -kv[1]):
         print(f"[train] step by category: {t:8.4f} ms {cat}", flush=True)
     for name, t in profiled["port_backward_ms"].items():
-        print(f"[train] eager backward of {name}: {t:.4f} ms a step", flush=True)
+        print(f"[train] backward of {name} ({BACKWARD_KIND[name]}): {t:.4f} ms a step",
+              flush=True)
         kernel_rows[name]["backward_step_ms"] = t
+    for name, t in profiled["port_kernel_ms"].items():  # each port kernel, by name
+        kernel_rows[name]["step_profile_ms"] = t
+        print(f"[train] {name}'s kernels in the step profile: {t:.4f} ms a step (bound "
+              f"{kernel_rows[name]['bound_ms']:.4f} ms)", flush=True)
     for n, t, c in profiled["by_kernel"][:16]:
         print(f"[train] step by kernel: {t:8.4f} ms x{c:<4d} {n[:90]}", flush=True)
     print(f"[train] metrics, first and last timed step: {history[0]} {history[-1]}", flush=True)
@@ -1328,10 +1562,14 @@ def glis_launches(cfg) -> tuple:
     """(launches of a G-LIS train step, of a render of every stage): a
     render has one seed call, a LIS link per module and a TPReLU per
     upsampling block after the seed's; the step renders once, and D's trunk
-    (as many TPReLUs) runs on the reals and fakes and again for G's loss."""
+    (as many TPReLUs) runs on the reals and fakes and again for G's loss.
+    All three are differentiated, so each TPReLU of the step has its
+    backward; a render has none."""
     acts = generator_plan(cfg.image_size)[1] - 1
-    return ({"fused_tprelu": 3 * acts, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1},
-            {"fused_tprelu": acts, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1})
+    return ({"fused_tprelu": 3 * acts, "fused_tprelu_backward": 3 * acts,
+             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1},
+            {"fused_tprelu": acts, "fused_tprelu_backward": 0,
+             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1})
 
 
 def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
@@ -1502,7 +1740,7 @@ def timed_steps(tag: str, run_step, smi: str) -> dict:
     warm-up steps, then TRAIN_STEPS synced steps on the host clock (finite
     metrics), the device time of one step (CUDA events behind a spin), the
     device's idle share and a torch.profiler breakdown by category, with
-    each port kernel's forward and eager backward on their own."""
+    each port kernel's forward and backward on their own."""
     for _ in range(2):
         run_step()
     walls, history = [], []
@@ -1525,7 +1763,7 @@ def timed_steps(tag: str, run_step, smi: str) -> dict:
         "step_device_busy_ms": profiled["device_ms"], "step_device_idle_share": idle,
         "step_backward_device_ms": profiled["backward_device_ms"],
         "step_device_launches": profiled["launches"], "step_by_category": profiled["by_category"],
-        "port_forward_ms": profiled["port_forward_ms"],
+        "port_kernel_ms": profiled["port_kernel_ms"],
         "port_backward_ms": profiled["port_backward_ms"],
         "step_by_kernel": [{"name": n[:90], "ms": t, "count": c}
                            for n, t, c in profiled["by_kernel"][:16]],
@@ -1539,8 +1777,11 @@ def timed_steps(tag: str, run_step, smi: str) -> dict:
     for cat, t in sorted(profiled["by_category"].items(), key=lambda kv: -kv[1]):
         print(f"[{tag}] step by category: {t:8.4f} ms {cat}", flush=True)
     for name in PORT_BACKWARD.values():
-        print(f"[{tag}] {name}: forward {profiled['port_forward_ms'][name]:.4f} ms, eager "
-              f"backward {profiled['port_backward_ms'][name]:.4f} ms a step", flush=True)
+        print(f"[{tag}] {name}: forward {profiled['port_kernel_ms'][name]:.4f} ms, "
+              f"{BACKWARD_KIND[name]} {profiled['port_backward_ms'][name]:.4f} ms a step",
+              flush=True)
+    print(f"[{tag}] fused_tprelu_backward's kernels by name: "
+          f"{profiled['port_kernel_ms']['fused_tprelu_backward']:.4f} ms a step", flush=True)
     for n, t, c in profiled["by_kernel"][:12]:
         print(f"[{tag}] step by kernel: {t:8.4f} ms x{c:<4d} {n[:90]}", flush=True)
     return result
@@ -1645,10 +1886,12 @@ def r_separate(tmp: str, g_run: str, kernel_rows: dict, smi: str) -> dict:
 def r_separate_launches(cfg) -> tuple:
     """(launches of an R-separate step, of a corrected render)."""
     acts = generator_plan(cfg.image_size)[1] - 1  # TPReLUs of one G render, of D's trunk
-    # A render: before, R (trunk + head), after; a step adds D on it.
-    per_render = {"fused_tprelu": acts + (acts + 1) + acts,
+    # A render: before, R (trunk + head), after; a step adds D on it and
+    # differentiates D, the after render and R (the before render is not).
+    per_render = {"fused_tprelu": acts + (acts + 1) + acts, "fused_tprelu_backward": 0,
                   "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2}
-    return {**per_render, "fused_tprelu": per_render["fused_tprelu"] + acts}, per_render
+    return {**per_render, "fused_tprelu": per_render["fused_tprelu"] + acts,
+            "fused_tprelu_backward": 3 * acts + 1}, per_render
 
 
 def r_separate_config(g_run: str, args: list) -> TrainRSeparateConfig:
@@ -1721,10 +1964,12 @@ def r_iterative_launches(cfg) -> tuple:
     acts, links = generator_plan(cfg.image_size)[1] - 1, cfg.r_chain_length
     chain = (links + 1) * acts + links * (acts + 1)  # renders and R's of one unroll
     # A step: the D step's unroll, D on real and on fakes, the joint
-    # unroll and D on its images.
-    return ({"fused_tprelu": 2 * chain + 3 * acts, "lis_residual_mlp": 0,
-             "fused_seed": 2 * (links + 1)},
-            {"fused_tprelu": chain, "lis_residual_mlp": 0, "fused_seed": links + 1})
+    # unroll and D on its images; all but the D step's unroll (no grad)
+    # are differentiated.
+    return ({"fused_tprelu": 2 * chain + 3 * acts, "fused_tprelu_backward": chain + 3 * acts,
+             "lis_residual_mlp": 0, "fused_seed": 2 * (links + 1)},
+            {"fused_tprelu": chain, "fused_tprelu_backward": 0, "lis_residual_mlp": 0,
+             "fused_seed": links + 1})
 
 
 def r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
@@ -2188,6 +2433,7 @@ def sampler_clis(tmp: str, demo_run: str, kernel_rows: dict, smi: str) -> dict:
     def correction(steps: int) -> dict:
         # steps + 1 renders and steps R calls (trunk + head) a batch.
         return {"fused_tprelu": (steps + 1) * acts + steps * (acts + 1),
+                "fused_tprelu_backward": 0,
                 "lis_residual_mlp": (steps + 1) * rsep_cfg.r_iterations, "fused_seed": steps + 1}
 
     def chain(links: int) -> dict:
@@ -2296,7 +2542,8 @@ def render_golden(smi: str) -> dict:
            "pixels": images[:, :, y, x, c], "d_logits": logits.cpu().double().numpy()}
     errs = {k: float(np.abs(v - np.asarray(golden[k])).max()) for k, v in got.items()}
     acts = generator_plan(cfg.image_size)[1] - 1
-    want = {"fused_tprelu": 2 * acts, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1}
+    want = {"fused_tprelu": 2 * acts, "fused_tprelu_backward": 0,
+            "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1}
     print(f"[samplers] flagship fp32 render + D vs gea's golden: max |err| {errs} (tol "
           f"{GOLDEN_TOL}); launches {counts} (want {want}); {smi}", flush=True)
     if max(errs.values()) > GOLDEN_TOL or counts != want:
@@ -2697,6 +2944,7 @@ def graph_trainers() -> dict:
 # launches one call makes: a bf16 seed call is two launches of seed_tap_gemm
 # (the projection, then the transposed conv).
 KERNEL_EVENTS = {"fused_tprelu": (("tprelu_kernel", 1),),
+                 "fused_tprelu_backward": (("tprelu_grad_kernel", 1),),
                  "lis_residual_mlp": (("lis_kernel_", 1),),
                  "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1))}
 
@@ -3666,11 +3914,14 @@ def bn_launches(cfg) -> tuple:
     forward runs a LIS link per module and a TPReLU (LeakyReLU 0.2) after
     each of its d batch norms; the step runs G twice (the first forward's
     statistics are dropped) and D's trunk (d - 1 TPReLUs) three times: on
-    the reals, on the fakes and for G's loss."""
+    the reals, on the fakes and for G's loss. The second G forward and the
+    three D forwards are differentiated: d + 3 (d - 1) TPReLU backwards, each
+    without da and db (the LeakyReLU's slope and offset are fixed)."""
     d = generator_plan(cfg.image_size)[1]
-    render = {"fused_tprelu": d, "lis_residual_mlp": cfg.r_iterations, "fused_seed": 0}
-    return ({"fused_tprelu": 2 * d + 3 * (d - 1), "lis_residual_mlp": 2 * cfg.r_iterations,
-             "fused_seed": 0}, render)
+    render = {"fused_tprelu": d, "fused_tprelu_backward": 0,
+              "lis_residual_mlp": cfg.r_iterations, "fused_seed": 0}
+    return ({"fused_tprelu": 2 * d + 3 * (d - 1), "fused_tprelu_backward": d + 3 * (d - 1),
+             "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 0}, render)
 
 
 def bn_state(cfg, **kw):
@@ -4053,11 +4304,13 @@ class HostStaged(Collectives):
         out.copy_(h)
 
 
-# Where the models call each kernel's wrapper (module, name): the names a
-# recording swaps for a spy that keeps the inputs and calls the wrapper.
-KERNEL_SITES = (("gea_torch.models.generator", "lis_residual_mlp"),
-                ("gea_torch.models.generator", "fused_seed"),
-                ("gea_torch.ops.layers", "fused_tprelu"))
+# Where the models call each kernel's wrapper (module, name, kernel): the
+# names a recording swaps for a spy that keeps the inputs and calls the
+# wrapper. TPReLU's backward is called by its Function, through `_backward`.
+KERNEL_SITES = (("gea_torch.models.generator", "lis_residual_mlp", "lis_residual_mlp"),
+                ("gea_torch.models.generator", "fused_seed", "fused_seed"),
+                ("gea_torch.ops.layers", "fused_tprelu", "fused_tprelu"),
+                ("gea_torch.ops.tprelu", "_backward", "fused_tprelu_backward"))
 
 
 @contextlib.contextmanager
@@ -4066,11 +4319,11 @@ def recorded_inputs(store: dict):
     models give a kernel, detached copies, into `store`; the calls still
     launch the kernels."""
     saved = []
-    for module, name in KERNEL_SITES:
+    for module, name, kernel in KERNEL_SITES:
         mod = importlib.import_module(module)
         fn = getattr(mod, name)
 
-        def spy(*args, _fn=fn, _name=name):
+        def spy(*args, _fn=fn, _name=kernel):
             key = (_name, tuple(args[0].shape), args[0].dtype)
             if key not in store:
                 store[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a
@@ -4087,20 +4340,26 @@ def recorded_inputs(store: dict):
 
 
 def check_recorded(store: dict, rows: int, tag: str) -> dict:
-    """Each recorded kernel input against the kernel's plain version at
-    check_kernels' TOL; every kernel must have been recorded, LIS and the
-    seed at this rank's `rows` (the seed on the S stages' stacked rows)."""
+    """Each recorded kernel input against the kernel's plain version, the
+    forwards at check_kernels' TOL (max |err|), TPReLU's backward by
+    `compare_backward` (dx bit for bit; the da/db error relative to their
+    max); every kernel must have been recorded, LIS and the seed at this
+    rank's `rows` (the seed on the S stages' stacked rows)."""
     got = {name for name, _, _ in store}
-    if got != set(KERNEL):
+    if got != {*KERNEL, "fused_tprelu_backward"}:
         raise AssertionError(f"{tag}: recorded {sorted(got)}, not every kernel of the step")
     out = {}
     with torch.no_grad():
         for (name, shape, dt), args in sorted(store.items(), key=str):
-            if name != "fused_tprelu" and shape[0] % rows:
+            if not name.startswith("fused_tprelu") and shape[0] % rows:
                 raise AssertionError(f"{tag}: {name} at {shape}, not this rank's {rows} rows")
             label = f"{tag} {name} {shape}"
-            out[f"{name} {shape} {str(dt)[6:]}"] = compare(
-                name, label, dt, KERNEL[name](*args), PLAIN[name](*args))
+            if name == "fused_tprelu_backward":
+                out[f"{name} {shape} {str(dt)[6:]} (dx bitwise; da/db rel)"] = compare_backward(
+                    label, dt, args)[0]
+            else:
+                out[f"{name} {shape} {str(dt)[6:]}"] = compare(
+                    name, label, dt, KERNEL[name](*args), PLAIN[name](*args))
     return out
 
 
@@ -4441,6 +4700,7 @@ def main() -> int:
 
     cfg = FLAGSHIP
     rows = check_kernels(cfg)
+    check_backward(cfg, rows)
     grads = check_grads(cfg, rows)
     edges = check_edges()
     served = serving(cfg, rows)
@@ -4486,10 +4746,12 @@ def main() -> int:
             "library_ms": None, "composite_ms": row["composite_ms"],
             "empty_launch_ms": row["empty_launch_ms"],
             "backward_ms": row["backward_ms"], "backward_step_ms": row["backward_step_ms"],
+            "step_profile_ms": row.get("step_profile_ms"),
+            "backward_bound_ms": row.get("backward_bound_ms"),
             "render_ms": row["render_ms"], "render_plain_ms": row["render_plain_ms"],
             "render_bound_ms": row["render_bound_ms"],
-            "per": "bf16, one flagship train step (all its forward launches); render_* per "
-                   "scored render",
+            "per": "bf16, one flagship train step (every launch of the kernel in it); "
+                   "render_* per scored render",
             "shapes": row["shapes"],
         })
     print(json.dumps({"serving": served, "fp32_agreement": fp32, "edges": edges,

@@ -1,6 +1,7 @@
 """The port's kernels, one module each, with their plain PyTorch versions:
 
-* `tprelu` (Triton)   replaces `gea/ops/pallas/tprelu.py::fused_tprelu`;
+* `tprelu` (Triton)   replaces `gea/ops/pallas/tprelu.py::fused_tprelu`, with
+  its backward `fused_tprelu_backward` (`_bwd` there) as a second kernel;
 * `lis`    (CUDA C++) replaces `gea/ops/pallas/lis.py::lis_residual_mlp`;
 * `seed`   (CUDA C++) replaces `gea/ops/pallas/seed.py::fused_seed`.
 
@@ -15,9 +16,14 @@ are those of the kernels that ran.
 
 from gea_torch.ops.lis import lis_residual_mlp, lis_residual_mlp_plain  # noqa: F401
 from gea_torch.ops.seed import fused_seed, fused_seed_plain  # noqa: F401
-from gea_torch.ops.tprelu import fused_tprelu, fused_tprelu_plain  # noqa: F401
+from gea_torch.ops.tprelu import (  # noqa: F401
+    fused_tprelu,
+    fused_tprelu_backward,
+    fused_tprelu_backward_plain,
+    fused_tprelu_plain,
+)
 
-KERNELS = (fused_tprelu, lis_residual_mlp, fused_seed)
+KERNELS = (fused_tprelu, fused_tprelu_backward, lis_residual_mlp, fused_seed)
 
 
 def reset_launch_counts() -> None:

@@ -71,8 +71,8 @@ def test_cpu_calls_launch_nothing(rng):
     """On a CPU tensor each wrapper runs its plain version and counts no
     launch."""
     ops.reset_launch_counts()
-    x = _t(rng.standard_normal((4, 8)))
-    ops.fused_tprelu(x, torch.full((8,), 0.25), torch.zeros(8))
+    x = _t(rng.standard_normal((4, 8))).requires_grad_(True)
+    ops.fused_tprelu(x, torch.full((8,), 0.25), torch.zeros(8)).sum().backward()
     z = _t(rng.standard_normal((2, 8)))
     w = _t(rng.standard_normal((8, 8)))
     v = torch.zeros(8)
@@ -80,7 +80,7 @@ def test_cpu_calls_launch_nothing(rng):
     ops.fused_seed(z, _t(rng.standard_normal((8, 4 * 4 * 4))), torch.zeros(64),
                    v[:4], v[:4], _t(rng.standard_normal((4, 4, 4, 2))), v[:2], 4)
     assert ops.launch_counts() == {
-        "fused_tprelu": 0, "lis_residual_mlp": 0, "fused_seed": 0
+        "fused_tprelu": 0, "fused_tprelu_backward": 0, "lis_residual_mlp": 0, "fused_seed": 0
     }
 
 
