@@ -19,10 +19,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    TPReLU shape, in fp32 and bf16, with da and db and without: dx equal to
    the plain version's bit for bit, da and db within BWD_SUM_TOL, its time
    beside the plain version's, the bound (x and g read, dx written) and
-   the empty launch;
+   the empty launch; the seed's backward kernels (`fused_seed_backward`)
+   at both seed shapes, in fp32 and bf16, with every gradient and with dz
+   alone: each gradient within SEED_BWD_TOL of its max and its mean error
+   within SEED_BWD_MEAN_TOL of its mean, what a kernel that left the ds
+   rounding out would read (which must exceed the limit), the time beside
+   the plain version's, the bf16 composite's backward (cuBLAS, cuDNN), the
+   bound and the empty launch;
 4. at the train step's shapes, in fp32 and bf16: each kernel's
-   `torch.autograd.Function` (kernel forward; TPReLU's backward the
-   kernel, LIS's and the seed's eager) against autograd through its plain
+   `torch.autograd.Function` (kernel forward; the backwards of TPReLU and
+   the seed their kernels, LIS's eager) against autograd through its plain
    version, gradients of every input within a stated tolerance, and the
    device time of each backward;
 5. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
@@ -31,7 +37,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tile and at widths below one tile; TPReLU and its backward at C = 3, 5,
    96 and 1000, one row and rows that are not a multiple of a tile, the
    backward with da and db at each and, at each, without them or with an
-   fp32 cotangent into bf16 x;
+   fp32 cotangent into bf16 x; the seed's backward at each seed shape and
+   at c0 = c1 = 512 (config 5's), with every gradient and with dz alone;
 6. build flagship-width G and D from seeded random params in `gea`'s tree
    layout and run `ServingModel.from_modules(G, D).sample_filtered(64,
    oversample=4, batch_size=64)` in bf16 with the launch counters zeroed just before and
@@ -42,15 +49,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
 7. the main path, the G-LIS train step (`gea_torch.train`) at flagship
    width in bf16 with batch 64 and BCE: 2 warm-up steps, of which the first
    checks that every parameter of G and D got a finite, non-zero gradient
-   and that one step launches seed 1, LIS 3, TPReLU 9 and TPReLU's
-   backward 9 times; then 10
+   and that one step launches seed 1, LIS 3, TPReLU 9, TPReLU's
+   backward 9 and the seed's backward once; then 10
    steps timed on the host clock with the launch counters zeroed just
    before and read just after; every parameter moved; the device time of
    one step (CUDA events behind a spin; whether the spin covered the
    step's enqueue is checked and printed), the device's idle share and a
    torch.profiler breakdown of one step by category, with the backward
-   of each port kernel's Function (TPReLU's its kernel, by name; LIS's and
-   the seed's eager) and Adam on their own; then 2 fp32 steps
+   of each port kernel's Function (TPReLU's and the seed's their kernels,
+   by name, with no cuBLAS or cuDNN kernel under the seed's; LIS's eager)
+   and Adam on their own; then 2 fp32 steps
    with kernels against 2 with plain versions (metrics, step 1's
    gradients, parameters), beside a second run of the plain versions;
 8. the trainer, `python -m gea_torch.cli.train_glis` called in-process at
@@ -73,8 +81,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. R-separate, `python -m gea_torch.cli.train_r_separate` called
    in-process against phase 8's main run directory as its frozen G (and D):
    40 steps with renders and saves at 20, with exactly 40 steps' and 2
-   renders' launches (TPReLU 13, its backward 10, LIS 6, seed 2 a step;
-   10, 0, 6, 2 a render);
+   renders' launches (TPReLU 13, its backward 10, LIS 6, seed 2, the
+   seed's backward 1 with dz alone, a step; 10, 0, 6, 2, 0 a render);
    the run directory's artifacts; every parameter of R got a finite,
    non-zero gradient and moved; the frozen G and D are unchanged bit for
    bit and hold no gradient; a bitwise checkpoint round trip of the R
@@ -86,7 +94,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 10. R-iterative, `python -m gea_torch.cli.train_r_iterative` in-process at
    flagship width with `--r_chain_length 2 --lambda_r 0.9` and synthetic
    data drawn on the device: the same list (TPReLU 43, its backward 26,
-   seed 6 a step; 17, 0, 3 a render), with G, D and R all trained;
+   seed 6, the seed's backward 3 a step; 17, 0, 3, 0 a render), with G, D
+   and R all trained;
 11. evaluation (`gea_torch.eval.fid`, the trainers' `--fid_interval` and
    the offline evaluators), on the run directories phases 8-10 leave:
    both feature networks on the card, fp32 without TF32, against the golden
@@ -372,6 +381,7 @@ SOURCES = {
     "fused_tprelu_backward": ("triton", "gea_torch/ops/tprelu.py", "gea/ops/pallas/tprelu.py:80"),
     "lis_residual_mlp": ("cuda", "gea_torch/csrc/lis.cu", "gea/ops/pallas/lis.py:89"),
     "fused_seed": ("cuda", "gea_torch/csrc/seed.cu", "gea/ops/pallas/seed.py:129"),
+    "fused_seed_backward": ("cuda", "gea_torch/csrc/seed_bwd.cu", "gea/ops/pallas/seed.py:203"),
 }
 
 
@@ -440,7 +450,7 @@ def device_profile(fn) -> tuple:
 # first rule that matches wins.
 CATEGORIES = (
     ("port kernels", ("seed_tap_gemm", "seed_kernel_f32", "lis_kernel", "tprelu_kernel",
-                      "tprelu_grad_")),
+                      "tprelu_grad_", "seed_bwd_")),
     ("library convs (cuDNN)", ("xmma", "cudnn", "cutlass", "nhwc", "implicit_gemm")),
     ("library matmuls (cuBLAS)", ("gemm", "gemv")),
     ("eager elementwise and reductions", ("at::native",)),
@@ -814,6 +824,192 @@ def check_backward(cfg, rows: dict) -> None:
                              f"product rounding out ({missed:.3e})")
 
 
+# The seed's backward: the kernels and the plain version round dh and ds to
+# z's dtype and sum in fp32, in other orders. fp32: each gradient within
+# SEED_BWD_TOL of its max. bf16: another order of the fp32 sum behind dh can
+# round an element of dh (so of ds) to the neighbouring bf16 value, and dz,
+# dwp and dwc are rounded to bf16 themselves, so single elements move by a
+# step of 2^-8 of their size: the max is held at 2e-2 of the gradient's max
+# (as GRAD_TOL). A rounding left out moves every element instead: the mean
+# |error| over the mean |gradient| of dwp, dbp and dwc (sums over the batch,
+# short enough that the order of their fp32 sums leaves them nearly exact;
+# sound runs read up to 4.6e-5 in bf16) is held at SEED_BWD_MEAN_TOL, and
+# `check_seed_backward` prints what a kernel that left the ds rounding out
+# would read (4.0e-4 on the H100). dz, dslope and dtrans sum over thousands
+# of terms that cancel: there the order alone moves the mean by up to
+# 1.2e-4.
+SEED_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SEED_BWD_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.5e-4}
+SEED_MEAN_CHECKED = ("dwp", "dbp", "dwc")
+SEED_GRADS = ("dz", "dwp", "dbp", "dslope", "dtrans", "dwc", "dbc")
+ALL_GRADS, DZ_ONLY = (True,) * 7, (True,) + (False,) * 6
+
+
+def seed_backward_cases(cfg):
+    """(label, launches per G-LIS step, make(dtype) -> (z, wp, bp, slope,
+    trans, wc, bc, g, s0)) at every seed case's shape, g in z's dtype."""
+    gen = torch.Generator().manual_seed(4)
+    out = []
+    for name, label, _, per_step, make in cases(cfg):
+        if name == "fused_seed":
+            def make_bwd(dt, make=make):
+                args, _, _ = make(dt)
+                z, wc, s0 = args[0], args[5], args[7]
+                return (*args[:7], randn((z.shape[0], 2 * s0, 2 * s0, wc.shape[3]), gen, 0.1, dt),
+                        s0)
+            out.append((label, per_step, make_bwd))
+    return out
+
+
+def seed_backward_cost(args, need) -> tuple:
+    """(bytes, operations) of one seed backward: `function_backward_cost`
+    with every gradient; with dz alone z, wp, wc and g read, dz written, and
+    the projection recomputed, the conv's data gradient and dz's product."""
+    if all(need):
+        return function_backward_cost("fused_seed", (*args[:7], args[8]))
+    z, wp, wc, s0 = args[0], args[1], args[5], args[8]
+    (n, code), p = z.shape, wp.shape[1]
+    c0, c1 = wc.shape[2], wc.shape[3]
+    out = n * (2 * s0) ** 2 * c1
+    e = z.element_size()
+    return (e * (2 * n * code + code * p + 16 * c0 * c1 + out) + 4 * (p + 2 * c0),
+            4 * n * code * p + 2 * out * 4 * c0)
+
+
+def seed_errors(got, want) -> dict:
+    """{gradient: (max |err| / max |want|, mean |err| / mean |want|, max |err|)}."""
+    out = {}
+    for what, k, w in zip(SEED_GRADS, got, want):
+        if w is None:
+            continue
+        err = (k.float() - w.float()).abs()
+        out[what] = ((err.max() / w.float().abs().max().clamp_min(1e-30)).item(),
+                     (err.mean() / w.float().abs().mean().clamp_min(1e-30)).item(),
+                     err.max().item())
+    return out
+
+
+def compare_seed_backward(label: str, dt, args, need) -> tuple:
+    """The seed's backward kernels against the plain version on `args` (z,
+    wp, bp, slope, trans, wc, bc, g, s0): gradients not asked for None,
+    each asked for in its input's dtype, finite, within SEED_BWD_TOL of its
+    max, and dwp, dbp and dwc within SEED_BWD_MEAN_TOL of their mean.
+    (largest max-relative error, largest mean-relative error of those three,
+    largest |error|)."""
+    got = ops.fused_seed_backward(*args, need)
+    want = ops.fused_seed_backward_plain(*args, need)
+    torch.cuda.synchronize()
+    for what, k, w, x in zip(SEED_GRADS, got, want, args):
+        if (k is None) != (w is None):
+            raise AssertionError(f"fused_seed_backward {label}: {what} {k} vs {w}")
+        if w is not None and (k.dtype != w.dtype or k.dtype != x.dtype
+                              or not torch.isfinite(k).all()):
+            raise AssertionError(f"fused_seed_backward {label} {dt}: {what} {k.dtype} vs "
+                                 f"{w.dtype}, finite {torch.isfinite(k).all().item()}")
+    errs = seed_errors(got, want)
+    for what, (rel, mean_rel, _) in errs.items():
+        if not (rel <= SEED_BWD_TOL[dt] and (what not in SEED_MEAN_CHECKED
+                                             or mean_rel <= SEED_BWD_MEAN_TOL[dt])):
+            raise AssertionError(
+                f"fused_seed_backward {label} {dt}: {what} differs by {rel:.3e} of its max "
+                f"(tol {SEED_BWD_TOL[dt]}), {mean_rel:.3e} of its mean (tol "
+                f"{SEED_BWD_MEAN_TOL[dt]} for {SEED_MEAN_CHECKED})")
+    return (max(v[0] for v in errs.values()),
+            max([v[1] for k, v in errs.items() if k in SEED_MEAN_CHECKED], default=0.0),
+            max(v[2] for v in errs.values()))
+
+
+def seed_left_out_rounding(args) -> float:
+    """What `compare_seed_backward` would read (the larger mean-relative
+    error of dwp and dbp) from a kernel that left out the plain
+    version's rounding of ds to bf16: eager ops on the same inputs, dh from
+    cuDNN rounded to bf16 as the plain version rounds it."""
+    z, wp, bp, slope, trans, wc, bc, g, s0 = args
+    n, c0 = z.shape[0], wc.shape[2]
+    s = (z.double() @ wp.double()).float().add(bp.float()).view(n, s0, s0, c0) - trans.float()
+    dh = torch.nn.functional.conv2d(g.float().permute(0, 3, 1, 2), wc.float().permute(2, 3, 0, 1),
+                                    stride=2, padding=1).permute(0, 2, 3, 1)
+    dh = dh.to(z.dtype).float()
+    ds = torch.where(s < 0, slope.float() * dh, dh).reshape(n, -1)
+    variant = [None, (z.float().t() @ ds).to(wp.dtype), ds.sum(0)]
+    want = ops.fused_seed_backward_plain(*args, (False, True, True) + (False,) * 4)[:3]
+    return max(v[1] for v in seed_errors(variant, want).values())
+
+
+def check_seed_backward(cfg, rows: dict) -> None:
+    """Phase 3 for the seed's backward kernels at both seed shapes (the
+    G-LIS step's stacked codes and R-iterative's batch), in fp32 and bf16,
+    with every gradient and with dz alone (a frozen G's):
+    `compare_seed_backward`, and the time beside the plain version's, the
+    bound and the empty launch; in bf16 with every gradient also the
+    backward of the bf16 library composite (`seed_composite` under
+    autograd: cuBLAS and cuDNN, a yardstick the port never calls) and what a
+    kernel that left the ds rounding out would read. The bf16 calls with
+    every gradient (the G-LIS step's) make its row, summed per train
+    step."""
+    floor_ms = rows["fused_seed"]["empty_launch_ms"]
+    row = rows["fused_seed_backward"] = {
+        "name": "fused_seed_backward", "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bound_by": "operations", "render_ms": 0.0, "render_plain_ms": 0.0,
+        "render_bound_ms": 0.0, "max_abs_err": 0.0, "max_abs_err_fp32": 0.0, "shapes": [],
+        "composite_ms": None, "empty_launch_ms": floor_ms, "backward_ms": None,
+        "backward_step_ms": None, "max_rel_err": {}, "max_mean_rel_err": {},
+        "left_out_ds_rounding": None,
+    }
+    for label, per_step, make in seed_backward_cases(cfg):
+        for dt in (torch.float32, torch.bfloat16):
+            args = make(dt)
+            for need in (ALL_GRADS, DZ_ONLY):
+                what = "every gradient" if need == ALL_GRADS else "dz alone"
+                rel, mean_rel, abs_err = compare_seed_backward(label, dt, args, need)
+                k_ms = time_ms(lambda: ops.fused_seed_backward(*args, need))
+                p_ms = time_ms(lambda: ops.fused_seed_backward_plain(*args, need))
+                b_ms, b_by = bound(*seed_backward_cost(args, need), dt)
+                key = f"{str(dt)[6:]} {what}"
+                row["max_rel_err"][key] = max(row["max_rel_err"].get(key, 0.0), rel)
+                row["max_mean_rel_err"][key] = max(row["max_mean_rel_err"].get(key, 0.0), mean_rel)
+                err_key = "max_abs_err" if dt == torch.bfloat16 else "max_abs_err_fp32"
+                row[err_key] = max(row[err_key], abs_err)
+                extra = ""
+                if dt == torch.bfloat16 and need == ALL_GRADS:
+                    leaves = [a.detach().clone().requires_grad_(True) for a in args[:7]]
+                    lib = list(leaves) + [args[8]]
+                    lib[5] = leaves[5].permute(2, 3, 0, 1)
+                    out = seed_composite(*lib)
+                    c_ms = time_ms(lambda: torch.autograd.grad(out, leaves, args[7],
+                                                               retain_graph=True))
+                    missed = seed_left_out_rounding(args)
+                    row["left_out_ds_rounding"] = min(row["left_out_ds_rounding"] or 1.0, missed)
+                    extra = (f"  composite backward {c_ms:.4f} ms; a kernel without the ds "
+                             f"rounding would read {missed:.3e} of the mean")
+                    if per_step:
+                        row["ms"] += per_step * k_ms
+                        row["plain_ms"] += per_step * p_ms
+                        row["bound_ms"] += per_step * b_ms
+                        row["composite_ms"] = (row["composite_ms"] or 0.0) + per_step * c_ms
+                    row["shapes"].append({"shape": label, "per_step": per_step, "ms": k_ms,
+                                          "plain_ms": p_ms, "bound_ms": b_ms,
+                                          "composite_ms": c_ms})
+                    del out, leaves, lib
+                print(f"[kernel] fused_seed_backward {label:44s} {str(dt)[6:]:8s} {what:14s} "
+                      f"max|err|/max {rel:.3e} (tol {SEED_BWD_TOL[dt]}), mean|err|/mean "
+                      f"{mean_rel:.3e} (tol {SEED_BWD_MEAN_TOL[dt]})  kernel {k_ms:.4f} ms  plain "
+                      f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  empty launch "
+                      f"{floor_ms:.4f} ms{extra}  x{per_step if need == ALL_GRADS else 0}/step",
+                      flush=True)
+            del args
+    print(f"[kernel] fused_seed_backward per G-LIS step (bf16, every gradient): kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, composite backward "
+          f"{row['composite_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms", flush=True)
+    missed = row["left_out_ds_rounding"]
+    print(f"[kernel] fused_seed_backward: sound runs read at most {row['max_mean_rel_err']} of "
+          f"the mean; a kernel without the ds rounding at least {missed:.3e} (tol "
+          f"{SEED_BWD_MEAN_TOL[torch.bfloat16]})", flush=True)
+    if not missed > SEED_BWD_MEAN_TOL[torch.bfloat16]:
+        raise AssertionError(f"SEED_BWD_MEAN_TOL {SEED_BWD_MEAN_TOL[torch.bfloat16]} would pass a "
+                             f"kernel that left the ds rounding out ({missed:.3e})")
+
+
 def check_edges() -> dict:
     """Shapes the flagship never reaches, which exercise the kernels' masks:
     a ragged batch, the smallest and largest s0, widths that are not tile
@@ -824,6 +1020,7 @@ def check_edges() -> dict:
         (33, 256, 4, 256, 96),
         (33, 40, 7, 256, 96),
         (7, 256, 5, 512, 256),
+        (9, 256, 5, 512, 512),  # config 5's widths (the DP step's)
     ]
     lis_shapes = [(30, 256, 256), (30, 40, 48), (1, 256, 512)]  # (batch, code, hidden)
     # (rows, channels): C not a power of two, one row, rows that are not a
@@ -861,6 +1058,11 @@ def check_edges() -> dict:
             label = f"seed batch {batch} code {code} s0 {s0} c0 {c0} c1 {c1}"
             errs[f"{label} {str(dt)[6:]}"] = compare(
                 "fused_seed", label, dt, ops.fused_seed(*args), ops.fused_seed_plain(*args))
+            g = randn((batch, 2 * s0, 2 * s0, c1), gen, 0.1, dt)
+            for need in (ALL_GRADS, DZ_ONLY):
+                what = f"backward {label} {'every gradient' if need == ALL_GRADS else 'dz alone'}"
+                errs[f"{what} {str(dt)[6:]}"] = compare_seed_backward(
+                    what, dt, (*args[:7], g, s0), need)[0]
         for batch, code, hidden in lis_shapes:
             args = (randn((batch, code), gen, 1.0, dt), randn((code, hidden), gen, code**-0.5, dt),
                     randn(hidden, gen, 0.1), torch.rand(hidden, generator=gen).cuda() * 0.5,
@@ -886,8 +1088,8 @@ GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def check_grads(cfg, kernel_rows: dict) -> dict:
-    """Each kernel's Function (kernel forward; TPReLU's backward a kernel
-    too, LIS's and the seed's eager) against autograd through its plain
+    """Each kernel's Function (kernel forward; the backwards of TPReLU and
+    the seed kernels too, LIS's eager) against autograd through its plain
     version at every case's shape (the R
     trainers differentiate through the scoring and R-only shapes too), for
     one random cotangent; the device time of each Function's backward in
@@ -964,7 +1166,8 @@ def serving(cfg, kernel_rows: dict) -> dict:
     renders = COUNT * OVERSAMPLE // BATCH
     n_act = 2 * (generator_plan(cfg.image_size)[1] - 1)
     want = {"fused_tprelu": n_act * renders, "fused_tprelu_backward": 0,
-            "lis_residual_mlp": cfg.r_iterations * renders, "fused_seed": renders}
+            "lis_residual_mlp": cfg.r_iterations * renders, "fused_seed": renders,
+            "fused_seed_backward": 0}
     print(f"[serve] launch counts over {renders} renders: {counts} (want {want})", flush=True)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -1094,18 +1297,23 @@ def fp32_agreement(cfg) -> dict:
 
 # Device kernels under these autograd nodes are the backward of a port
 # kernel's Function: eager ops, except where they are a port kernel by name
-# (TPReLU's backward is its own kernel, `fused_tprelu_backward`).
+# (the backwards of TPReLU and the seed are kernels of their own,
+# `fused_tprelu_backward` and `fused_seed_backward`).
 PORT_BACKWARD = {"FusedTPReLUBackward": "fused_tprelu",
                  "LISResidualMLPBackward": "lis_residual_mlp",
                  "FusedSeedBackward": "fused_seed"}
 # How each Function's backward runs.
 BACKWARD_KIND = {"fused_tprelu": "kernel backward, fused_tprelu_backward",
-                 "lis_residual_mlp": "eager backward", "fused_seed": "eager backward"}
-# Device kernels of the port, by name: the forwards and TPReLU's backward
-# (its two kernels, tprelu_grad_kernel and tprelu_grad_reduce).
+                 "lis_residual_mlp": "eager backward",
+                 "fused_seed": "kernel backward, fused_seed_backward"}
+# Device kernels of the port, by name: the forwards, TPReLU's backward (its
+# two kernels, tprelu_grad_kernel and tprelu_grad_reduce) and the seed's
+# (seed_bwd_tc, seed_bwd_f32, seed_bwd_act, seed_bwd_colsum,
+# seed_bwd_reduce).
 PORT_KERNELS = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
                 "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed",
-                "tprelu_grad_": "fused_tprelu_backward"}
+                "tprelu_grad_": "fused_tprelu_backward", "seed_bwd_": "fused_seed_backward"}
+LIBRARY_CATS = ("library convs (cuDNN)", "library matmuls (cuBLAS)")
 BACKWARD_CAT, OPTIMIZER_CAT = "eager backward of port kernels", "optimizer (Adam)"
 
 
@@ -1116,8 +1324,10 @@ def step_profile(fn) -> dict:
     step, counts in those categories instead of the one its name gives,
     unless it is a port kernel by name; one launched under any autograd
     node counts as backward. `port_kernel_ms` holds each port kernel's
-    time by name (TPReLU's backward kernels as `fused_tprelu_backward`),
-    `port_backward_ms` each Function's backward, kernel or eager."""
+    time by name (TPReLU's backward kernels as `fused_tprelu_backward`,
+    the seed's as `fused_seed_backward`), `port_backward_ms` each
+    Function's backward, kernel or eager, and `port_backward_library` the
+    cuBLAS and cuDNN kernels launched under each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1135,6 +1345,7 @@ def step_profile(fn) -> dict:
     rows = sorted(((n, ms, c) for n, (ms, c) in by_kernel.items()), key=lambda r: -r[1])
     cats = by_category(rows)
     backward = dict.fromkeys(PORT_BACKWARD.values(), 0.0)
+    library = {k: [] for k in PORT_BACKWARD.values()}
     backward_ms = 0.0
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -1154,6 +1365,8 @@ def step_profile(fn) -> dict:
             if port is not None and kernel_category(k.name) == "port kernels":
                 backward[port] += ms
                 continue
+            if port is not None and kernel_category(k.name) in LIBRARY_CATS:
+                library[port].append(k.name[:90])
             cats[kernel_category(k.name)] -= ms
             cat = BACKWARD_CAT if port is not None else OPTIMIZER_CAT
             cats[cat] = cats.get(cat, 0.0) + ms
@@ -1166,7 +1379,8 @@ def step_profile(fn) -> dict:
             by_port[port] += ms
     return {"device_ms": sum(r[1] for r in rows), "backward_device_ms": backward_ms,
             "launches": sum(r[2] for r in rows), "by_category": cats,
-            "port_kernel_ms": by_port, "port_backward_ms": backward, "by_kernel": rows}
+            "port_kernel_ms": by_port, "port_backward_ms": backward,
+            "port_backward_library": library, "by_kernel": rows}
 
 
 def cycles_per_ms() -> float:
@@ -1332,9 +1546,12 @@ def _training(cfg, kernel_rows: dict, smi: str) -> dict:
     for cat, t in sorted(profiled["by_category"].items(), key=lambda kv: -kv[1]):
         print(f"[train] step by category: {t:8.4f} ms {cat}", flush=True)
     for name, t in profiled["port_backward_ms"].items():
-        print(f"[train] backward of {name} ({BACKWARD_KIND[name]}): {t:.4f} ms a step",
-              flush=True)
+        print(f"[train] backward of {name} ({BACKWARD_KIND[name]}): {t:.4f} ms a step; "
+              f"library kernels under it: {profiled['port_backward_library'][name]}", flush=True)
         kernel_rows[name]["backward_step_ms"] = t
+    if profiled["port_backward_library"]["fused_seed"]:
+        raise AssertionError(f"cuBLAS or cuDNN kernels under FusedSeedBackward: "
+                             f"{profiled['port_backward_library']['fused_seed']}")
     for name, t in profiled["port_kernel_ms"].items():  # each port kernel, by name
         kernel_rows[name]["step_profile_ms"] = t
         print(f"[train] {name}'s kernels in the step profile: {t:.4f} ms a step (bound "
@@ -1564,12 +1781,12 @@ def glis_launches(cfg) -> tuple:
     upsampling block after the seed's; the step renders once, and D's trunk
     (as many TPReLUs) runs on the reals and fakes and again for G's loss.
     All three are differentiated, so each TPReLU of the step has its
-    backward; a render has none."""
+    backward, and so has the seed (the render); a render has none."""
     acts = generator_plan(cfg.image_size)[1] - 1
     return ({"fused_tprelu": 3 * acts, "fused_tprelu_backward": 3 * acts,
-             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1},
+             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1, "fused_seed_backward": 1},
             {"fused_tprelu": acts, "fused_tprelu_backward": 0,
-             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1})
+             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1, "fused_seed_backward": 0})
 
 
 def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
@@ -1781,7 +1998,9 @@ def timed_steps(tag: str, run_step, smi: str) -> dict:
               f"{BACKWARD_KIND[name]} {profiled['port_backward_ms'][name]:.4f} ms a step",
               flush=True)
     print(f"[{tag}] fused_tprelu_backward's kernels by name: "
-          f"{profiled['port_kernel_ms']['fused_tprelu_backward']:.4f} ms a step", flush=True)
+          f"{profiled['port_kernel_ms']['fused_tprelu_backward']:.4f} ms a step; "
+          f"fused_seed_backward's: {profiled['port_kernel_ms']['fused_seed_backward']:.4f} ms "
+          f"a step", flush=True)
     for n, t, c in profiled["by_kernel"][:12]:
         print(f"[{tag}] step by kernel: {t:8.4f} ms x{c:<4d} {n[:90]}", flush=True)
     return result
@@ -1887,11 +2106,13 @@ def r_separate_launches(cfg) -> tuple:
     """(launches of an R-separate step, of a corrected render)."""
     acts = generator_plan(cfg.image_size)[1] - 1  # TPReLUs of one G render, of D's trunk
     # A render: before, R (trunk + head), after; a step adds D on it and
-    # differentiates D, the after render and R (the before render is not).
+    # differentiates D, the after render (its seed for dz alone) and R (the
+    # before render is not).
     per_render = {"fused_tprelu": acts + (acts + 1) + acts, "fused_tprelu_backward": 0,
-                  "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2}
+                  "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2,
+                  "fused_seed_backward": 0}
     return {**per_render, "fused_tprelu": per_render["fused_tprelu"] + acts,
-            "fused_tprelu_backward": 3 * acts + 1}, per_render
+            "fused_tprelu_backward": 3 * acts + 1, "fused_seed_backward": 1}, per_render
 
 
 def r_separate_config(g_run: str, args: list) -> TrainRSeparateConfig:
@@ -1965,11 +2186,13 @@ def r_iterative_launches(cfg) -> tuple:
     chain = (links + 1) * acts + links * (acts + 1)  # renders and R's of one unroll
     # A step: the D step's unroll, D on real and on fakes, the joint
     # unroll and D on its images; all but the D step's unroll (no grad)
-    # are differentiated.
+    # are differentiated, so each of the joint unroll's links + 1 renders
+    # has a seed backward.
     return ({"fused_tprelu": 2 * chain + 3 * acts, "fused_tprelu_backward": chain + 3 * acts,
-             "lis_residual_mlp": 0, "fused_seed": 2 * (links + 1)},
+             "lis_residual_mlp": 0, "fused_seed": 2 * (links + 1),
+             "fused_seed_backward": links + 1},
             {"fused_tprelu": chain, "fused_tprelu_backward": 0, "lis_residual_mlp": 0,
-             "fused_seed": links + 1})
+             "fused_seed": links + 1, "fused_seed_backward": 0})
 
 
 def r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
@@ -2434,7 +2657,8 @@ def sampler_clis(tmp: str, demo_run: str, kernel_rows: dict, smi: str) -> dict:
         # steps + 1 renders and steps R calls (trunk + head) a batch.
         return {"fused_tprelu": (steps + 1) * acts + steps * (acts + 1),
                 "fused_tprelu_backward": 0,
-                "lis_residual_mlp": (steps + 1) * rsep_cfg.r_iterations, "fused_seed": steps + 1}
+                "lis_residual_mlp": (steps + 1) * rsep_cfg.r_iterations, "fused_seed": steps + 1,
+                "fused_seed_backward": 0}
 
     def chain(links: int) -> dict:
         return r_iterative_launches(it_cfg.replace(r_chain_length=links))[1]
@@ -2543,7 +2767,7 @@ def render_golden(smi: str) -> dict:
     errs = {k: float(np.abs(v - np.asarray(golden[k])).max()) for k, v in got.items()}
     acts = generator_plan(cfg.image_size)[1] - 1
     want = {"fused_tprelu": 2 * acts, "fused_tprelu_backward": 0,
-            "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1}
+            "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1, "fused_seed_backward": 0}
     print(f"[samplers] flagship fp32 render + D vs gea's golden: max |err| {errs} (tol "
           f"{GOLDEN_TOL}); launches {counts} (want {want}); {smi}", flush=True)
     if max(errs.values()) > GOLDEN_TOL or counts != want:
@@ -2942,11 +3166,14 @@ def graph_trainers() -> dict:
 
 # Each wrapper's kernels by their names in a torch.profiler trace, with the
 # launches one call makes: a bf16 seed call is two launches of seed_tap_gemm
-# (the projection, then the transposed conv).
+# (the projection, then the transposed conv); every seed backward that
+# computes any gradient but dWc and dbc alone (every one a step asks for)
+# launches seed_bwd_act once.
 KERNEL_EVENTS = {"fused_tprelu": (("tprelu_kernel", 1),),
                  "fused_tprelu_backward": (("tprelu_grad_kernel", 1),),
                  "lis_residual_mlp": (("lis_kernel_", 1),),
-                 "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1))}
+                 "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1)),
+                 "fused_seed_backward": (("seed_bwd_act", 1),)}
 
 
 def calls_from(launches) -> dict:
@@ -3919,9 +4146,10 @@ def bn_launches(cfg) -> tuple:
     without da and db (the LeakyReLU's slope and offset are fixed)."""
     d = generator_plan(cfg.image_size)[1]
     render = {"fused_tprelu": d, "fused_tprelu_backward": 0,
-              "lis_residual_mlp": cfg.r_iterations, "fused_seed": 0}
+              "lis_residual_mlp": cfg.r_iterations, "fused_seed": 0, "fused_seed_backward": 0}
     return ({"fused_tprelu": 2 * d + 3 * (d - 1), "fused_tprelu_backward": d + 3 * (d - 1),
-             "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 0}, render)
+             "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 0,
+             "fused_seed_backward": 0}, render)
 
 
 def bn_state(cfg, **kw):
@@ -4310,7 +4538,8 @@ class HostStaged(Collectives):
 KERNEL_SITES = (("gea_torch.models.generator", "lis_residual_mlp", "lis_residual_mlp"),
                 ("gea_torch.models.generator", "fused_seed", "fused_seed"),
                 ("gea_torch.ops.layers", "fused_tprelu", "fused_tprelu"),
-                ("gea_torch.ops.tprelu", "_backward", "fused_tprelu_backward"))
+                ("gea_torch.ops.tprelu", "_backward", "fused_tprelu_backward"),
+                ("gea_torch.ops.seed", "_backward", "fused_seed_backward"))
 
 
 @contextlib.contextmanager
@@ -4343,10 +4572,12 @@ def check_recorded(store: dict, rows: int, tag: str) -> dict:
     """Each recorded kernel input against the kernel's plain version, the
     forwards at check_kernels' TOL (max |err|), TPReLU's backward by
     `compare_backward` (dx bit for bit; the da/db error relative to their
-    max); every kernel must have been recorded, LIS and the seed at this
-    rank's `rows` (the seed on the S stages' stacked rows)."""
+    max), the seed's by `compare_seed_backward` (the error relative to each
+    gradient's max); every kernel must have been recorded, LIS and the seed
+    (and its backward) at this rank's `rows` (the seed on the S stages'
+    stacked rows)."""
     got = {name for name, _, _ in store}
-    if got != {*KERNEL, "fused_tprelu_backward"}:
+    if got != {*KERNEL, "fused_tprelu_backward", "fused_seed_backward"}:
         raise AssertionError(f"{tag}: recorded {sorted(got)}, not every kernel of the step")
     out = {}
     with torch.no_grad():
@@ -4357,6 +4588,9 @@ def check_recorded(store: dict, rows: int, tag: str) -> dict:
             if name == "fused_tprelu_backward":
                 out[f"{name} {shape} {str(dt)[6:]} (dx bitwise; da/db rel)"] = compare_backward(
                     label, dt, args)[0]
+            elif name == "fused_seed_backward":
+                out[f"{name} {shape} {str(dt)[6:]} (rel to max)"] = compare_seed_backward(
+                    label, dt, args[:-1], args[-1])[0]
             else:
                 out[f"{name} {shape} {str(dt)[6:]}"] = compare(
                     name, label, dt, KERNEL[name](*args), PLAIN[name](*args))
@@ -4701,6 +4935,7 @@ def main() -> int:
     cfg = FLAGSHIP
     rows = check_kernels(cfg)
     check_backward(cfg, rows)
+    check_seed_backward(cfg, rows)
     grads = check_grads(cfg, rows)
     edges = check_edges()
     served = serving(cfg, rows)

@@ -255,36 +255,14 @@ seed_tap_gemm(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
 using ProjCfg = TapGemm<4, 4, 1>;
 using ConvCfg = TapGemm<4, 2, 4>;
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor of `rank` dims (innermost first, packed) in boxes of `box`,
+// A packed bf16 tensor of `rank` dims (innermost first) in boxes of `box`,
 // 128-byte swizzle; reads past an edge land as zeros.
 bool tensor_map(CUtensorMap* m, const void* p, int rank, const cuuint64_t* dims,
                 const cuuint32_t* box) {
   cuuint64_t strides[2];
   cuuint64_t stride = 2;
   for (int d = 0; d + 1 < rank; ++d) strides[d] = stride *= dims[d];
-  const cuuint32_t one[3] = {1, 1, 1};
-  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p), dims,
-                        strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return gea::tensor_map_bf16(m, p, rank, dims, strides, box);
 }
 
 int launch_bf16(const void* z, const void* wp, const void* bp, const void* slope,
@@ -292,7 +270,7 @@ int launch_bf16(const void* z, const void* wp, const void* bp, const void* slope
                 int batch, int code, int s0, int c0, int c1, cudaStream_t stream) {
   using A = ProjCfg;
   using B = ConvCfg;
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  if (gea::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   const int proj = s0 * s0 * c0;
   const cuuint64_t xa_dims[2] = {(cuuint64_t)code, (cuuint64_t)batch};
   const cuuint64_t wa_dims[3] = {(cuuint64_t)proj, (cuuint64_t)code, 1};

@@ -3,7 +3,9 @@
 * `tprelu` (Triton)   replaces `gea/ops/pallas/tprelu.py::fused_tprelu`, with
   its backward `fused_tprelu_backward` (`_bwd` there) as a second kernel;
 * `lis`    (CUDA C++) replaces `gea/ops/pallas/lis.py::lis_residual_mlp`;
-* `seed`   (CUDA C++) replaces `gea/ops/pallas/seed.py::fused_seed`.
+* `seed`   (CUDA C++) replaces `gea/ops/pallas/seed.py::fused_seed`, with
+  its backward `fused_seed_backward` (`_bwd` there) as a second set of
+  kernels (`csrc/seed_bwd.cu`).
 
 Nothing here builds or imports a GPU toolchain at import time.
 
@@ -15,7 +17,12 @@ are those of the kernels that ran.
 """
 
 from gea_torch.ops.lis import lis_residual_mlp, lis_residual_mlp_plain  # noqa: F401
-from gea_torch.ops.seed import fused_seed, fused_seed_plain  # noqa: F401
+from gea_torch.ops.seed import (  # noqa: F401
+    fused_seed,
+    fused_seed_backward,
+    fused_seed_backward_plain,
+    fused_seed_plain,
+)
 from gea_torch.ops.tprelu import (  # noqa: F401
     fused_tprelu,
     fused_tprelu_backward,
@@ -23,7 +30,8 @@ from gea_torch.ops.tprelu import (  # noqa: F401
     fused_tprelu_plain,
 )
 
-KERNELS = (fused_tprelu, fused_tprelu_backward, lis_residual_mlp, fused_seed)
+KERNELS = (fused_tprelu, fused_tprelu_backward, lis_residual_mlp, fused_seed,
+           fused_seed_backward)
 
 
 def reset_launch_counts() -> None:

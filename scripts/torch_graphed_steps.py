@@ -7,13 +7,15 @@ for comparing two checkouts of the repo on one card.
 Imports `gea_torch` and `chip_smoke` from `--root` (default: this
 checkout), builds the CUDA kernels there, and for each of four paths at
 flagship width, bf16, batch 64, BCE (`chip_smoke.graph_trainers()`: G-LIS,
-R-separate against a frozen G and D, R-iterative at chain length 2; and
-G-LIS with `--norm batch`, as phase 17 of `chip_smoke.py` builds it)
-captures a K = 8 `StepDispatcher` graph, then times REPLAYS replays with
-CUDA events (device ms a step: the span of a replay over K), takes one
-replay under torch.profiler (device busy ms a step; the time of kernels
-whose names hold `tprelu_grad_`, TPReLU's backward kernels) and reads the
-graph pool's peak MB. Prints one JSON line per path and writes them all
+R-separate against a frozen G and D, R-iterative at chain length 2;
+G-LIS with `--norm batch`, as phase 17 of `chip_smoke.py` builds it; and
+the data-parallel G-LIS step at config 5, 160x160, on a world-1 NCCL
+group, as phase 16 builds it) captures a K = 8 `StepDispatcher` graph,
+then times REPLAYS replays with CUDA events (device ms a step: the span of
+a replay over K), takes one replay under torch.profiler (device busy ms a
+step; the time of kernels whose names hold `tprelu_grad_`, TPReLU's
+backward kernels, and `seed_bwd_`, the seed's) and reads the graph pool's
+peak MB. Prints one JSON line per path and writes them all
 to `--out`. Two checkouts are compared within one call, in turns (A, B,
 B, A), each in its own process:
 
@@ -61,6 +63,11 @@ def main() -> int:
     bn = TrainGLISConfig.from_args(cs.BN_ARGS)
     entries["g-lis batch norm"] = (bn.replace(steps_per_dispatch=cs.GRAPH_K), cs.bn_state,
                                    build_glis_train_step, cs.real_batch(bn))
+    dp = cs.dp_world()
+    dp_cfg = cs.dp_config().replace(steps_per_dispatch=cs.GRAPH_K)
+    dp_params = cs.dp_params(dp_cfg)
+    entries["dp config 5"] = (dp_cfg, lambda c: cs.create_glis_state(c, *dp_params),
+                              lambda c: build_glis_train_step(c, dp=dp), cs.real_batch(dp_cfg))
     rows = []
     for tag, (cfg, make_state, build_step, real) in entries.items():
         k = cfg.steps_per_dispatch
@@ -81,15 +88,18 @@ def main() -> int:
             spans.append(start.elapsed_time(end) / k)
         busy, kernels = cs.device_profile(lambda: dispatch(state, reals))
         grad_ms = sum(ms for name, ms, _ in kernels if "tprelu_grad_" in name)
+        seed_ms = sum(ms for name, ms, _ in kernels if "seed_bwd_" in name)
         row = {"label": args.label, "path": tag, "k": k,
                "device_ms_per_step": statistics.median(spans), "spans_ms_per_step": spans,
                "busy_ms_per_step": busy / k, "tprelu_grad_ms_per_step": grad_ms / k,
+               "seed_bwd_ms_per_step": seed_ms / k,
                "pool_peak_mb": dispatch.chunks[k].pool_peak_mb, "first_call_s": first_s,
                "card": smi, "torch": torch.__version__}
         print(json.dumps(row), flush=True)
         rows.append(row)
         del state, step, dispatch
         torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "a") as f:

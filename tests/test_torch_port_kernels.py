@@ -77,10 +77,12 @@ def test_cpu_calls_launch_nothing(rng):
     w = _t(rng.standard_normal((8, 8)))
     v = torch.zeros(8)
     ops.lis_residual_mlp(z, w, v, v, v, w, v)
-    ops.fused_seed(z, _t(rng.standard_normal((8, 4 * 4 * 4))), torch.zeros(64),
-                   v[:4], v[:4], _t(rng.standard_normal((4, 4, 4, 2))), v[:2], 4)
+    ops.fused_seed(z.requires_grad_(True), _t(rng.standard_normal((8, 4 * 4 * 4))),
+                   torch.zeros(64), v[:4], v[:4], _t(rng.standard_normal((4, 4, 4, 2))), v[:2],
+                   4).sum().backward()
     assert ops.launch_counts() == {
-        "fused_tprelu": 0, "fused_tprelu_backward": 0, "lis_residual_mlp": 0, "fused_seed": 0
+        "fused_tprelu": 0, "fused_tprelu_backward": 0, "lis_residual_mlp": 0, "fused_seed": 0,
+        "fused_seed_backward": 0,
     }
 
 
