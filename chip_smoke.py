@@ -25,10 +25,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    within SEED_BWD_MEAN_TOL of its mean, what a kernel that left the ds
    rounding out would read (which must exceed the limit), the time beside
    the plain version's, the bf16 composite's backward (cuBLAS, cuDNN), the
-   bound and the empty launch;
+   bound and the empty launch; LIS's backward kernel
+   (`lis_residual_mlp_backward`) at the G-LIS step's link and at its
+   near-zero case (`lis_near_zero`: rows whose s lies within rounding of 0,
+   where an fp32 product would take the other branch), in fp32 and bf16,
+   with every gradient, dz alone and the weights alone: each gradient
+   within LIS_BWD_TOL of its max and the mean error of dz, dw1 and dw2
+   within LIS_BWD_MEAN_TOL of their mean, what a kernel that left the
+   roundings of h and dh_pre out would read (which must exceed the limit),
+   the time beside the plain version's, the bound and the empty launch;
 4. at the train step's shapes, in fp32 and bf16: each kernel's
-   `torch.autograd.Function` (kernel forward; the backwards of TPReLU and
-   the seed their kernels, LIS's eager) against autograd through its plain
+   `torch.autograd.Function` (kernel forward, kernel backward) against
+   autograd through its plain
    version, gradients of every input within a stated tolerance, and the
    device time of each backward;
 5. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
@@ -39,6 +47,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    backward with da and db at each and, at each, without them or with an
    fp32 cotangent into bf16 x; the seed's backward at each seed shape and
    at c0 = c1 = 512 (config 5's), with every gradient and with dz alone;
+   LIS's backward at batches 1, 17, 30, 33 and 128, at hidden 512
+   (`lis_hidden_mult` 2) and at widths below one tile, with every gradient,
+   dz alone and the weights alone;
 6. build flagship-width G and D from seeded random params in `gea`'s tree
    layout and run `ServingModel.from_modules(G, D).sample_filtered(64,
    oversample=4, batch_size=64)` in bf16 with the launch counters zeroed just before and
@@ -50,15 +61,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    width in bf16 with batch 64 and BCE: 2 warm-up steps, of which the first
    checks that every parameter of G and D got a finite, non-zero gradient
    and that one step launches seed 1, LIS 3, TPReLU 9, TPReLU's
-   backward 9 and the seed's backward once; then 10
+   backward 9, LIS's backward 3 and the seed's backward once; then 10
    steps timed on the host clock with the launch counters zeroed just
    before and read just after; every parameter moved; the device time of
    one step (CUDA events behind a spin; whether the spin covered the
    step's enqueue is checked and printed), the device's idle share and a
    torch.profiler breakdown of one step by category, with the backward
-   of each port kernel's Function (TPReLU's and the seed's their kernels,
-   by name, with no cuBLAS or cuDNN kernel under the seed's; LIS's eager)
-   and Adam on their own; then 2 fp32 steps
+   of each port kernel's Function (each its kernels, by name, with no
+   cuBLAS or cuDNN kernel under the seed's, and under LIS's none and no
+   kernel inside its op but the port's) and Adam on their own; then 2 fp32
+   steps
    with kernels against 2 with plain versions (metrics, step 1's
    gradients, parameters), beside a second run of the plain versions;
 8. the trainer, `python -m gea_torch.cli.train_glis` called in-process at
@@ -81,8 +93,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. R-separate, `python -m gea_torch.cli.train_r_separate` called
    in-process against phase 8's main run directory as its frozen G (and D):
    40 steps with renders and saves at 20, with exactly 40 steps' and 2
-   renders' launches (TPReLU 13, its backward 10, LIS 6, seed 2, the
-   seed's backward 1 with dz alone, a step; 10, 0, 6, 2, 0 a render);
+   renders' launches (TPReLU 13, its backward 10, LIS 6, LIS's backward 3
+   and the seed's backward 1, each with dz alone, seed 2, a step; 10, 0, 6,
+   0, 0, 2 a render);
    the run directory's artifacts; every parameter of R got a finite,
    non-zero gradient and moved; the frozen G and D are unchanged bit for
    bit and hold no gradient; a bitwise checkpoint round trip of the R
@@ -184,8 +197,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    results, one of the trainer's, one of the R trainers', one of the
    evaluation's, one of the samplers', one of export and serving, one of
    phase 14's, one of phase 16's, one of phase 17's, one of phase 18's,
-   one of per-kernel results (four: the three forwards and TPReLU's
-   backward; per train step; `launches` counts phase 7's timed steps,
+   one of per-kernel results (six: the three forwards and their
+   backwards; per train step; `launches` counts phase 7's timed steps,
    `launches_trainer` the trainer's first run,
    `launches_r_separate` and `launches_r_iterative` the R trainers' first
    runs, `launches_eval` phase 11's tracked runs and evaluators,
@@ -224,8 +237,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    BCE, batch 64: 2 fp32 steps with kernels against 2 with plain versions
    under deterministic algorithms (metrics, step 1's gradients, the
    parameters, and the running statistics within STATS_TOL), exact
-   launches (LIS 6, TPReLU 17, its backward 13 without da and db, seed 0 a
-   step: G runs twice), 10 timed
+   launches (LIS 6, its backward 3, TPReLU 17, its backward 13 without da
+   and db, seed 0 a step: G runs twice), 10 timed
    eager steps (wall, images/s, device busy, idle share, by category;
    `launches_batch` in the `kernels` line counts them), the K = 8
    dispatcher's warm-up putting G and D back bit for bit, 16 eager steps
@@ -380,6 +393,7 @@ SOURCES = {
     "fused_tprelu": ("triton", "gea_torch/ops/tprelu.py", "gea/ops/pallas/tprelu.py:50"),
     "fused_tprelu_backward": ("triton", "gea_torch/ops/tprelu.py", "gea/ops/pallas/tprelu.py:80"),
     "lis_residual_mlp": ("cuda", "gea_torch/csrc/lis.cu", "gea/ops/pallas/lis.py:89"),
+    "lis_residual_mlp_backward": ("cuda", "gea_torch/csrc/lis_bwd.cu", "gea/ops/pallas/lis.py:122"),
     "fused_seed": ("cuda", "gea_torch/csrc/seed.cu", "gea/ops/pallas/seed.py:129"),
     "fused_seed_backward": ("cuda", "gea_torch/csrc/seed_bwd.cu", "gea/ops/pallas/seed.py:203"),
 }
@@ -450,7 +464,7 @@ def device_profile(fn) -> tuple:
 # first rule that matches wins.
 CATEGORIES = (
     ("port kernels", ("seed_tap_gemm", "seed_kernel_f32", "lis_kernel", "tprelu_kernel",
-                      "tprelu_grad_", "seed_bwd_")),
+                      "tprelu_grad_", "seed_bwd_", "lis_bwd_")),
     ("library convs (cuDNN)", ("xmma", "cudnn", "cutlass", "nhwc", "implicit_gemm")),
     ("library matmuls (cuBLAS)", ("gemm", "gemv")),
     ("eager elementwise and reductions", ("at::native",)),
@@ -876,10 +890,10 @@ def seed_backward_cost(args, need) -> tuple:
             4 * n * code * p + 2 * out * 4 * c0)
 
 
-def seed_errors(got, want) -> dict:
+def grad_errors(got, want, names=SEED_GRADS) -> dict:
     """{gradient: (max |err| / max |want|, mean |err| / mean |want|, max |err|)}."""
     out = {}
-    for what, k, w in zip(SEED_GRADS, got, want):
+    for what, k, w in zip(names, got, want):
         if w is None:
             continue
         err = (k.float() - w.float()).abs()
@@ -906,7 +920,7 @@ def compare_seed_backward(label: str, dt, args, need) -> tuple:
                               or not torch.isfinite(k).all()):
             raise AssertionError(f"fused_seed_backward {label} {dt}: {what} {k.dtype} vs "
                                  f"{w.dtype}, finite {torch.isfinite(k).all().item()}")
-    errs = seed_errors(got, want)
+    errs = grad_errors(got, want)
     for what, (rel, mean_rel, _) in errs.items():
         if not (rel <= SEED_BWD_TOL[dt] and (what not in SEED_MEAN_CHECKED
                                              or mean_rel <= SEED_BWD_MEAN_TOL[dt])):
@@ -933,7 +947,7 @@ def seed_left_out_rounding(args) -> float:
     ds = torch.where(s < 0, slope.float() * dh, dh).reshape(n, -1)
     variant = [None, (z.float().t() @ ds).to(wp.dtype), ds.sum(0)]
     want = ops.fused_seed_backward_plain(*args, (False, True, True) + (False,) * 4)[:3]
-    return max(v[1] for v in seed_errors(variant, want).values())
+    return max(v[1] for v in grad_errors(variant, want).values())
 
 
 def check_seed_backward(cfg, rows: dict) -> None:
@@ -1010,6 +1024,189 @@ def check_seed_backward(cfg, rows: dict) -> None:
                              f"kernel that left the ds rounding out ({missed:.3e})")
 
 
+# LIS's backward: the kernel and the plain version compute pre exactly, round
+# h and dh_pre to z's dtype before the products that take them, and sum in
+# fp32, in other orders. fp32: each gradient within LIS_BWD_TOL of its max.
+# bf16: another order of the fp32 sum behind dh can round an element of
+# dh_pre to the neighbouring bf16 value, and dz, dw1 and dw2 are rounded to
+# bf16 themselves, so single elements move by a step of 2^-8 of their size:
+# the max is held at 2e-2 of the gradient's max (as GRAD_TOL). A rounding
+# left out moves every element instead: the mean |error| over the mean
+# |gradient| of dz, dw1 and dw2 is held at LIS_BWD_MEAN_TOL, and
+# `check_lis_backward` prints what a kernel that left the roundings of h
+# and dh_pre out would read, which must exceed it.
+LIS_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LIS_BWD_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.5e-4}
+LIS_MEAN_CHECKED = ("dz", "dw1", "dw2")
+LIS_GRADS = ("dz", "dw1", "db1", "dslope", "dtrans", "dw2", "db2")
+WEIGHTS_ONLY = (False,) + (True,) * 6
+LIS_NEEDS = {"every gradient": ALL_GRADS, "dz alone": DZ_ONLY, "weights alone": WEIGHTS_ONLY}
+
+
+def lis_backward_args(batch, code, hidden, dt, gen) -> tuple:
+    """(z, w1, b1, slope, trans, w2, g) of one link, g in z's dtype."""
+    return (randn((batch, code), gen, 1.0, dt), randn((code, hidden), gen, code**-0.5, dt),
+            randn(hidden, gen, 0.1), torch.rand(hidden, generator=gen).cuda() * 0.5,
+            randn(hidden, gen, 0.1), randn((hidden, code), gen, hidden**-0.5, dt),
+            randn((batch, code), gen, 0.1, dt))
+
+
+def lis_near_zero(args) -> tuple:
+    """`args` with every even row of z a copy of row 0 and b1 = trans -
+    pre of that row (pre exact: fp64, rounded once to fp32), so that those
+    rows' s = pre - trans lies within rounding of 0 in every hidden column.
+    Also the number of elements whose branch an fp32 product z @ w1 would
+    take the other way (the case bites where it is not 0)."""
+    z, w1, _, slope, trans, w2, g = args
+    z = z.clone()
+    z[::2] = z[0]
+    b1 = trans - (z[0].double() @ w1.double()).float()
+    exact = (z.double() @ w1.double()).float() + b1 - trans < 0
+    fp32 = z.float() @ w1.float() + b1 - trans < 0
+    return (z, w1, b1, slope, trans, w2, g), int((exact != fp32).sum().item())
+
+
+def lis_backward_cost(args, need) -> tuple:
+    """(bytes, operations) of one LIS backward: `function_backward_cost`
+    with every gradient; with dz alone z, w1, w2, b1, slope, trans and g
+    read, dz written, and pre, dh and dz's products; with the weights alone
+    z, g, the weights and vectors read, every gradient but dz written, and
+    pre, dh and the two weight products."""
+    z, w1 = args[0], args[1]
+    (b, c), h = z.shape, w1.shape[1]
+    e = z.element_size()
+    if all(need):
+        return function_backward_cost("lis_residual_mlp", args)
+    if need == DZ_ONLY:
+        return e * (3 * b * c + 2 * c * h) + 4 * 3 * h, 6 * b * c * h
+    return e * (2 * b * c + 4 * c * h) + 4 * (6 * h + c), 8 * b * c * h
+
+
+def compare_lis_backward(label: str, dt, args, need) -> tuple:
+    """LIS's backward kernel against its plain version on `args` (z, w1,
+    b1, slope, trans, w2, g): gradients not asked for None, each asked for
+    in its input's dtype (db2 fp32), finite, within LIS_BWD_TOL of its max,
+    and dz, dw1 and dw2 within LIS_BWD_MEAN_TOL of their mean. (largest
+    max-relative error, largest mean-relative error of those three,
+    largest |error|)."""
+    got = ops.lis_residual_mlp_backward(*args, need)
+    want = ops.lis_residual_mlp_backward_plain(*args, need)
+    torch.cuda.synchronize()
+    likes = (*args[:6], torch.zeros((), device="cuda"))
+    for what, k, w, x in zip(LIS_GRADS, got, want, likes):
+        if (k is None) != (w is None):
+            raise AssertionError(f"lis_residual_mlp_backward {label}: {what} {k} vs {w}")
+        if w is not None and (k.dtype != w.dtype or k.dtype != x.dtype or k.shape != w.shape
+                              or not torch.isfinite(k).all()):
+            raise AssertionError(f"lis_residual_mlp_backward {label} {dt}: {what} {k.dtype} "
+                                 f"{tuple(k.shape)} vs {w.dtype} {tuple(w.shape)}, finite "
+                                 f"{torch.isfinite(k).all().item()}")
+    errs = grad_errors(got, want, LIS_GRADS)
+    for what, (rel, mean_rel, _) in errs.items():
+        if not (rel <= LIS_BWD_TOL[dt] and (what not in LIS_MEAN_CHECKED
+                                            or mean_rel <= LIS_BWD_MEAN_TOL[dt])):
+            raise AssertionError(
+                f"lis_residual_mlp_backward {label} {dt}: {what} differs by {rel:.3e} of its "
+                f"max (tol {LIS_BWD_TOL[dt]}), {mean_rel:.3e} of its mean (tol "
+                f"{LIS_BWD_MEAN_TOL[dt]} for {LIS_MEAN_CHECKED})")
+    return (max(v[0] for v in errs.values()),
+            max([v[1] for k, v in errs.items() if k in LIS_MEAN_CHECKED], default=0.0),
+            max(v[2] for v in errs.values()))
+
+
+def lis_left_out_rounding(args) -> float:
+    """What `compare_lis_backward` would read (the largest mean-relative
+    error of dz, dw1 and dw2) from a kernel that left out the plain
+    version's roundings of h and dh_pre to bf16: eager ops on the same
+    inputs, pre exact."""
+    z, w1, b1, slope, trans, w2, g = args
+    s = (z.double() @ w1.double()).float() + b1 - trans
+    neg = s < 0
+    gf = g.float()
+    h = torch.where(neg, slope * s, s) + trans
+    dh_pre = (gf @ w2.float().t()) * torch.where(neg, slope, 1.0)
+    variant = [(gf + dh_pre @ w1.float().t()).to(z.dtype), (z.float().t() @ dh_pre).to(w1.dtype),
+               None, None, None, (h.t() @ gf).to(w2.dtype), None]
+    want = ops.lis_residual_mlp_backward_plain(*args, (True, True, False, False, False, True,
+                                                       False))
+    return max(v[1] for v in grad_errors(variant, want, LIS_GRADS).values())
+
+
+def check_lis_backward(cfg, rows: dict) -> None:
+    """Phase 3 for LIS's backward kernel at the G-LIS step's link shape and
+    at its near-zero case (`lis_near_zero`), in fp32 and bf16, with every
+    gradient, dz alone (a frozen link's) and the weights alone (a first
+    link's, whose z is drawn): `compare_lis_backward`, and the time beside
+    the plain version's, the bound and the empty launch; in bf16 also what
+    a kernel that left the roundings of h and dh_pre out would read. The
+    bf16 calls make its row, summed per train step: every gradient for all
+    links but the first, the weights alone for the first."""
+    floor_ms = rows["lis_residual_mlp"]["empty_launch_ms"]
+    row = rows["lis_residual_mlp_backward"] = {
+        "name": "lis_residual_mlp_backward", "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bound_by": "bytes", "render_ms": 0.0, "render_plain_ms": 0.0, "render_bound_ms": 0.0,
+        "max_abs_err": 0.0, "max_abs_err_fp32": 0.0, "shapes": [], "composite_ms": None,
+        "empty_launch_ms": floor_ms, "backward_ms": None, "backward_step_ms": None,
+        "max_rel_err": {}, "max_mean_rel_err": {}, "left_out_roundings": None,
+        "near_zero_fp32_flips": {},
+    }
+    gen = torch.Generator().manual_seed(5)
+    code, hidden = cfg.code_size, cfg.code_size * cfg.lis_hidden_mult
+    links = cfg.r_iterations
+    per_step = {"every gradient": links - 1, "dz alone": 0, "weights alone": 1}
+    for case in ("flagship", "near zero"):
+        for dt in (torch.float32, torch.bfloat16):
+            args = lis_backward_args(BATCH, code, hidden, dt, gen)
+            label = f"LIS link ({BATCH}, {code}) x ({code}, {hidden})"
+            if case == "near zero":
+                args, flips = lis_near_zero(args)
+                row["near_zero_fp32_flips"][str(dt)[6:]] = flips
+                label += f" near zero ({flips} fp32 flips)"
+            for what, need in LIS_NEEDS.items():
+                rel, mean_rel, abs_err = compare_lis_backward(label, dt, args, need)
+                key = f"{str(dt)[6:]} {what}"
+                row["max_rel_err"][key] = max(row["max_rel_err"].get(key, 0.0), rel)
+                row["max_mean_rel_err"][key] = max(row["max_mean_rel_err"].get(key, 0.0), mean_rel)
+                err_key = "max_abs_err" if dt == torch.bfloat16 else "max_abs_err_fp32"
+                row[err_key] = max(row[err_key], abs_err)
+                times = ""
+                if case == "flagship":
+                    k_ms = time_ms(lambda: ops.lis_residual_mlp_backward(*args, need))
+                    p_ms = time_ms(lambda: ops.lis_residual_mlp_backward_plain(*args, need))
+                    b_ms, b_by = bound(*lis_backward_cost(args, need), dt)
+                    times = (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms "
+                             f"({b_by})  empty launch {floor_ms:.4f} ms  x{per_step[what]}/step")
+                    if dt == torch.bfloat16:
+                        row["ms"] += per_step[what] * k_ms
+                        row["plain_ms"] += per_step[what] * p_ms
+                        row["bound_ms"] += per_step[what] * b_ms
+                        row["shapes"].append({"shape": f"{label} {what}",
+                                              "per_step": per_step[what], "ms": k_ms,
+                                              "plain_ms": p_ms, "bound_ms": b_ms})
+                print(f"[kernel] lis_residual_mlp_backward {label:44s} {str(dt)[6:]:8s} "
+                      f"{what:14s} max|err|/max {rel:.3e} (tol {LIS_BWD_TOL[dt]}), mean|err|/mean "
+                      f"{mean_rel:.3e} (tol {LIS_BWD_MEAN_TOL[dt]}){times}", flush=True)
+            if dt == torch.bfloat16:
+                missed = lis_left_out_rounding(args)
+                row["left_out_roundings"] = min(row["left_out_roundings"] or 1.0, missed)
+                print(f"[kernel] lis_residual_mlp_backward {label:44s} bf16 a kernel without "
+                      f"the roundings of h and dh_pre would read {missed:.3e} of the mean (tol "
+                      f"{LIS_BWD_MEAN_TOL[dt]})", flush=True)
+            del args
+    print(f"[kernel] lis_residual_mlp_backward per G-LIS step (bf16, {links - 1} with every "
+          f"gradient, 1 with the weights alone): kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, empty launch "
+          f"{floor_ms:.4f} ms", flush=True)
+    missed = row["left_out_roundings"]
+    print(f"[kernel] lis_residual_mlp_backward: sound runs read at most {row['max_mean_rel_err']} "
+          f"of the mean; a kernel without the roundings at least {missed:.3e} (tol "
+          f"{LIS_BWD_MEAN_TOL[torch.bfloat16]}); fp32 products would flip "
+          f"{row['near_zero_fp32_flips']} branches of the near-zero case", flush=True)
+    if not missed > LIS_BWD_MEAN_TOL[torch.bfloat16]:
+        raise AssertionError(f"LIS_BWD_MEAN_TOL {LIS_BWD_MEAN_TOL[torch.bfloat16]} would pass a "
+                             f"kernel that left the roundings of h and dh_pre out ({missed:.3e})")
+
+
 def check_edges() -> dict:
     """Shapes the flagship never reaches, which exercise the kernels' masks:
     a ragged batch, the smallest and largest s0, widths that are not tile
@@ -1022,7 +1219,11 @@ def check_edges() -> dict:
         (7, 256, 5, 512, 256),
         (9, 256, 5, 512, 512),  # config 5's widths (the DP step's)
     ]
-    lis_shapes = [(30, 256, 256), (30, 40, 48), (1, 256, 512)]  # (batch, code, hidden)
+    # (batch, code, hidden): batches that are not a multiple of the
+    # forward's row tile or the backward's chunk, widths below one tile, one
+    # row, and lis_hidden_mult 2 (the backward then walks the batch in smaller chunks).
+    lis_shapes = [(30, 256, 256), (30, 40, 48), (1, 256, 512), (17, 256, 256), (33, 256, 256),
+                  (128, 256, 256), (64, 256, 512)]
     # (rows, channels): C not a power of two, one row, rows that are not a
     # multiple of the backward's tile (32 rows at C = 64) nor of the forward's;
     # the backward with da and db at each, and at each one more case: dx
@@ -1072,6 +1273,10 @@ def check_edges() -> dict:
             errs[f"{label} {str(dt)[6:]}"] = compare(
                 "lis_residual_mlp", label, dt, ops.lis_residual_mlp(*args),
                 ops.lis_residual_mlp_plain(*args))
+            g = randn((batch, code), gen, 0.1, dt)
+            for what, need in LIS_NEEDS.items():
+                errs[f"backward {label} {what} {str(dt)[6:]}"] = compare_lis_backward(
+                    f"backward {label} {what}", dt, (*args[:6], g), need)[0]
     for k, v in errs.items():
         print(f"[edge] {k:52s} max|err| {v:.3e}", flush=True)
     return errs
@@ -1166,8 +1371,8 @@ def serving(cfg, kernel_rows: dict) -> dict:
     renders = COUNT * OVERSAMPLE // BATCH
     n_act = 2 * (generator_plan(cfg.image_size)[1] - 1)
     want = {"fused_tprelu": n_act * renders, "fused_tprelu_backward": 0,
-            "lis_residual_mlp": cfg.r_iterations * renders, "fused_seed": renders,
-            "fused_seed_backward": 0}
+            "lis_residual_mlp": cfg.r_iterations * renders, "lis_residual_mlp_backward": 0,
+            "fused_seed": renders, "fused_seed_backward": 0}
     print(f"[serve] launch counts over {renders} renders: {counts} (want {want})", flush=True)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -1297,22 +1502,24 @@ def fp32_agreement(cfg) -> dict:
 
 # Device kernels under these autograd nodes are the backward of a port
 # kernel's Function: eager ops, except where they are a port kernel by name
-# (the backwards of TPReLU and the seed are kernels of their own,
-# `fused_tprelu_backward` and `fused_seed_backward`).
+# (the backwards of TPReLU, LIS and the seed are kernels of their own,
+# `fused_tprelu_backward`, `lis_residual_mlp_backward` and
+# `fused_seed_backward`).
 PORT_BACKWARD = {"FusedTPReLUBackward": "fused_tprelu",
                  "LISResidualMLPBackward": "lis_residual_mlp",
                  "FusedSeedBackward": "fused_seed"}
 # How each Function's backward runs.
 BACKWARD_KIND = {"fused_tprelu": "kernel backward, fused_tprelu_backward",
-                 "lis_residual_mlp": "eager backward",
+                 "lis_residual_mlp": "kernel backward, lis_residual_mlp_backward",
                  "fused_seed": "kernel backward, fused_seed_backward"}
 # Device kernels of the port, by name: the forwards, TPReLU's backward (its
-# two kernels, tprelu_grad_kernel and tprelu_grad_reduce) and the seed's
-# (seed_bwd_tc, seed_bwd_f32, seed_bwd_act, seed_bwd_colsum,
-# seed_bwd_reduce).
+# two kernels, tprelu_grad_kernel and tprelu_grad_reduce), LIS's
+# (lis_bwd_kernel) and the seed's (seed_bwd_tc, seed_bwd_f32, seed_bwd_act,
+# seed_bwd_colsum, seed_bwd_reduce).
 PORT_KERNELS = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
                 "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed",
-                "tprelu_grad_": "fused_tprelu_backward", "seed_bwd_": "fused_seed_backward"}
+                "tprelu_grad_": "fused_tprelu_backward", "seed_bwd_": "fused_seed_backward",
+                "lis_bwd_": "lis_residual_mlp_backward"}
 LIBRARY_CATS = ("library convs (cuDNN)", "library matmuls (cuBLAS)")
 BACKWARD_CAT, OPTIMIZER_CAT = "eager backward of port kernels", "optimizer (Adam)"
 
@@ -1325,9 +1532,13 @@ def step_profile(fn) -> dict:
     unless it is a port kernel by name; one launched under any autograd
     node counts as backward. `port_kernel_ms` holds each port kernel's
     time by name (TPReLU's backward kernels as `fused_tprelu_backward`,
-    the seed's as `fused_seed_backward`), `port_backward_ms` each
-    Function's backward, kernel or eager, and `port_backward_library` the
-    cuBLAS and cuDNN kernels launched under each."""
+    LIS's as `lis_residual_mlp_backward`, the seed's as
+    `fused_seed_backward`), `port_backward_ms` each Function's backward,
+    kernel or eager, `port_backward_library` the cuBLAS and cuDNN kernels
+    launched under each, and `port_backward_in_op` the kernels other than
+    the port's launched inside the backward's custom op (`gea_torch::...`);
+    the others under the node are the engine's sums of the gradients it
+    hands on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1346,6 +1557,7 @@ def step_profile(fn) -> dict:
     cats = by_category(rows)
     backward = dict.fromkeys(PORT_BACKWARD.values(), 0.0)
     library = {k: [] for k in PORT_BACKWARD.values()}
+    in_op = {k: [] for k in PORT_BACKWARD.values()}
     backward_ms = 0.0
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -1357,6 +1569,7 @@ def step_profile(fn) -> dict:
         port = next((k for key, k in PORT_BACKWARD.items() if any(key in n for n in names)), None)
         optim = any(n.startswith("Optimizer.step") for n in names)
         in_backward = any(n.startswith("autograd::engine::evaluate_function") for n in names)
+        op = any(n.startswith("gea_torch::") for n in names)
         for k in e.kernels:
             ms = k.duration / 1e3
             backward_ms += ms if in_backward else 0.0
@@ -1367,6 +1580,8 @@ def step_profile(fn) -> dict:
                 continue
             if port is not None and kernel_category(k.name) in LIBRARY_CATS:
                 library[port].append(k.name[:90])
+            if port is not None and op:
+                in_op[port].append(k.name[:90])
             cats[kernel_category(k.name)] -= ms
             cat = BACKWARD_CAT if port is not None else OPTIMIZER_CAT
             cats[cat] = cats.get(cat, 0.0) + ms
@@ -1380,7 +1595,7 @@ def step_profile(fn) -> dict:
     return {"device_ms": sum(r[1] for r in rows), "backward_device_ms": backward_ms,
             "launches": sum(r[2] for r in rows), "by_category": cats,
             "port_kernel_ms": by_port, "port_backward_ms": backward,
-            "port_backward_library": library, "by_kernel": rows}
+            "port_backward_library": library, "port_backward_in_op": in_op, "by_kernel": rows}
 
 
 def cycles_per_ms() -> float:
@@ -1547,11 +1762,17 @@ def _training(cfg, kernel_rows: dict, smi: str) -> dict:
         print(f"[train] step by category: {t:8.4f} ms {cat}", flush=True)
     for name, t in profiled["port_backward_ms"].items():
         print(f"[train] backward of {name} ({BACKWARD_KIND[name]}): {t:.4f} ms a step; "
-              f"library kernels under it: {profiled['port_backward_library'][name]}", flush=True)
+              f"library kernels under it: {profiled['port_backward_library'][name]}; other "
+              f"kernels inside its op: {profiled['port_backward_in_op'][name]}", flush=True)
         kernel_rows[name]["backward_step_ms"] = t
     if profiled["port_backward_library"]["fused_seed"]:
         raise AssertionError(f"cuBLAS or cuDNN kernels under FusedSeedBackward: "
                              f"{profiled['port_backward_library']['fused_seed']}")
+    if profiled["port_backward_library"]["lis_residual_mlp"] or profiled[
+            "port_backward_in_op"]["lis_residual_mlp"]:
+        raise AssertionError(f"library or eager kernels under LISResidualMLPBackward: "
+                             f"{profiled['port_backward_library']['lis_residual_mlp']}, "
+                             f"{profiled['port_backward_in_op']['lis_residual_mlp']}")
     for name, t in profiled["port_kernel_ms"].items():  # each port kernel, by name
         kernel_rows[name]["step_profile_ms"] = t
         print(f"[train] {name}'s kernels in the step profile: {t:.4f} ms a step (bound "
@@ -1781,12 +2002,15 @@ def glis_launches(cfg) -> tuple:
     upsampling block after the seed's; the step renders once, and D's trunk
     (as many TPReLUs) runs on the reals and fakes and again for G's loss.
     All three are differentiated, so each TPReLU of the step has its
-    backward, and so has the seed (the render); a render has none."""
+    backward, and so have each LIS link and the seed (the render); a render
+    has none."""
     acts = generator_plan(cfg.image_size)[1] - 1
     return ({"fused_tprelu": 3 * acts, "fused_tprelu_backward": 3 * acts,
-             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1, "fused_seed_backward": 1},
+             "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": cfg.r_iterations,
+             "fused_seed": 1, "fused_seed_backward": 1},
             {"fused_tprelu": acts, "fused_tprelu_backward": 0,
-             "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1, "fused_seed_backward": 0})
+             "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0,
+             "fused_seed": 1, "fused_seed_backward": 0})
 
 
 def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
@@ -1997,10 +2221,10 @@ def timed_steps(tag: str, run_step, smi: str) -> dict:
         print(f"[{tag}] {name}: forward {profiled['port_kernel_ms'][name]:.4f} ms, "
               f"{BACKWARD_KIND[name]} {profiled['port_backward_ms'][name]:.4f} ms a step",
               flush=True)
-    print(f"[{tag}] fused_tprelu_backward's kernels by name: "
-          f"{profiled['port_kernel_ms']['fused_tprelu_backward']:.4f} ms a step; "
-          f"fused_seed_backward's: {profiled['port_kernel_ms']['fused_seed_backward']:.4f} ms "
-          f"a step", flush=True)
+    print(f"[{tag}] the backward kernels by name: " + "; ".join(
+        f"{k} {profiled['port_kernel_ms'][k]:.4f} ms" for k in (
+            "fused_tprelu_backward", "lis_residual_mlp_backward", "fused_seed_backward"))
+        + " a step", flush=True)
     for n, t, c in profiled["by_kernel"][:12]:
         print(f"[{tag}] step by kernel: {t:8.4f} ms x{c:<4d} {n[:90]}", flush=True)
     return result
@@ -2106,13 +2330,14 @@ def r_separate_launches(cfg) -> tuple:
     """(launches of an R-separate step, of a corrected render)."""
     acts = generator_plan(cfg.image_size)[1] - 1  # TPReLUs of one G render, of D's trunk
     # A render: before, R (trunk + head), after; a step adds D on it and
-    # differentiates D, the after render (its seed for dz alone) and R (the
-    # before render is not).
+    # differentiates D, the after render (its LIS links and seed for dz
+    # alone) and R (the before render is not).
     per_render = {"fused_tprelu": acts + (acts + 1) + acts, "fused_tprelu_backward": 0,
-                  "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 2,
-                  "fused_seed_backward": 0}
+                  "lis_residual_mlp": 2 * cfg.r_iterations, "lis_residual_mlp_backward": 0,
+                  "fused_seed": 2, "fused_seed_backward": 0}
     return {**per_render, "fused_tprelu": per_render["fused_tprelu"] + acts,
-            "fused_tprelu_backward": 3 * acts + 1, "fused_seed_backward": 1}, per_render
+            "fused_tprelu_backward": 3 * acts + 1, "lis_residual_mlp_backward": cfg.r_iterations,
+            "fused_seed_backward": 1}, per_render
 
 
 def r_separate_config(g_run: str, args: list) -> TrainRSeparateConfig:
@@ -2189,10 +2414,10 @@ def r_iterative_launches(cfg) -> tuple:
     # are differentiated, so each of the joint unroll's links + 1 renders
     # has a seed backward.
     return ({"fused_tprelu": 2 * chain + 3 * acts, "fused_tprelu_backward": chain + 3 * acts,
-             "lis_residual_mlp": 0, "fused_seed": 2 * (links + 1),
+             "lis_residual_mlp": 0, "lis_residual_mlp_backward": 0, "fused_seed": 2 * (links + 1),
              "fused_seed_backward": links + 1},
             {"fused_tprelu": chain, "fused_tprelu_backward": 0, "lis_residual_mlp": 0,
-             "fused_seed": links + 1, "fused_seed_backward": 0})
+             "lis_residual_mlp_backward": 0, "fused_seed": links + 1, "fused_seed_backward": 0})
 
 
 def r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
@@ -2657,8 +2882,8 @@ def sampler_clis(tmp: str, demo_run: str, kernel_rows: dict, smi: str) -> dict:
         # steps + 1 renders and steps R calls (trunk + head) a batch.
         return {"fused_tprelu": (steps + 1) * acts + steps * (acts + 1),
                 "fused_tprelu_backward": 0,
-                "lis_residual_mlp": (steps + 1) * rsep_cfg.r_iterations, "fused_seed": steps + 1,
-                "fused_seed_backward": 0}
+                "lis_residual_mlp": (steps + 1) * rsep_cfg.r_iterations,
+                "lis_residual_mlp_backward": 0, "fused_seed": steps + 1, "fused_seed_backward": 0}
 
     def chain(links: int) -> dict:
         return r_iterative_launches(it_cfg.replace(r_chain_length=links))[1]
@@ -2767,7 +2992,8 @@ def render_golden(smi: str) -> dict:
     errs = {k: float(np.abs(v - np.asarray(golden[k])).max()) for k, v in got.items()}
     acts = generator_plan(cfg.image_size)[1] - 1
     want = {"fused_tprelu": 2 * acts, "fused_tprelu_backward": 0,
-            "lis_residual_mlp": cfg.r_iterations, "fused_seed": 1, "fused_seed_backward": 0}
+            "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0, "fused_seed": 1,
+            "fused_seed_backward": 0}
     print(f"[samplers] flagship fp32 render + D vs gea's golden: max |err| {errs} (tol "
           f"{GOLDEN_TOL}); launches {counts} (want {want}); {smi}", flush=True)
     if max(errs.values()) > GOLDEN_TOL or counts != want:
@@ -3172,6 +3398,7 @@ def graph_trainers() -> dict:
 KERNEL_EVENTS = {"fused_tprelu": (("tprelu_kernel", 1),),
                  "fused_tprelu_backward": (("tprelu_grad_kernel", 1),),
                  "lis_residual_mlp": (("lis_kernel_", 1),),
+                 "lis_residual_mlp_backward": (("lis_bwd_kernel", 1),),
                  "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1)),
                  "fused_seed_backward": (("seed_bwd_act", 1),)}
 
@@ -4143,12 +4370,15 @@ def bn_launches(cfg) -> tuple:
     statistics are dropped) and D's trunk (d - 1 TPReLUs) three times: on
     the reals, on the fakes and for G's loss. The second G forward and the
     three D forwards are differentiated: d + 3 (d - 1) TPReLU backwards, each
-    without da and db (the LeakyReLU's slope and offset are fixed)."""
+    without da and db (the LeakyReLU's slope and offset are fixed), and a
+    LIS backward a link, without dslope and dtrans."""
     d = generator_plan(cfg.image_size)[1]
     render = {"fused_tprelu": d, "fused_tprelu_backward": 0,
-              "lis_residual_mlp": cfg.r_iterations, "fused_seed": 0, "fused_seed_backward": 0}
+              "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0,
+              "fused_seed": 0, "fused_seed_backward": 0}
     return ({"fused_tprelu": 2 * d + 3 * (d - 1), "fused_tprelu_backward": d + 3 * (d - 1),
-             "lis_residual_mlp": 2 * cfg.r_iterations, "fused_seed": 0,
+             "lis_residual_mlp": 2 * cfg.r_iterations,
+             "lis_residual_mlp_backward": cfg.r_iterations, "fused_seed": 0,
              "fused_seed_backward": 0}, render)
 
 
@@ -4539,7 +4769,8 @@ KERNEL_SITES = (("gea_torch.models.generator", "lis_residual_mlp", "lis_residual
                 ("gea_torch.models.generator", "fused_seed", "fused_seed"),
                 ("gea_torch.ops.layers", "fused_tprelu", "fused_tprelu"),
                 ("gea_torch.ops.tprelu", "_backward", "fused_tprelu_backward"),
-                ("gea_torch.ops.seed", "_backward", "fused_seed_backward"))
+                ("gea_torch.ops.seed", "_backward", "fused_seed_backward"),
+                ("gea_torch.ops.lis", "_backward", "lis_residual_mlp_backward"))
 
 
 @contextlib.contextmanager
@@ -4572,12 +4803,14 @@ def check_recorded(store: dict, rows: int, tag: str) -> dict:
     """Each recorded kernel input against the kernel's plain version, the
     forwards at check_kernels' TOL (max |err|), TPReLU's backward by
     `compare_backward` (dx bit for bit; the da/db error relative to their
-    max), the seed's by `compare_seed_backward` (the error relative to each
-    gradient's max); every kernel must have been recorded, LIS and the seed
-    (and its backward) at this rank's `rows` (the seed on the S stages'
-    stacked rows)."""
+    max), the seed's and LIS's by `compare_seed_backward` and
+    `compare_lis_backward` (the error relative to each gradient's max);
+    every kernel must have been recorded, LIS and the seed (and their
+    backwards) at this rank's `rows` (the seed on the S stages' stacked
+    rows)."""
     got = {name for name, _, _ in store}
-    if got != {*KERNEL, "fused_tprelu_backward", "fused_seed_backward"}:
+    if got != {*KERNEL, "fused_tprelu_backward", "fused_seed_backward",
+               "lis_residual_mlp_backward"}:
         raise AssertionError(f"{tag}: recorded {sorted(got)}, not every kernel of the step")
     out = {}
     with torch.no_grad():
@@ -4590,6 +4823,9 @@ def check_recorded(store: dict, rows: int, tag: str) -> dict:
                     label, dt, args)[0]
             elif name == "fused_seed_backward":
                 out[f"{name} {shape} {str(dt)[6:]} (rel to max)"] = compare_seed_backward(
+                    label, dt, args[:-1], args[-1])[0]
+            elif name == "lis_residual_mlp_backward":
+                out[f"{name} {shape} {str(dt)[6:]} (rel to max)"] = compare_lis_backward(
                     label, dt, args[:-1], args[-1])[0]
             else:
                 out[f"{name} {shape} {str(dt)[6:]}"] = compare(
@@ -4936,6 +5172,7 @@ def main() -> int:
     rows = check_kernels(cfg)
     check_backward(cfg, rows)
     check_seed_backward(cfg, rows)
+    check_lis_backward(cfg, rows)
     grads = check_grads(cfg, rows)
     edges = check_edges()
     served = serving(cfg, rows)

@@ -54,6 +54,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t smem_addr
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr));
 }
+// Four 8x8 matrices transposed; lane l gives the address of row (l & 7) of
+// matrix l >> 3 (the LIS backward's operands stored the other way round).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
 // Two 8x8 matrices transposed: with lane l (l < 16) at row (l & 15) of a
 // 16 x 8 K x N tile, the B fragment (b0, b1) of one n8 tile.
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const bf16* p) {

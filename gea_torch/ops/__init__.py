@@ -2,7 +2,9 @@
 
 * `tprelu` (Triton)   replaces `gea/ops/pallas/tprelu.py::fused_tprelu`, with
   its backward `fused_tprelu_backward` (`_bwd` there) as a second kernel;
-* `lis`    (CUDA C++) replaces `gea/ops/pallas/lis.py::lis_residual_mlp`;
+* `lis`    (CUDA C++) replaces `gea/ops/pallas/lis.py::lis_residual_mlp`,
+  with its backward `lis_residual_mlp_backward` (`_bwd` there) as a second
+  kernel (`csrc/lis_bwd.cu`);
 * `seed`   (CUDA C++) replaces `gea/ops/pallas/seed.py::fused_seed`, with
   its backward `fused_seed_backward` (`_bwd` there) as a second set of
   kernels (`csrc/seed_bwd.cu`).
@@ -16,7 +18,12 @@ again and adds them back at every replay (`add_launch_counts`): the counts
 are those of the kernels that ran.
 """
 
-from gea_torch.ops.lis import lis_residual_mlp, lis_residual_mlp_plain  # noqa: F401
+from gea_torch.ops.lis import (  # noqa: F401
+    lis_residual_mlp,
+    lis_residual_mlp_backward,
+    lis_residual_mlp_backward_plain,
+    lis_residual_mlp_plain,
+)
 from gea_torch.ops.seed import (  # noqa: F401
     fused_seed,
     fused_seed_backward,
@@ -30,8 +37,8 @@ from gea_torch.ops.tprelu import (  # noqa: F401
     fused_tprelu_plain,
 )
 
-KERNELS = (fused_tprelu, fused_tprelu_backward, lis_residual_mlp, fused_seed,
-           fused_seed_backward)
+KERNELS = (fused_tprelu, fused_tprelu_backward, lis_residual_mlp, lis_residual_mlp_backward,
+           fused_seed, fused_seed_backward)
 
 
 def reset_launch_counts() -> None:

@@ -81,8 +81,8 @@ def test_cpu_calls_launch_nothing(rng):
                    torch.zeros(64), v[:4], v[:4], _t(rng.standard_normal((4, 4, 4, 2))), v[:2],
                    4).sum().backward()
     assert ops.launch_counts() == {
-        "fused_tprelu": 0, "fused_tprelu_backward": 0, "lis_residual_mlp": 0, "fused_seed": 0,
-        "fused_seed_backward": 0,
+        "fused_tprelu": 0, "fused_tprelu_backward": 0, "lis_residual_mlp": 0,
+        "lis_residual_mlp_backward": 0, "fused_seed": 0, "fused_seed_backward": 0,
     }
 
 
