@@ -20,9 +20,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the plain version's bit for bit, da and db within BWD_SUM_TOL, its time
    beside the plain version's, the bound (x and g read, dx written) and
    the empty launch; the seed's backward kernels (`fused_seed_backward`)
-   at both seed shapes, in fp32 and bf16, with every gradient and with dz
-   alone: each gradient within SEED_BWD_TOL of its max and its mean error
-   within SEED_BWD_MEAN_TOL of its mean, what a kernel that left the ds
+   at both seed shapes, in fp32 and bf16, with every gradient, dz alone
+   and the weights alone: each gradient within SEED_BWD_TOL of its max and
+   its mean error within SEED_BWD_MEAN_TOL of its mean, a second call equal
+   to the first bit for bit, what a kernel that left the ds
    rounding out would read (which must exceed the limit), the time beside
    the plain version's, the bf16 composite's backward (cuBLAS, cuDNN), the
    bound and the empty launch; LIS's backward kernel
@@ -857,6 +858,8 @@ SEED_BWD_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.5e-4}
 SEED_MEAN_CHECKED = ("dwp", "dbp", "dwc")
 SEED_GRADS = ("dz", "dwp", "dbp", "dslope", "dtrans", "dwc", "dbc")
 ALL_GRADS, DZ_ONLY = (True,) * 7, (True,) + (False,) * 6
+WEIGHTS_ONLY = (False,) + (True,) * 6
+SEED_NEEDS = {"every gradient": ALL_GRADS, "dz alone": DZ_ONLY, "weights alone": WEIGHTS_ONLY}
 
 
 def seed_backward_cases(cfg):
@@ -877,17 +880,21 @@ def seed_backward_cases(cfg):
 
 def seed_backward_cost(args, need) -> tuple:
     """(bytes, operations) of one seed backward: `function_backward_cost`
-    with every gradient; with dz alone z, wp, wc and g read, dz written, and
-    the projection recomputed, the conv's data gradient and dz's product."""
+    with every gradient; else z, wp, wc, g, bp, slope and trans read and
+    the gradients asked for written, and the projection recomputed, the
+    conv's data gradient (for any of dz .. dtrans), dz's and dwp's products
+    and dWc's as asked."""
     if all(need):
         return function_backward_cost("fused_seed", (*args[:7], args[8]))
     z, wp, wc, s0 = args[0], args[1], args[5], args[8]
     (n, code), p = z.shape, wp.shape[1]
     c0, c1 = wc.shape[2], wc.shape[3]
     out = n * (2 * s0) ** 2 * c1
+    conv = 2 * out * 4 * c0
     e = z.element_size()
-    return (e * (2 * n * code + code * p + 16 * c0 * c1 + out) + 4 * (p + 2 * c0),
-            4 * n * code * p + 2 * out * 4 * c0)
+    return (e * (n * code * (1 + need[0]) + code * p * (1 + need[1]) + 16 * c0 * c1 * (1 + need[5])
+                 + out) + 4 * (p * (1 + need[2]) + c0 * (2 + need[3] + need[4]) + 2 * c1 * need[6]),
+            2 * n * code * p * (1 + need[0] + need[1]) + conv * (any(need[:5]) + need[5]))
 
 
 def grad_errors(got, want, names=SEED_GRADS) -> dict:
@@ -953,8 +960,10 @@ def seed_left_out_rounding(args) -> float:
 def check_seed_backward(cfg, rows: dict) -> None:
     """Phase 3 for the seed's backward kernels at both seed shapes (the
     G-LIS step's stacked codes and R-iterative's batch), in fp32 and bf16,
-    with every gradient and with dz alone (a frozen G's):
-    `compare_seed_backward`, and the time beside the plain version's, the
+    with every gradient, with dz alone (a frozen G's) and with the weights
+    alone: `compare_seed_backward`, a second call equal to the first bit
+    for bit (the kernels sum in a fixed order), and the time beside the
+    plain version's, the
     bound and the empty launch; in bf16 with every gradient also the
     backward of the bf16 library composite (`seed_composite` under
     autograd: cuBLAS and cuDNN, a yardstick the port never calls) and what a
@@ -973,9 +982,14 @@ def check_seed_backward(cfg, rows: dict) -> None:
     for label, per_step, make in seed_backward_cases(cfg):
         for dt in (torch.float32, torch.bfloat16):
             args = make(dt)
-            for need in (ALL_GRADS, DZ_ONLY):
-                what = "every gradient" if need == ALL_GRADS else "dz alone"
+            for what, need in SEED_NEEDS.items():
                 rel, mean_rel, abs_err = compare_seed_backward(label, dt, args, need)
+                first = ops.fused_seed_backward(*args, need)
+                again = ops.fused_seed_backward(*args, need)
+                if not all(a is None or torch.equal(a, b) for a, b in zip(first, again)):
+                    raise AssertionError(f"fused_seed_backward {label} {dt} {what}: two calls on "
+                                         f"the same inputs differ")
+                del first, again
                 k_ms = time_ms(lambda: ops.fused_seed_backward(*args, need))
                 p_ms = time_ms(lambda: ops.fused_seed_backward_plain(*args, need))
                 b_ms, b_by = bound(*seed_backward_cost(args, need), dt)
@@ -1009,8 +1023,8 @@ def check_seed_backward(cfg, rows: dict) -> None:
                       f"max|err|/max {rel:.3e} (tol {SEED_BWD_TOL[dt]}), mean|err|/mean "
                       f"{mean_rel:.3e} (tol {SEED_BWD_MEAN_TOL[dt]})  kernel {k_ms:.4f} ms  plain "
                       f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  empty launch "
-                      f"{floor_ms:.4f} ms{extra}  x{per_step if need == ALL_GRADS else 0}/step",
-                      flush=True)
+                      f"{floor_ms:.4f} ms{extra}  two calls bit for bit  "
+                      f"x{per_step if need == ALL_GRADS else 0}/step", flush=True)
             del args
     print(f"[kernel] fused_seed_backward per G-LIS step (bf16, every gradient): kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, composite backward "
@@ -1039,7 +1053,6 @@ LIS_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 LIS_BWD_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.5e-4}
 LIS_MEAN_CHECKED = ("dz", "dw1", "dw2")
 LIS_GRADS = ("dz", "dw1", "db1", "dslope", "dtrans", "dw2", "db2")
-WEIGHTS_ONLY = (False,) + (True,) * 6
 LIS_NEEDS = {"every gradient": ALL_GRADS, "dz alone": DZ_ONLY, "weights alone": WEIGHTS_ONLY}
 
 
@@ -1514,8 +1527,8 @@ BACKWARD_KIND = {"fused_tprelu": "kernel backward, fused_tprelu_backward",
                  "fused_seed": "kernel backward, fused_seed_backward"}
 # Device kernels of the port, by name: the forwards, TPReLU's backward (its
 # two kernels, tprelu_grad_kernel and tprelu_grad_reduce), LIS's
-# (lis_bwd_kernel) and the seed's (seed_bwd_tc, seed_bwd_f32, seed_bwd_act,
-# seed_bwd_colsum, seed_bwd_reduce).
+# (lis_bwd_kernel) and the seed's (seed_bwd_project, seed_bwd_gemm,
+# seed_bwd_f32, seed_bwd_reduce).
 PORT_KERNELS = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
                 "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed",
                 "tprelu_grad_": "fused_tprelu_backward", "seed_bwd_": "fused_seed_backward",
@@ -3393,14 +3406,13 @@ def graph_trainers() -> dict:
 # Each wrapper's kernels by their names in a torch.profiler trace, with the
 # launches one call makes: a bf16 seed call is two launches of seed_tap_gemm
 # (the projection, then the transposed conv); every seed backward that
-# computes any gradient but dWc and dbc alone (every one a step asks for)
-# launches seed_bwd_act once.
+# computes any gradient (in either dtype) launches seed_bwd_project once.
 KERNEL_EVENTS = {"fused_tprelu": (("tprelu_kernel", 1),),
                  "fused_tprelu_backward": (("tprelu_grad_kernel", 1),),
                  "lis_residual_mlp": (("lis_kernel_", 1),),
                  "lis_residual_mlp_backward": (("lis_bwd_kernel", 1),),
                  "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1)),
-                 "fused_seed_backward": (("seed_bwd_act", 1),)}
+                 "fused_seed_backward": (("seed_bwd_project", 1),)}
 
 
 def calls_from(launches) -> dict:

@@ -42,6 +42,7 @@ a second derivative raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -51,10 +52,8 @@ from torch.autograd.function import once_differentiable
 from gea_torch.ops import build
 
 _CODES_F32 = 2  # codes per block of the fp32 kernel; kCodes in csrc/seed.cu
-# The backward's split of its sums (csrc/seed_bwd.cu): codes a chunk of the
-# ds pass's partial sums, rows of g a chunk of its column sums, and at
-# least this many k-steps of 64 a split of dz's K.
-_ACT_ROWS = 32
+# The backward's split of its sums (csrc/seed_bwd.cu): rows of g a chunk of
+# its column sums, and at least this many k-steps of 64 a split of dz's K.
 _COLSUM_ROWS = 128
 _DZ_MIN_KSTEPS = 4
 _GRADS = 7  # z, wp, bp, slope, trans, wc, bc
@@ -232,6 +231,266 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+# The taps by cost: the centre four (s0 x s0 pixel pairs), the eight edges,
+# the corners (kTapsByCost in csrc/seed_bwd.cu).
+TAPS_BY_COST = (5, 6, 9, 10, 1, 2, 4, 7, 8, 11, 13, 14, 0, 3, 12, 15)
+
+
+def _tap_pairs(s0: int, tap: int) -> int:
+    """The pixel pairs of h and g that tap (kh, kw) links."""
+    kh, kw = divmod(tap, 4)
+    return (s0 - (kh == 0) - (kh == 3)) * (s0 - (kw == 0) - (kw == 3))
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How one call of the seed's backward kernels is cut up
+    (csrc/seed_bwd.cu), from the shapes, the dtype, the gradients asked
+    for and the card's SM count alone, so that a launch is the same on
+    every call (and capturable in a CUDA graph).
+
+    Launches: the projection (`r_tiles` tiles of 64 x 64, then
+    `colsum_blocks` blocks of g's column sums, `gchunks` chunks of
+    `_COLSUM_ROWS` rows); D (bf16: `d_grid` persistent blocks over
+    `d_items` tiles of `per` whole images x 128 channels; fp32: a grid of
+    64 x 64 tiles), whose warps write `act_slots` slots of dslope and
+    dtrans partials (8 a row tile); W (bf16: `w_grid` persistent blocks over
+    `w_items` items: dWc tiles in `wc_chunks` K chunks, taps by cost, then
+    dz tiles in `splits` chunks of `z_chunk` k-steps, then dwp tiles), each
+    block's items in snake order; the reduce, over the `sums` sets of
+    partials. `block_items`, `d_item` and `w_item` list the same items as
+    the kernels' `item_of`, `d_item` and `w_item`."""
+
+    batch: int
+    code: int
+    s0: int
+    c0: int
+    c1: int
+    bf16: bool
+    need: tuple
+    sms: int
+
+    TILE = 128  # the bf16 passes' output tile (kBM = kBN)
+    TILE_F32 = 64  # the fp32 passes' (kFT)
+    R_TILE = (64, 64)  # the projection's (kRM, kRN)
+    WARPS = 8  # D's warps a tile, each with a slot of partials
+
+    @property
+    def area(self) -> int:
+        return self.s0 * self.s0
+
+    @property
+    def proj(self) -> int:
+        return self.area * self.c0
+
+    @property
+    def nkb(self) -> int:  # k-steps of 64 over the batch
+        return _cdiv(self.batch, 64)
+
+    @property
+    def z_steps(self) -> int:
+        return _cdiv(self.proj, 64)
+
+    @property
+    def need_dh(self) -> bool:
+        return any(self.need[:5])
+
+    # the projection
+    @property
+    def r_tiles(self) -> int:
+        if not (self.need_dh or self.need[5]):
+            return 0
+        return _cdiv(self.batch, self.R_TILE[0]) * _cdiv(self.proj, self.R_TILE[1])
+
+    @property
+    def gchunks(self) -> int:
+        return _cdiv(self.batch * 4 * self.area, _COLSUM_ROWS)
+
+    @property
+    def colsum_blocks(self) -> int:
+        return _cdiv(self.c1, 128) * self.gchunks if self.need[6] else 0
+
+    # D
+    @property
+    def per(self) -> int:  # whole images a bf16 tile
+        return self.TILE // self.area
+
+    @property
+    def d_tiles_m(self) -> int:
+        if self.bf16:
+            return _cdiv(self.batch, self.per)
+        return _cdiv(self.batch * self.area, self.TILE_F32)
+
+    @property
+    def d_tiles_n(self) -> int:
+        return _cdiv(self.c0, self.TILE if self.bf16 else self.TILE_F32)
+
+    @property
+    def d_items(self) -> int:
+        return self.d_tiles_m * self.d_tiles_n if self.need_dh else 0
+
+    @property
+    def d_grid(self) -> int:
+        return min(self.sms, self.d_items) if self.bf16 else self.d_items
+
+    @property
+    def act_slots(self) -> int:
+        return self.d_tiles_m * self.WARPS
+
+    # W
+    @property
+    def z_chunk(self) -> int:
+        """dz's k-steps a chunk: enough chunks that dz alone fills the card."""
+        tiles = _cdiv(self.batch, self.TILE) * _cdiv(self.code, self.TILE)
+        return max(_DZ_MIN_KSTEPS, _cdiv(self.z_steps * tiles, self.sms))
+
+    @property
+    def splits(self) -> int:
+        return _cdiv(self.z_steps, self.z_chunk)
+
+    @property
+    def wc_tiles(self) -> int:  # a tap's
+        return _cdiv(self.c0, self.TILE) * _cdiv(self.c1, self.TILE)
+
+    @property
+    def wc_chunks(self) -> int:
+        """dWc's K chunks a tap: as many as the card holds beside the 16
+        taps' tiles, no more than the corners' k-steps; 1 in fp32."""
+        if not self.bf16:
+            return 1
+        return max(1, min(self.sms // (16 * self.wc_tiles), (self.s0 - 1) ** 2 * self.nkb))
+
+    @property
+    def n_wc(self) -> int:
+        return 16 * self.wc_tiles * self.wc_chunks if self.bf16 and self.need[5] else 0
+
+    @property
+    def n_z(self) -> int:
+        if not (self.bf16 and self.need[0]):
+            return 0
+        return _cdiv(self.batch, self.TILE) * _cdiv(self.code, self.TILE) * self.splits
+
+    @property
+    def n_wp(self) -> int:
+        if not (self.bf16 and self.need[1]):
+            return 0
+        return _cdiv(self.code, self.TILE) * _cdiv(self.proj, self.TILE)
+
+    @property
+    def w_items(self) -> int:
+        return self.n_wc + self.n_z + self.n_wp
+
+    @property
+    def w_grid(self) -> int:
+        return min(self.sms, self.w_items)
+
+    def d_item(self, i: int) -> tuple:
+        """(kind, first image, first column, tap, k0, k1, slot) of D's item i."""
+        m = i // self.d_tiles_n
+        return ("d", m * self.per, (i % self.d_tiles_n) * self.TILE, 0, 0,
+                16 * _cdiv(self.c1, 64), m)
+
+    def w_item(self, i: int) -> tuple:
+        """(kind, m0, n0, tap, k0, k1, slot) of W's item i: "wc" (slot the
+        K chunk), "z" (slot the split) or "wp"."""
+        t = self.TILE
+        if i < self.n_wc:
+            ncol = _cdiv(self.c1, t)
+            per_tap = _cdiv(self.c0, t) * ncol * self.wc_chunks
+            tap = TAPS_BY_COST[i // per_tap]
+            tile, chunk = divmod(i % per_tap, self.wc_chunks)
+            k = _tap_pairs(self.s0, tap) * self.nkb
+            return ("wc", tile // ncol * t, tile % ncol * t, tap, chunk * k // self.wc_chunks,
+                    (chunk + 1) * k // self.wc_chunks, chunk)
+        i -= self.n_wc
+        if i < self.n_z:
+            ncol = _cdiv(self.code, t)
+            tile, split = divmod(i, self.splits)
+            k0 = split * self.z_chunk
+            return ("z", tile // ncol * t, tile % ncol * t, 0, k0,
+                    min(k0 + self.z_chunk, self.z_steps), split)
+        i -= self.n_z
+        ncol = _cdiv(self.proj, t)
+        return ("wp", i // ncol * t, i % ncol * t, 0, 0, self.nkb, 0)
+
+    def block_items(self, kernel: str, b: int) -> list:
+        """The items block b of the persistent pass `kernel` ("d" or "w")
+        walks, in order: b, G + b, ... (D) or b, 2G - 1 - b, 2G + b, ...
+        (W, snake)."""
+        total, grid = (self.d_items, self.d_grid) if kernel == "d" else (self.w_items,
+                                                                         self.w_grid)
+        out, j = [], 0
+        while j * grid < total:
+            i = j * grid + (grid - 1 - b if kernel == "w" and j % 2 else b)
+            if i < total:
+                out.append(i)
+            j += 1
+        return out
+
+    def scratch(self) -> dict:
+        """{name: (shape, "f32" or "dt")} of the buffers the launches use,
+        in the kernels' order (unused ones have shape (0,))."""
+        n, p = self.batch, self.proj
+        need, f32 = self.need, "f32"
+        bufs = {
+            "s": ((n, p), f32, self.need_dh or need[5]),
+            "h": ((n, p), "dt", need[5]),
+            "ds": ((n, p), "dt", self.need_dh),
+            "dz_part": ((self.splits, n, self.code), f32, need[0]),
+            "act_part": ((2, self.act_slots, self.c0), f32, need[3] or need[4]),
+            "dbc_part": ((self.gchunks, self.c1), f32, need[6]),
+            "dwc_part": ((self.wc_chunks, 16, self.c0, self.c1), f32,
+                         need[5] and self.wc_chunks > 1),
+        }
+        return {k: (shape if used else (0,), kind) for k, (shape, kind, used) in bufs.items()}
+
+    def sums(self) -> list:
+        """(gradient, partials, terms, columns) the reduce adds: each
+        column of the gradient is the sum of `terms` rows of the partials."""
+        need, out = self.need, []
+        if need[0]:
+            out.append(("dz", "dz_part", self.splits, self.batch * self.code))
+        if need[2]:
+            out.append(("dbp", "ds", self.batch, self.proj))
+        for i, name in ((3, "dslope"), (4, "dtrans")):
+            if need[i]:
+                out.append((name, f"act_part[{i - 3}]", self.act_slots, self.c0))
+        if need[5] and self.wc_chunks > 1:
+            out.append(("dwc", "dwc_part", self.wc_chunks, 16 * self.c0 * self.c1))
+        if need[6]:
+            out.append(("dbc", "dbc_part", self.gchunks, self.c1))
+        return out
+
+    def launches(self) -> list:
+        """The kernels one call launches, in order."""
+        out = []
+        if self.r_tiles + self.colsum_blocks:
+            out.append("seed_bwd_project")
+        if self.need_dh:
+            out.append("seed_bwd_gemm<D>" if self.bf16 else "seed_bwd_f32<D>")
+        if self.bf16:
+            if self.w_items:
+                out.append("seed_bwd_gemm<W>")
+        else:
+            out += [k for k, n in (("seed_bwd_f32<dz>", 0), ("seed_bwd_f32<dwp>", 1),
+                                   ("seed_bwd_f32<dWc>", 5)) if self.need[n]]
+        if self.sums():
+            out.append("seed_bwd_reduce")
+        return out
+
+    def dims(self) -> list:
+        """The plan's part of the kernels' `dim` (after need and the output
+        types)."""
+        return [self.z_chunk, self.splits, self.wc_chunks, _COLSUM_ROWS, self.gchunks,
+                self.d_tiles_m, self.d_tiles_n, self.d_grid, self.n_wc, self.n_z, self.n_wp,
+                self.w_grid, self.r_tiles, self.act_slots]
+
+
+def backward_plan(batch: int, code: int, s0: int, c0: int, c1: int, bf16: bool, need,
+                  sms: int) -> BackwardPlan:
+    return BackwardPlan(batch, code, s0, c0, c1, bool(bf16), tuple(bool(n) for n in need), sms)
+
+
 @torch.library.custom_op("gea_torch::fused_seed_backward", mutates_args=(), device_types="cpu")
 def seed_backward_op(
     z: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor, slope: torch.Tensor,
@@ -280,32 +539,14 @@ def _launch_backward(z, wp, bp, slope, trans, wc, bc, g, s0: int, need):
     # The bf16 kernels' tensor maps need 16-byte aligned bases.
     z, wp, wc, g = (build.aligned16(t.to(dt).contiguous()) for t in (z, wp, wc, g))
     bp, slope, trans = (v.float().contiguous() for v in (bp, slope, trans))
-    proj = s0 * s0 * c0
-    ksteps = _cdiv(proj, 64)
-    tiles = _cdiv(batch, 128) * _cdiv(code, 128)
-    k_chunk = max(_DZ_MIN_KSTEPS, _cdiv(ksteps * tiles, _sm_count(dev.index or 0)))
-    splits = _cdiv(ksteps, k_chunk)
-    chunks = _cdiv(batch, _ACT_ROWS)
-
-    def scratch(shape, dtype, wanted=True):
-        return torch.empty(shape if wanted else (0,), dtype=dtype, device=dev)
-
-    f32 = torch.float32
-    need_dh = any(need[:5])
-    bufs = [
-        scratch((batch, proj), f32, need_dh or need[5]),        # s
-        scratch((batch, proj), dt, need[5]),                     # h
-        scratch((batch, proj), dt, need_dh),                     # dh
-        scratch((batch, proj), dt, need_dh),                     # ds
-        scratch((splits, batch, code), f32, need[0]),            # dz partials
-        scratch((3, chunks, proj), f32, any(need[2:5])),         # ds, dslope, dtrans partials
-        scratch((_cdiv(batch * 4 * s0 * s0, _COLSUM_ROWS), c1), f32, need[6]),  # dbc partials
-    ]
+    plan = backward_plan(batch, code, s0, c0, c1, dt == torch.bfloat16, need,
+                         _sm_count(dev.index or 0))
+    bufs = [torch.empty(shape, dtype=torch.float32 if kind == "f32" else dt, device=dev)
+            for shape, kind in plan.scratch().values()]
     ptrs = [t.data_ptr() for t in (z, wp, bp, slope, trans, wc, g, *bufs, *outs)]
-    dims = [batch, code, s0, c0, c1, int(dt == torch.bfloat16),
+    dims = [batch, code, s0, c0, c1, int(plan.bf16),
             sum(1 << i for i, n in enumerate(need) if n),
-            sum(1 << i for i in (0, 1, 5) if kinds[i] == torch.bfloat16),
-            k_chunk, _ACT_ROWS, _COLSUM_ROWS, splits]
+            sum(1 << i for i in (0, 1, 5) if kinds[i] == torch.bfloat16), *plan.dims()]
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         rc = lib.gea_seed_backward((ctypes.c_uint64 * len(ptrs))(*ptrs),

@@ -11,8 +11,11 @@ dp`).
 
 * `--num_devices N` on one host: `resolve_num_devices` turns 0 into every
   visible card (one process on the CPU), and a request beyond the visible
-  count raises with `gea`'s message; `spawn` then starts one worker a rank
-  on a free localhost port.
+  count raises with `gea`'s message; `spawn` then starts one worker a rank.
+  The group meets at a store that the parent opens before it starts them,
+  on a port the OS gives it and holds until they end (`spawn_store`): no
+  port is chosen first and bound later, so no other process can take it
+  in between.
 * `--multihost`: the launcher has started one process a card and says
   where the group meets (`launcher_env`): torchrun's RANK, WORLD_SIZE,
   LOCAL_RANK, MASTER_ADDR and MASTER_PORT, or `gea`'s GEA_COORDINATOR,
@@ -33,6 +36,7 @@ checks the flags with `gea`'s messages.
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
 import socket
@@ -118,9 +122,11 @@ def launcher_env(env=os.environ) -> Launch:
                      f"{', '.join(TORCHRUN_ENV)} (and LOCAL_RANK), or {', '.join(GEA_ENV)}")
 
 
-def join(device: torch.device, launch: Launch) -> torch.device:
+def join(device: torch.device, launch: Launch, store=None) -> torch.device:
     """Start the process group (NCCL on the card, gloo on the CPU), or join
-    the one this process started already; returns this rank's device."""
+    the one this process started already; returns this rank's device. With
+    `store` (a `torch.distributed.Store`) the group meets there instead of
+    at `launch.init_method`."""
     if device.type == "cuda":
         device = torch.device("cuda", launch.local_rank)
         torch.cuda.set_device(device)
@@ -133,24 +139,40 @@ def join(device: torch.device, launch: Launch) -> torch.device:
                 f"({dist.get_backend()}) already; asked for rank {launch.rank} of "
                 f"{launch.size} ({backend})")
         return device
-    dist.init_process_group(backend, init_method=launch.init_method,
-                            world_size=launch.size, rank=launch.rank,
-                            device_id=device if device.type == "cuda" else None)
+    where = {"store": store} if store is not None else {"init_method": launch.init_method}
+    dist.init_process_group(backend, world_size=launch.size, rank=launch.rank,
+                            device_id=device if device.type == "cuda" else None, **where)
     return device
 
 
 def free_port() -> int:
+    """A localhost port that was free a moment ago (for a launcher's
+    MASTER_PORT; `spawn` does not use it: another process may take the
+    port before the group binds it)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
+# How long a spawned rank waits for the store and the group.
+RENDEZVOUS_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def spawn_store() -> "dist.TCPStore":
+    """The store a spawned group meets at: opened here, in the parent, on a
+    port the OS picks and that stays bound while the store lives."""
+    return dist.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False,
+                         timeout=RENDEZVOUS_TIMEOUT)
+
+
 def _rank_main(rank: int, size: int, port: int, device: str, fn: Callable, args: tuple,
                results) -> None:
-    """One spawned rank: join the group, run fn(device, *args), pass rank
-    0's result back (pickled by value: a tensor shared through the queue
-    would die with this process), leave the group."""
-    dev = join(torch.device(device), Launch(rank, size, rank, f"tcp://127.0.0.1:{port}"))
+    """One spawned rank: join the group at the parent's store, run fn(device,
+    *args), pass rank 0's result back (pickled by value: a tensor shared
+    through the queue would die with this process), leave the group."""
+    store = dist.TCPStore("127.0.0.1", port, is_master=False, timeout=RENDEZVOUS_TIMEOUT)
+    dev = join(torch.device(device), Launch(rank, size, rank, f"tcp://127.0.0.1:{port}"),
+               store=store)
     try:
         out = fn(dev, *args)
         if rank == 0:
@@ -170,8 +192,9 @@ def spawn(fn: Callable, size: int, device: torch.device, args: tuple = (),
     import torch.multiprocessing as mp
 
     results = mp.get_context("spawn").SimpleQueue()
+    store = spawn_store()  # held until every rank has ended
     ctx = mp.start_processes(_rank_main, nprocs=size, join=False, start_method="spawn",
-                             args=(size, free_port(), device.type, fn, args, results))
+                             args=(size, store.port, device.type, fn, args, results))
     deadline = None if timeout is None else time.monotonic() + timeout
     got = None
     try:
@@ -189,4 +212,5 @@ def spawn(fn: Callable, size: int, device: torch.device, args: tuple = (),
             if p.is_alive():
                 p.terminate()
             p.join()
+        del store
     return pickle.loads(results.get() if got is None else got)

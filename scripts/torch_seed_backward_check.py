@@ -9,10 +9,14 @@ and bf16, with every gradient, dz alone and the weights alone, prints each
 gradient's largest |kernel - plain| over its largest |plain| and its mean
 |kernel - plain| over its mean |plain|. At the G-LIS step's shape (256
 stacked codes) and R-iterative's (64) it times the kernels and the plain
-version (CUDA events, median of 10 after 3 warm-ups) and lists the device
-time of each kernel of one call (torch.profiler). Exits non-zero if a
-gradient is not finite or strays beyond 1e-4 (fp32) or 2e-2 (bf16) of its
-largest value. About 30 s on an H100.
+version (CUDA events, median of 10 after 3 warm-ups) and lists each kernel
+of one call, one by one: its device time and its launches a call
+(torch.profiler over 10 calls), beside the plan's list of launches
+(`seed.backward_plan`). Two calls on the same inputs must agree bit for
+bit. Exits non-zero if a gradient is not finite or strays beyond 1e-4
+(fp32) or 2e-2 (bf16) of its largest value, or if two calls differ. Prints
+what ptxas says of each kernel's registers and spills. About 30 s on an
+H100.
 """
 
 from __future__ import annotations
@@ -76,6 +80,10 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"{smi}; torch {torch.__version__}", flush=True)
     build.build_all()
+    for line in build.BUILD_LOGS.get("seed_bwd", "").splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(0)
     bad = 0
     for shape in SHAPES:
@@ -98,18 +106,29 @@ def main() -> int:
                     ok = bool(torch.isfinite(k.float()).all()) and rel <= limit
                     bad += not ok
                     errs.append(f"{name} {rel:.2e}/{mean:.1e}{'' if ok else ' BAD'}")
-                print(f"{shape} {str(dt)[6:]} {label}: max/mean rel {', '.join(errs)}", flush=True)
+                again = seed.fused_seed_backward(*args, s0, need)
+                same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+                bad += not same
+                print(f"{shape} {str(dt)[6:]} {label}: max/mean rel {', '.join(errs)}; "
+                      f"two calls {'bit for bit' if same else 'DIFFER'}", flush=True)
             if batch in TIMED:
                 k_ms = time_ms(lambda: seed.fused_seed_backward(*args, s0))
                 p_ms = time_ms(lambda: seed.fused_seed_backward_plain(*args, s0))
                 print(f"  every gradient: kernels {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    seed.fused_seed_backward(*args, s0)
-                    torch.cuda.synchronize()
-                for e in prof.key_averages():
-                    if e.self_device_time_total > 0:
-                        print(f"    {e.self_device_time_total / 1e3:.4f} ms x{e.count} {e.key[:90]}",
-                              flush=True)
+                for label, need in NEEDS.items():
+                    plan = seed.backward_plan(batch, code, s0, c0, c1, dt == torch.bfloat16,
+                                              need, sms)
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(10):
+                            seed.fused_seed_backward(*args, s0, need)
+                        torch.cuda.synchronize()
+                    print(f"  {label}: plan {' '.join(plan.launches())} (D grid "
+                          f"{plan.d_grid}, W grid {plan.w_grid}: {plan.n_wc} dWc, {plan.n_z} dz, "
+                          f"{plan.n_wp} dwp items; dWc chunks {plan.wc_chunks})", flush=True)
+                    for e in prof.key_averages():
+                        if e.self_device_time_total > 0:
+                            print(f"    {e.self_device_time_total / 1e3 / 10:.4f} ms "
+                                  f"x{e.count / 10:g} a call  {e.key[:90]}", flush=True)
     print(f"{bad} gradients beyond their limit; {smi}", flush=True)
     return 1 if bad else 0
 
