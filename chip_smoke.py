@@ -26,20 +26,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    to the first bit for bit, what a kernel that left the ds
    rounding out would read (which must exceed the limit), the time beside
    the plain version's, the bf16 composite's backward (cuBLAS, cuDNN), the
-   bound and the empty launch; LIS's backward kernel
-   (`lis_residual_mlp_backward`) at the G-LIS step's link and at its
-   near-zero case (`lis_near_zero`: rows whose s lies within rounding of 0,
-   where an fp32 product would take the other branch), in fp32 and bf16,
-   with every gradient, dz alone and the weights alone: each gradient
-   within LIS_BWD_TOL of its max and the mean error of dz, dw1 and dw2
-   within LIS_BWD_MEAN_TOL of their mean, what a kernel that left the
-   roundings of h and dh_pre out would read (which must exceed the limit),
-   the time beside the plain version's, the bound and the empty launch;
+   bound and the empty launch; LIS's backward kernel, one call for the
+   chain of links (`lis_chain_backward`), at the G-LIS step's 3-link chain
+   and at its near-zero case (`lis_chain_near_zero`: rows whose s lies
+   within rounding of 0, where an fp32 product would take the other
+   branch), in fp32 and bf16, with the G-LIS, batch-norm, R-separate and
+   every-gradient need sets: each gradient within LIS_BWD_TOL of its max
+   against the plain chain, and each link against the plain link on the
+   cotangent the kernel hands it within LIS_BWD_TOL of its max and (dz,
+   dw1, dw2) LIS_BWD_MEAN_TOL of their mean, two calls bit for bit, what a
+   kernel that left the roundings of h and dh_pre out would read (which
+   must exceed the limit), the time beside the plain version's, the bound
+   and the empty launch;
 4. at the train step's shapes, in fp32 and bf16: each kernel's
    `torch.autograd.Function` (kernel forward, kernel backward) against
    autograd through its plain
    version, gradients of every input within a stated tolerance, and the
-   device time of each backward;
+   device time of each backward; LIS's chain (`LISChain`: a kernel forward
+   a link, one kernel backward) against autograd through the links' plain
+   versions, and the device time of its backward;
 5. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
    ragged batch, at s0 = 4 and 7, with c1 and code that are not multiples
    of the tiles; the LIS link at a batch that is not a multiple of its row
@@ -48,9 +53,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    backward with da and db at each and, at each, without them or with an
    fp32 cotangent into bf16 x; the seed's backward at each seed shape and
    at c0 = c1 = 512 (config 5's), with every gradient and with dz alone;
-   LIS's backward at batches 1, 17, 30, 33 and 128, at hidden 512
-   (`lis_hidden_mult` 2) and at widths below one tile, with every gradient,
-   dz alone and the weights alone;
+   LIS's chain backward at batches 1, 17, 30, 33 and 128, at hidden 512
+   (`lis_hidden_mult` 2) and at widths below one tile, on chains of 1, 2
+   and 3 links, with the G-LIS, batch-norm, R-separate and every-gradient
+   need sets;
 6. build flagship-width G and D from seeded random params in `gea`'s tree
    layout and run `ServingModel.from_modules(G, D).sample_filtered(64,
    oversample=4, batch_size=64)` in bf16 with the launch counters zeroed just before and
@@ -62,7 +68,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    width in bf16 with batch 64 and BCE: 2 warm-up steps, of which the first
    checks that every parameter of G and D got a finite, non-zero gradient
    and that one step launches seed 1, LIS 3, TPReLU 9, TPReLU's
-   backward 9, LIS's backward 3 and the seed's backward once; then 10
+   backward 9, LIS's chain backward once (a call for the 3 links) and the
+   seed's backward once; then 10
    steps timed on the host clock with the launch counters zeroed just
    before and read just after; every parameter moved; the device time of
    one step (CUDA events behind a spin; whether the spin covered the
@@ -94,9 +101,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. R-separate, `python -m gea_torch.cli.train_r_separate` called
    in-process against phase 8's main run directory as its frozen G (and D):
    40 steps with renders and saves at 20, with exactly 40 steps' and 2
-   renders' launches (TPReLU 13, its backward 10, LIS 6, LIS's backward 3
-   and the seed's backward 1, each with dz alone, seed 2, a step; 10, 0, 6,
-   0, 0, 2 a render);
+   renders' launches (TPReLU 13, its backward 10, LIS 6, LIS's chain
+   backward 1 and the seed's backward 1, each with dz alone, seed 2, a
+   step; 10, 0, 6, 0, 0, 2 a render);
    the run directory's artifacts; every parameter of R got a finite,
    non-zero gradient and moved; the frozen G and D are unchanged bit for
    bit and hold no gradient; a bitwise checkpoint round trip of the R
@@ -238,7 +245,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    BCE, batch 64: 2 fp32 steps with kernels against 2 with plain versions
    under deterministic algorithms (metrics, step 1's gradients, the
    parameters, and the running statistics within STATS_TOL), exact
-   launches (LIS 6, its backward 3, TPReLU 17, its backward 13 without da
+   launches (LIS 6, its chain backward 1, TPReLU 17, its backward 13 without da
    and db, seed 0 a step: G runs twice), 10 timed
    eager steps (wall, images/s, device busy, idle share, by category;
    `launches_batch` in the `kernels` line counts them), the K = 8
@@ -395,9 +402,16 @@ SOURCES = {
     "fused_tprelu_backward": ("triton", "gea_torch/ops/tprelu.py", "gea/ops/pallas/tprelu.py:80"),
     "lis_residual_mlp": ("cuda", "gea_torch/csrc/lis.cu", "gea/ops/pallas/lis.py:89"),
     "lis_residual_mlp_backward": ("cuda", "gea_torch/csrc/lis_bwd.cu", "gea/ops/pallas/lis.py:122"),
+    "lis_chain_backward": ("cuda", "gea_torch/csrc/lis_bwd.cu", "gea/ops/pallas/lis.py:122"),
     "fused_seed": ("cuda", "gea_torch/csrc/seed.cu", "gea/ops/pallas/seed.py:129"),
     "fused_seed_backward": ("cuda", "gea_torch/csrc/seed_bwd.cu", "gea/ops/pallas/seed.py:203"),
 }
+
+
+# Wrappers of a kernel that no main path calls: a LIS link's backward alone
+# (the chain kernel on a chain of one, checked by phase 4), left out of the
+# `kernels` line, which lists its kernel as `lis_chain_backward`.
+OFF_MAIN_PATH = ("lis_residual_mlp_backward",)
 
 
 @contextlib.contextmanager
@@ -465,7 +479,7 @@ def device_profile(fn) -> tuple:
 # first rule that matches wins.
 CATEGORIES = (
     ("port kernels", ("seed_tap_gemm", "seed_kernel_f32", "lis_kernel", "tprelu_kernel",
-                      "tprelu_grad_", "seed_bwd_", "lis_bwd_")),
+                      "tprelu_grad_", "seed_bwd_", "lis_chain_")),
     ("library convs (cuDNN)", ("xmma", "cudnn", "cutlass", "nhwc", "implicit_gemm")),
     ("library matmuls (cuBLAS)", ("gemm", "gemv")),
     ("eager elementwise and reductions", ("at::native",)),
@@ -1079,22 +1093,6 @@ def lis_near_zero(args) -> tuple:
     return (z, w1, b1, slope, trans, w2, g), int((exact != fp32).sum().item())
 
 
-def lis_backward_cost(args, need) -> tuple:
-    """(bytes, operations) of one LIS backward: `function_backward_cost`
-    with every gradient; with dz alone z, w1, w2, b1, slope, trans and g
-    read, dz written, and pre, dh and dz's products; with the weights alone
-    z, g, the weights and vectors read, every gradient but dz written, and
-    pre, dh and the two weight products."""
-    z, w1 = args[0], args[1]
-    (b, c), h = z.shape, w1.shape[1]
-    e = z.element_size()
-    if all(need):
-        return function_backward_cost("lis_residual_mlp", args)
-    if need == DZ_ONLY:
-        return e * (3 * b * c + 2 * c * h) + 4 * 3 * h, 6 * b * c * h
-    return e * (2 * b * c + 4 * c * h) + 4 * (6 * h + c), 8 * b * c * h
-
-
 def compare_lis_backward(label: str, dt, args, need) -> tuple:
     """LIS's backward kernel against its plain version on `args` (z, w1,
     b1, slope, trans, w2, g): gradients not asked for None, each asked for
@@ -1127,6 +1125,129 @@ def compare_lis_backward(label: str, dt, args, need) -> tuple:
             max(v[2] for v in errs.values()))
 
 
+def lis_chain_needs(links: int) -> dict:
+    """Each path's need sets of a chain of `links` links, first link first:
+    G-LIS (the first link's z is drawn), batch norm (no learned slope or
+    offset), R-separate's frozen G (dz alone) and every gradient, z0's
+    too."""
+    no_act = (True, True, True, False, False, True, True)
+    return {"G-LIS": [WEIGHTS_ONLY] + [ALL_GRADS] * (links - 1),
+            "batch norm": [(False,) + no_act[1:]] + [no_act] * (links - 1),
+            "R-separate": [DZ_ONLY] * links, "every gradient": [ALL_GRADS] * links}
+
+
+def lis_chain_args(batch, code, hidden, links, dt, gen) -> tuple:
+    """(zs, w1s, b1s, slopes, transes, w2s, gs) of a chain: each link's
+    weights and cotangent as `lis_backward_args`'s, z0 random, each later
+    z the link before's output (the plain forward)."""
+    cols = [[] for _ in range(7)]
+    z = randn((batch, code), gen, 1.0, dt)
+    for _ in range(links):
+        _, w1, b1, slope, trans, w2, g = lis_backward_args(batch, code, hidden, dt, gen)
+        for col, v in zip(cols, (z, w1, b1, slope, trans, w2, g)):
+            col.append(v)
+        z = ops.lis_residual_mlp_plain(z, w1, b1, slope, trans, w2, randn(code, gen, 0.1))
+    return tuple(cols)
+
+
+def lis_chain_near_zero(args) -> tuple:
+    """`args` with each link's inputs made `lis_near_zero`'s case, and the
+    fp32 flips summed over the links."""
+    cols, flips = [list(c) for c in args], 0
+    for j in range(len(args[0])):
+        link, f = lis_near_zero(tuple(c[j] for c in cols))
+        for c, v in zip(cols, link):
+            c[j] = v
+        flips += f
+    return tuple(cols), flips
+
+
+def lis_chain_cost(args, needs) -> tuple:
+    """(bytes, operations) of one chain backward: per link from the last
+    down to the lowest that asks for anything, z, W1, the vectors and g
+    read, W2 where dh is needed, each gradient asked for written once (the
+    first link's dz alone of the dz's, the small vectors in fp32); pre, and
+    each of the products dh, dz, dW1, dW2 that is needed. A link alone
+    with every gradient is `function_backward_cost`'s."""
+    zs, w1s = args[0], args[1]
+    (b, c), h = zs[0].shape, w1s[0].shape[1]
+    e = zs[0].element_size()
+    first = next(j for j, n in enumerate(needs) if any(n))
+    nbytes = nops = 0
+    for j in range(first, len(needs)):
+        need = needs[j]
+        dh = any(need[:5])
+        nbytes += e * (2 * b * c + c * h * (1 + dh)) + 4 * 3 * h
+        nbytes += e * (b * c * (need[0] and j == 0) + c * h * (need[1] + need[5]))
+        nbytes += 4 * (h * (need[2] + need[3] + need[4]) + c * need[6])
+        nops += 2 * b * c * h * (1 + dh + need[0] + need[1] + need[5])
+    return nbytes, nops
+
+
+def compare_lis_chain(label: str, dt, args, needs) -> tuple:
+    """LIS's chain backward kernel against its plain version on `args`
+    (`lis_chain_args`) and `needs`. Per link the gradients not asked for
+    None (and every dz but the first link's), each asked for in its input's
+    dtype (db2 fp32) and finite; a second call equal to the first bit for
+    bit. Held to LIS_BWD_TOL of its max against the plain chain; and each
+    link, on the cotangent the kernel hands it (T(g + dz), dz from the
+    kernel on the links above: its products run in an order that does not
+    depend on the plan), against the plain link: within LIS_BWD_TOL of its
+    max, dz, dw1 and dw2 within LIS_BWD_MEAN_TOL of their mean. (In bf16 a
+    link's dz rounds to the neighbouring value now and then; below it the
+    two chains then part by more than a rounding left out would move them,
+    so the mean is held link by link.) (largest max-relative error, largest
+    mean-relative error of those three, largest |error|, each link against
+    the plain link; largest max-relative error against the plain chain)."""
+    got = ops.lis_chain_backward(*args, needs)
+    again = ops.lis_chain_backward(*args, needs)
+    want = ops.lis_chain_backward_plain(*args, needs)
+    torch.cuda.synchronize()
+    top, worst = len(needs) - 1, [0.0, 0.0, 0.0, 0.0]
+    for j, (k_link, a_link, w_link) in enumerate(zip(got, again, want)):
+        likes = (*(col[j] for col in args[:6]), torch.zeros((), device="cuda"))
+        for what, k, a, w, x in zip(LIS_GRADS, k_link, a_link, w_link, likes):
+            if (k is None) != (w is None):
+                raise AssertionError(f"lis_chain_backward {label}: link {j} {what} {k} vs {w}")
+            if w is None:
+                continue
+            if (k.dtype != w.dtype or k.dtype != x.dtype or k.shape != w.shape
+                    or not torch.isfinite(k).all()):
+                raise AssertionError(f"lis_chain_backward {label} {dt}: link {j} {what} "
+                                     f"{k.dtype} {tuple(k.shape)} vs {w.dtype} "
+                                     f"{tuple(w.shape)}, finite {torch.isfinite(k).all().item()}")
+            if not torch.equal(k, a):
+                raise AssertionError(f"lis_chain_backward {label} {dt}: link {j} {what}: two "
+                                     f"calls differ at {(k != a).sum().item()} elements")
+        for what, (rel, _, _) in grad_errors(k_link, w_link, LIS_GRADS).items():
+            worst[3] = max(worst[3], rel)
+            if not rel <= LIS_BWD_TOL[dt]:
+                raise AssertionError(f"lis_chain_backward {label} {dt}: link {j} {what} differs "
+                                     f"from the plain chain by {rel:.3e} of its max (tol "
+                                     f"{LIS_BWD_TOL[dt]})")
+        if not any(needs[j]):
+            continue
+        cot = args[6][j].to(dt)
+        if j < top:  # the kernel's dz of link j + 1, from the chain above
+            above = ops.lis_chain_backward(*(col[j + 1:] for col in args),
+                                           [DZ_ONLY] * (top - j))
+            cot = cot + above[0][0]
+        link = ops.lis_residual_mlp_backward_plain(*(col[j] for col in args[:6]), cot, needs[j])
+        if j:
+            link = (None, *link[1:])
+        for what, (rel, mean_rel, abs_err) in grad_errors(k_link, link, LIS_GRADS).items():
+            if not (rel <= LIS_BWD_TOL[dt] and (what not in LIS_MEAN_CHECKED
+                                                or mean_rel <= LIS_BWD_MEAN_TOL[dt])):
+                raise AssertionError(
+                    f"lis_chain_backward {label} {dt}: link {j} {what} differs from the plain "
+                    f"link by {rel:.3e} of its max (tol {LIS_BWD_TOL[dt]}), {mean_rel:.3e} of "
+                    f"its mean (tol {LIS_BWD_MEAN_TOL[dt]} for {LIS_MEAN_CHECKED})")
+            worst[0] = max(worst[0], rel)
+            worst[1] = max(worst[1], mean_rel if what in LIS_MEAN_CHECKED else 0.0)
+            worst[2] = max(worst[2], abs_err)
+    return tuple(worst)
+
+
 def lis_left_out_rounding(args) -> float:
     """What `compare_lis_backward` would read (the largest mean-relative
     error of dz, dw1 and dw2) from a kernel that left out the plain
@@ -1146,17 +1267,20 @@ def lis_left_out_rounding(args) -> float:
 
 
 def check_lis_backward(cfg, rows: dict) -> None:
-    """Phase 3 for LIS's backward kernel at the G-LIS step's link shape and
-    at its near-zero case (`lis_near_zero`), in fp32 and bf16, with every
-    gradient, dz alone (a frozen link's) and the weights alone (a first
-    link's, whose z is drawn): `compare_lis_backward`, and the time beside
-    the plain version's, the bound and the empty launch; in bf16 also what
-    a kernel that left the roundings of h and dh_pre out would read. The
-    bf16 calls make its row, summed per train step: every gradient for all
-    links but the first, the weights alone for the first."""
+    """Phase 3 for LIS's backward kernel: the G-LIS step's chain of links
+    and its near-zero case (`lis_chain_near_zero`), in fp32 and bf16, with
+    the need sets of `lis_chain_needs` (G-LIS, batch norm, R-separate,
+    every gradient): `compare_lis_chain` (two calls bit for bit), and the
+    time of a call beside the plain version's, the bound and the empty
+    launch; in bf16 also what a kernel that left the roundings of h and
+    dh_pre out would read at the last link. A G-LIS step makes one call
+    with the G-LIS needs: that call is its row. A link alone
+    (`lis_residual_mlp_backward`, the same kernel on a chain of one) runs
+    in phase 4 and on no main path: its row keeps only its launches."""
     floor_ms = rows["lis_residual_mlp"]["empty_launch_ms"]
-    row = rows["lis_residual_mlp_backward"] = {
-        "name": "lis_residual_mlp_backward", "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+    rows["lis_residual_mlp_backward"] = {"name": "lis_residual_mlp_backward"}
+    row = rows["lis_chain_backward"] = {
+        "name": "lis_chain_backward", "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
         "bound_by": "bytes", "render_ms": 0.0, "render_plain_ms": 0.0, "render_bound_ms": 0.0,
         "max_abs_err": 0.0, "max_abs_err_fp32": 0.0, "shapes": [], "composite_ms": None,
         "empty_launch_ms": floor_ms, "backward_ms": None, "backward_step_ms": None,
@@ -1166,17 +1290,16 @@ def check_lis_backward(cfg, rows: dict) -> None:
     gen = torch.Generator().manual_seed(5)
     code, hidden = cfg.code_size, cfg.code_size * cfg.lis_hidden_mult
     links = cfg.r_iterations
-    per_step = {"every gradient": links - 1, "dz alone": 0, "weights alone": 1}
     for case in ("flagship", "near zero"):
         for dt in (torch.float32, torch.bfloat16):
-            args = lis_backward_args(BATCH, code, hidden, dt, gen)
-            label = f"LIS link ({BATCH}, {code}) x ({code}, {hidden})"
+            args = lis_chain_args(BATCH, code, hidden, links, dt, gen)
+            label = f"LIS chain {links} x ({BATCH}, {code}) x ({code}, {hidden})"
             if case == "near zero":
-                args, flips = lis_near_zero(args)
+                args, flips = lis_chain_near_zero(args)
                 row["near_zero_fp32_flips"][str(dt)[6:]] = flips
                 label += f" near zero ({flips} fp32 flips)"
-            for what, need in LIS_NEEDS.items():
-                rel, mean_rel, abs_err = compare_lis_backward(label, dt, args, need)
+            for what, needs in lis_chain_needs(links).items():
+                rel, mean_rel, abs_err, chain_rel = compare_lis_chain(label, dt, args, needs)
                 key = f"{str(dt)[6:]} {what}"
                 row["max_rel_err"][key] = max(row["max_rel_err"].get(key, 0.0), rel)
                 row["max_mean_rel_err"][key] = max(row["max_mean_rel_err"].get(key, 0.0), mean_rel)
@@ -1184,35 +1307,35 @@ def check_lis_backward(cfg, rows: dict) -> None:
                 row[err_key] = max(row[err_key], abs_err)
                 times = ""
                 if case == "flagship":
-                    k_ms = time_ms(lambda: ops.lis_residual_mlp_backward(*args, need))
-                    p_ms = time_ms(lambda: ops.lis_residual_mlp_backward_plain(*args, need))
-                    b_ms, b_by = bound(*lis_backward_cost(args, need), dt)
+                    k_ms = time_ms(lambda: ops.lis_chain_backward(*args, needs))
+                    p_ms = time_ms(lambda: ops.lis_chain_backward_plain(*args, needs))
+                    b_ms, b_by = bound(*lis_chain_cost(args, needs), dt)
                     times = (f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  bound {b_ms:.4f} ms "
-                             f"({b_by})  empty launch {floor_ms:.4f} ms  x{per_step[what]}/step")
+                             f"({b_by})  empty launch {floor_ms:.4f} ms")
                     if dt == torch.bfloat16:
-                        row["ms"] += per_step[what] * k_ms
-                        row["plain_ms"] += per_step[what] * p_ms
-                        row["bound_ms"] += per_step[what] * b_ms
-                        row["shapes"].append({"shape": f"{label} {what}",
-                                              "per_step": per_step[what], "ms": k_ms,
+                        row["shapes"].append({"shape": f"{label} {what}", "ms": k_ms,
                                               "plain_ms": p_ms, "bound_ms": b_ms})
-                print(f"[kernel] lis_residual_mlp_backward {label:44s} {str(dt)[6:]:8s} "
-                      f"{what:14s} max|err|/max {rel:.3e} (tol {LIS_BWD_TOL[dt]}), mean|err|/mean "
-                      f"{mean_rel:.3e} (tol {LIS_BWD_MEAN_TOL[dt]}){times}", flush=True)
+                        if what == "G-LIS":
+                            row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+                print(f"[kernel] lis_chain_backward {label:52s} {str(dt)[6:]:8s} {what:14s} "
+                      f"max|err|/max {rel:.3e} (the chain {chain_rel:.3e}; tol "
+                      f"{LIS_BWD_TOL[dt]}), mean|err|/mean {mean_rel:.3e} (tol "
+                      f"{LIS_BWD_MEAN_TOL[dt]}), two calls bit for bit{times}", flush=True)
             if dt == torch.bfloat16:
-                missed = lis_left_out_rounding(args)
+                last = tuple(col[-1] for col in args)
+                missed = lis_left_out_rounding(last)
                 row["left_out_roundings"] = min(row["left_out_roundings"] or 1.0, missed)
-                print(f"[kernel] lis_residual_mlp_backward {label:44s} bf16 a kernel without "
-                      f"the roundings of h and dh_pre would read {missed:.3e} of the mean (tol "
-                      f"{LIS_BWD_MEAN_TOL[dt]})", flush=True)
+                print(f"[kernel] lis_chain_backward {label:52s} bf16 a kernel without the "
+                      f"roundings of h and dh_pre would read {missed:.3e} of the mean at the last "
+                      f"link (tol {LIS_BWD_MEAN_TOL[dt]})", flush=True)
             del args
-    print(f"[kernel] lis_residual_mlp_backward per G-LIS step (bf16, {links - 1} with every "
-          f"gradient, 1 with the weights alone): kernel {row['ms']:.4f} ms, plain "
+    print(f"[kernel] lis_chain_backward per G-LIS step (bf16, one call: {links} links, every "
+          f"gradient but the first link's dz): kernel {row['ms']:.4f} ms, plain "
           f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, empty launch "
           f"{floor_ms:.4f} ms", flush=True)
     missed = row["left_out_roundings"]
-    print(f"[kernel] lis_residual_mlp_backward: sound runs read at most {row['max_mean_rel_err']} "
-          f"of the mean; a kernel without the roundings at least {missed:.3e} (tol "
+    print(f"[kernel] lis_chain_backward: sound runs read at most {row['max_mean_rel_err']} of "
+          f"the mean; a kernel without the roundings at least {missed:.3e} (tol "
           f"{LIS_BWD_MEAN_TOL[torch.bfloat16]}); fp32 products would flip "
           f"{row['near_zero_fp32_flips']} branches of the near-zero case", flush=True)
     if not missed > LIS_BWD_MEAN_TOL[torch.bfloat16]:
@@ -1286,10 +1409,11 @@ def check_edges() -> dict:
             errs[f"{label} {str(dt)[6:]}"] = compare(
                 "lis_residual_mlp", label, dt, ops.lis_residual_mlp(*args),
                 ops.lis_residual_mlp_plain(*args))
-            g = randn((batch, code), gen, 0.1, dt)
-            for what, need in LIS_NEEDS.items():
-                errs[f"backward {label} {what} {str(dt)[6:]}"] = compare_lis_backward(
-                    f"backward {label} {what}", dt, (*args[:6], g), need)[0]
+            for links in (1, 2, 3):
+                chain = lis_chain_args(batch, code, hidden, links, dt, gen)
+                for what, needs in lis_chain_needs(links).items():
+                    errs[f"backward {label} x{links} {what} {str(dt)[6:]}"] = compare_lis_chain(
+                        f"backward {label} x{links} {what}", dt, chain, needs)[0]
     for k, v in errs.items():
         print(f"[edge] {k:52s} max|err| {v:.3e}", flush=True)
     return errs
@@ -1344,7 +1468,8 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
                 raise AssertionError(f"{name} {label} {dt}: gradients differ by {rel:.3e} of "
                                      f"their max > {GRAD_TOL[dt]}")
             extra = ""
-            if dt == torch.bfloat16 and per_step:
+            # A step differentiates LIS's links as one chain (timed below).
+            if dt == torch.bfloat16 and per_step and name != "lis_residual_mlp":
                 with cudnn_tf32():  # as the train step is timed
                     bwd_ms = time_ms(backward)
                 b_ms, b_by = bound(*function_backward_cost(name, args), dt)
@@ -1357,10 +1482,62 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
                   f"{BACKWARD_KIND[name]}: max|err|/max|grad| {rel:.3e} (tol "
                   f"{GRAD_TOL[dt]}){extra}", flush=True)
             del args, grads, backward
+    errs.update(check_chain_grads(cfg, kernel_rows["lis_residual_mlp"], gen))
     for name in PORT_BACKWARD.values():
         row = kernel_rows[name]
         print(f"[grad] {name} backward ({BACKWARD_KIND[name]}) per G-LIS step, bf16: "
               f"{row['backward_ms']:.4f} ms, bound {row['backward_bound_ms']:.4f} ms", flush=True)
+    return errs
+
+
+def check_chain_grads(cfg, row: dict, gen) -> dict:
+    """LIS's chain as a G-LIS step differentiates it: `LISChain` (a kernel
+    forward a link, one kernel backward) against autograd through the
+    links' plain versions, a cotangent on every output, z0 drawn; the
+    device time of its backward in bf16 into `row` (one call a step)."""
+    code, links = cfg.code_size, cfg.r_iterations
+    hidden = code * cfg.lis_hidden_mult
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        zs, *weights, gs = lis_chain_args(BATCH, code, hidden, links, dt, gen)
+        params = [(*w, randn(code, gen, 0.1)) for w in zip(*weights[:5])]
+        grads, backward = [], None
+        for kernel in (True, False):
+            leaves = [[t.detach().clone().requires_grad_(True) for t in link] for link in params]
+            if kernel:
+                outs = ops.lis_chain(zs[0], leaves)
+            else:
+                outs, z = [], zs[0]
+                for link in leaves:
+                    z = ops.lis_residual_mlp_plain(z, *link)
+                    outs.append(z)
+            flat = [t for link in leaves for t in link]
+            grads.append(torch.autograd.grad(outs, flat, gs, retain_graph=True))
+            if backward is None:
+                backward = lambda outs=outs, flat=flat: torch.autograd.grad(  # noqa: E731
+                    outs, flat, gs, retain_graph=True)
+        torch.cuda.synchronize()
+        rel = 0.0
+        for i, (gk, gp) in enumerate(zip(*grads)):
+            if gk.dtype != gp.dtype or not torch.isfinite(gk).all():
+                raise AssertionError(f"LIS chain {dt} grad {i}: {gk.dtype} vs {gp.dtype}")
+            scale = gp.float().abs().max().item()
+            rel = max(rel, (gk.float() - gp.float()).abs().max().item() / max(scale, 1e-30))
+        if not rel <= GRAD_TOL[dt]:
+            raise AssertionError(f"LIS chain {dt}: gradients differ by {rel:.3e} of their max > "
+                                 f"{GRAD_TOL[dt]}")
+        extra = ""
+        if dt == torch.bfloat16:
+            bwd_ms = time_ms(backward)
+            needs = lis_chain_needs(links)["G-LIS"]
+            b_ms, b_by = bound(*lis_chain_cost((zs, *weights, gs), needs), dt)
+            row["backward_ms"], row["backward_bound_ms"] = bwd_ms, b_ms
+            extra = f"  backward {bwd_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}) x1/step"
+        label = f"LIS chain {links} x ({BATCH}, {code}) x ({code}, {hidden})"
+        errs[f"lis_chain {label} {str(dt)[6:]}"] = rel
+        print(f"[grad] lis_chain        {label:60s} {str(dt)[6:]:8s} kernel forwards, kernel "
+              f"backward, lis_chain_backward: max|err|/max|grad| {rel:.3e} (tol {GRAD_TOL[dt]})"
+              f"{extra}", flush=True)
     return errs
 
 
@@ -1385,7 +1562,7 @@ def serving(cfg, kernel_rows: dict) -> dict:
     n_act = 2 * (generator_plan(cfg.image_size)[1] - 1)
     want = {"fused_tprelu": n_act * renders, "fused_tprelu_backward": 0,
             "lis_residual_mlp": cfg.r_iterations * renders, "lis_residual_mlp_backward": 0,
-            "fused_seed": renders, "fused_seed_backward": 0}
+            "lis_chain_backward": 0, "fused_seed": renders, "fused_seed_backward": 0}
     print(f"[serve] launch counts over {renders} renders: {counts} (want {want})", flush=True)
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -1516,23 +1693,25 @@ def fp32_agreement(cfg) -> dict:
 # Device kernels under these autograd nodes are the backward of a port
 # kernel's Function: eager ops, except where they are a port kernel by name
 # (the backwards of TPReLU, LIS and the seed are kernels of their own,
-# `fused_tprelu_backward`, `lis_residual_mlp_backward` and
-# `fused_seed_backward`).
+# `fused_tprelu_backward`, `lis_chain_backward` (the chain of links, one
+# call for the generator's LIS chain) or `lis_residual_mlp_backward` (a
+# link alone) and `fused_seed_backward`).
 PORT_BACKWARD = {"FusedTPReLUBackward": "fused_tprelu",
                  "LISResidualMLPBackward": "lis_residual_mlp",
+                 "LISChainBackward": "lis_residual_mlp",
                  "FusedSeedBackward": "fused_seed"}
 # How each Function's backward runs.
 BACKWARD_KIND = {"fused_tprelu": "kernel backward, fused_tprelu_backward",
-                 "lis_residual_mlp": "kernel backward, lis_residual_mlp_backward",
+                 "lis_residual_mlp": "kernel backward, lis_chain_backward",
                  "fused_seed": "kernel backward, fused_seed_backward"}
 # Device kernels of the port, by name: the forwards, TPReLU's backward (its
 # two kernels, tprelu_grad_kernel and tprelu_grad_reduce), LIS's
-# (lis_bwd_kernel) and the seed's (seed_bwd_project, seed_bwd_gemm,
+# (lis_chain_kernel and lis_chain_reduce) and the seed's (seed_bwd_project, seed_bwd_gemm,
 # seed_bwd_f32, seed_bwd_reduce).
 PORT_KERNELS = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
                 "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed",
                 "tprelu_grad_": "fused_tprelu_backward", "seed_bwd_": "fused_seed_backward",
-                "lis_bwd_": "lis_residual_mlp_backward"}
+                "lis_chain_": "lis_chain_backward"}
 LIBRARY_CATS = ("library convs (cuDNN)", "library matmuls (cuBLAS)")
 BACKWARD_CAT, OPTIMIZER_CAT = "eager backward of port kernels", "optimizer (Adam)"
 
@@ -1545,7 +1724,7 @@ def step_profile(fn) -> dict:
     unless it is a port kernel by name; one launched under any autograd
     node counts as backward. `port_kernel_ms` holds each port kernel's
     time by name (TPReLU's backward kernels as `fused_tprelu_backward`,
-    LIS's as `lis_residual_mlp_backward`, the seed's as
+    LIS's as `lis_chain_backward`, the seed's as
     `fused_seed_backward`), `port_backward_ms` each Function's backward,
     kernel or eager, `port_backward_library` the cuBLAS and cuDNN kernels
     launched under each, and `port_backward_in_op` the kernels other than
@@ -2019,11 +2198,11 @@ def glis_launches(cfg) -> tuple:
     has none."""
     acts = generator_plan(cfg.image_size)[1] - 1
     return ({"fused_tprelu": 3 * acts, "fused_tprelu_backward": 3 * acts,
-             "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": cfg.r_iterations,
-             "fused_seed": 1, "fused_seed_backward": 1},
+             "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0,
+             "lis_chain_backward": 1, "fused_seed": 1, "fused_seed_backward": 1},
             {"fused_tprelu": acts, "fused_tprelu_backward": 0,
              "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0,
-             "fused_seed": 1, "fused_seed_backward": 0})
+             "lis_chain_backward": 0, "fused_seed": 1, "fused_seed_backward": 0})
 
 
 def _trainer(tmp: str, kernel_rows: dict, bare_images_per_s: float, smi: str) -> dict:
@@ -2236,7 +2415,7 @@ def timed_steps(tag: str, run_step, smi: str) -> dict:
               flush=True)
     print(f"[{tag}] the backward kernels by name: " + "; ".join(
         f"{k} {profiled['port_kernel_ms'][k]:.4f} ms" for k in (
-            "fused_tprelu_backward", "lis_residual_mlp_backward", "fused_seed_backward"))
+            "fused_tprelu_backward", "lis_chain_backward", "fused_seed_backward"))
         + " a step", flush=True)
     for n, t, c in profiled["by_kernel"][:12]:
         print(f"[{tag}] step by kernel: {t:8.4f} ms x{c:<4d} {n[:90]}", flush=True)
@@ -2347,9 +2526,9 @@ def r_separate_launches(cfg) -> tuple:
     # alone) and R (the before render is not).
     per_render = {"fused_tprelu": acts + (acts + 1) + acts, "fused_tprelu_backward": 0,
                   "lis_residual_mlp": 2 * cfg.r_iterations, "lis_residual_mlp_backward": 0,
-                  "fused_seed": 2, "fused_seed_backward": 0}
+                  "lis_chain_backward": 0, "fused_seed": 2, "fused_seed_backward": 0}
     return {**per_render, "fused_tprelu": per_render["fused_tprelu"] + acts,
-            "fused_tprelu_backward": 3 * acts + 1, "lis_residual_mlp_backward": cfg.r_iterations,
+            "fused_tprelu_backward": 3 * acts + 1, "lis_chain_backward": 1,
             "fused_seed_backward": 1}, per_render
 
 
@@ -2427,10 +2606,11 @@ def r_iterative_launches(cfg) -> tuple:
     # are differentiated, so each of the joint unroll's links + 1 renders
     # has a seed backward.
     return ({"fused_tprelu": 2 * chain + 3 * acts, "fused_tprelu_backward": chain + 3 * acts,
-             "lis_residual_mlp": 0, "lis_residual_mlp_backward": 0, "fused_seed": 2 * (links + 1),
-             "fused_seed_backward": links + 1},
+             "lis_residual_mlp": 0, "lis_residual_mlp_backward": 0, "lis_chain_backward": 0,
+             "fused_seed": 2 * (links + 1), "fused_seed_backward": links + 1},
             {"fused_tprelu": chain, "fused_tprelu_backward": 0, "lis_residual_mlp": 0,
-             "lis_residual_mlp_backward": 0, "fused_seed": links + 1, "fused_seed_backward": 0})
+             "lis_residual_mlp_backward": 0, "lis_chain_backward": 0, "fused_seed": links + 1,
+             "fused_seed_backward": 0})
 
 
 def r_iterative(tmp: str, kernel_rows: dict, smi: str) -> dict:
@@ -2896,7 +3076,8 @@ def sampler_clis(tmp: str, demo_run: str, kernel_rows: dict, smi: str) -> dict:
         return {"fused_tprelu": (steps + 1) * acts + steps * (acts + 1),
                 "fused_tprelu_backward": 0,
                 "lis_residual_mlp": (steps + 1) * rsep_cfg.r_iterations,
-                "lis_residual_mlp_backward": 0, "fused_seed": steps + 1, "fused_seed_backward": 0}
+                "lis_residual_mlp_backward": 0, "lis_chain_backward": 0, "fused_seed": steps + 1,
+                "fused_seed_backward": 0}
 
     def chain(links: int) -> dict:
         return r_iterative_launches(it_cfg.replace(r_chain_length=links))[1]
@@ -3005,8 +3186,8 @@ def render_golden(smi: str) -> dict:
     errs = {k: float(np.abs(v - np.asarray(golden[k])).max()) for k, v in got.items()}
     acts = generator_plan(cfg.image_size)[1] - 1
     want = {"fused_tprelu": 2 * acts, "fused_tprelu_backward": 0,
-            "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0, "fused_seed": 1,
-            "fused_seed_backward": 0}
+            "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0,
+            "lis_chain_backward": 0, "fused_seed": 1, "fused_seed_backward": 0}
     print(f"[samplers] flagship fp32 render + D vs gea's golden: max |err| {errs} (tol "
           f"{GOLDEN_TOL}); launches {counts} (want {want}); {smi}", flush=True)
     if max(errs.values()) > GOLDEN_TOL or counts != want:
@@ -3406,11 +3587,15 @@ def graph_trainers() -> dict:
 # Each wrapper's kernels by their names in a torch.profiler trace, with the
 # launches one call makes: a bf16 seed call is two launches of seed_tap_gemm
 # (the projection, then the transposed conv); every seed backward that
-# computes any gradient (in either dtype) launches seed_bwd_project once.
+# computes any gradient (in either dtype) launches seed_bwd_project once,
+# every LIS chain backward lis_chain_kernel once. A link's backward alone
+# (`lis_residual_mlp_backward`, a chain of one) launches the same kernel
+# and runs on no path counted here: its calls would count as the chain's.
 KERNEL_EVENTS = {"fused_tprelu": (("tprelu_kernel", 1),),
                  "fused_tprelu_backward": (("tprelu_grad_kernel", 1),),
                  "lis_residual_mlp": (("lis_kernel_", 1),),
-                 "lis_residual_mlp_backward": (("lis_bwd_kernel", 1),),
+                 "lis_residual_mlp_backward": (),
+                 "lis_chain_backward": (("lis_chain_kernel", 1),),
                  "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1)),
                  "fused_seed_backward": (("seed_bwd_project", 1),)}
 
@@ -4383,15 +4568,14 @@ def bn_launches(cfg) -> tuple:
     the reals, on the fakes and for G's loss. The second G forward and the
     three D forwards are differentiated: d + 3 (d - 1) TPReLU backwards, each
     without da and db (the LeakyReLU's slope and offset are fixed), and a
-    LIS backward a link, without dslope and dtrans."""
+    LIS chain backward, without dslope and dtrans."""
     d = generator_plan(cfg.image_size)[1]
     render = {"fused_tprelu": d, "fused_tprelu_backward": 0,
               "lis_residual_mlp": cfg.r_iterations, "lis_residual_mlp_backward": 0,
-              "fused_seed": 0, "fused_seed_backward": 0}
+              "lis_chain_backward": 0, "fused_seed": 0, "fused_seed_backward": 0}
     return ({"fused_tprelu": 2 * d + 3 * (d - 1), "fused_tprelu_backward": d + 3 * (d - 1),
-             "lis_residual_mlp": 2 * cfg.r_iterations,
-             "lis_residual_mlp_backward": cfg.r_iterations, "fused_seed": 0,
-             "fused_seed_backward": 0}, render)
+             "lis_residual_mlp": 2 * cfg.r_iterations, "lis_residual_mlp_backward": 0,
+             "lis_chain_backward": 1, "fused_seed": 0, "fused_seed_backward": 0}, render)
 
 
 def bn_state(cfg, **kw):
@@ -4777,12 +4961,22 @@ class HostStaged(Collectives):
 # Where the models call each kernel's wrapper (module, name, kernel): the
 # names a recording swaps for a spy that keeps the inputs and calls the
 # wrapper. TPReLU's backward is called by its Function, through `_backward`.
-KERNEL_SITES = (("gea_torch.models.generator", "lis_residual_mlp", "lis_residual_mlp"),
+KERNEL_SITES = (("gea_torch.ops.lis", "_forward", "lis_residual_mlp"),
                 ("gea_torch.models.generator", "fused_seed", "fused_seed"),
                 ("gea_torch.ops.layers", "fused_tprelu", "fused_tprelu"),
                 ("gea_torch.ops.tprelu", "_backward", "fused_tprelu_backward"),
                 ("gea_torch.ops.seed", "_backward", "fused_seed_backward"),
-                ("gea_torch.ops.lis", "_backward", "lis_residual_mlp_backward"))
+                ("gea_torch.ops.lis", "_chain_backward", "lis_chain_backward"))
+
+
+def kept(a):
+    """A detached copy of a tensor, or of each tensor of a list (the chain's
+    per-link inputs); anything else as it is."""
+    if torch.is_tensor(a):
+        return a.detach().clone()
+    if isinstance(a, (list, tuple)) and a and torch.is_tensor(a[0]):
+        return [t.detach().clone() for t in a]
+    return a
 
 
 @contextlib.contextmanager
@@ -4796,10 +4990,10 @@ def recorded_inputs(store: dict):
         fn = getattr(mod, name)
 
         def spy(*args, _fn=fn, _name=kernel):
-            key = (_name, tuple(args[0].shape), args[0].dtype)
+            first = args[0][0] if isinstance(args[0], (list, tuple)) else args[0]  # the chain's z0
+            key = (_name, tuple(first.shape), first.dtype)
             if key not in store:
-                store[key] = tuple(a.detach().clone() if torch.is_tensor(a) else a
-                                   for a in args)
+                store[key] = tuple(kept(a) for a in args)
             return _fn(*args)
 
         saved.append((mod, name, fn))
@@ -4822,7 +5016,7 @@ def check_recorded(store: dict, rows: int, tag: str) -> dict:
     rows)."""
     got = {name for name, _, _ in store}
     if got != {*KERNEL, "fused_tprelu_backward", "fused_seed_backward",
-               "lis_residual_mlp_backward"}:
+               "lis_chain_backward"}:
         raise AssertionError(f"{tag}: recorded {sorted(got)}, not every kernel of the step")
     out = {}
     with torch.no_grad():
@@ -4836,8 +5030,8 @@ def check_recorded(store: dict, rows: int, tag: str) -> dict:
             elif name == "fused_seed_backward":
                 out[f"{name} {shape} {str(dt)[6:]} (rel to max)"] = compare_seed_backward(
                     label, dt, args[:-1], args[-1])[0]
-            elif name == "lis_residual_mlp_backward":
-                out[f"{name} {shape} {str(dt)[6:]} (rel to max)"] = compare_lis_backward(
+            elif name == "lis_chain_backward":
+                out[f"{name} {shape} {str(dt)[6:]} (rel to max)"] = compare_lis_chain(
                     label, dt, args[:-1], args[-1])[0]
             else:
                 out[f"{name} {shape} {str(dt)[6:]}"] = compare(
@@ -5208,6 +5402,8 @@ def main() -> int:
 
     kernels = []
     for name, row in rows.items():
+        if name in OFF_MAIN_PATH:
+            continue
         route, source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,

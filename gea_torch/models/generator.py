@@ -7,7 +7,9 @@ one conv-transpose core. Params are fp32, compute runs in `cfg.dtype`.
 Kernels on this path (each with its plain PyTorch twin, chosen by
 `use_kernels=False`):
 
-* every LIS link -> `gea_torch.ops.lis.lis_residual_mlp`;
+* every LIS link -> `gea_torch.ops.lis.lis_residual_mlp`; where gradients
+  are recorded, the links run as one `gea_torch.ops.lis.lis_chain`, whose
+  backward is one kernel call for the whole chain;
 * the seed segment `project -> project_act -> up1` -> `gea_torch.ops.seed.
   fused_seed` (the `fused_seed=True` configuration of `gea`), for d >= 2
   and `norm` weight or none: `gea` turns the fused seed off under batch
@@ -34,7 +36,7 @@ import torch.nn as nn
 
 from gea_torch.config import ModelConfig, generator_plan, resolve_device
 from gea_torch.ops.layers import ConvTranspose, Dense, TPReLU, eval_mode, norm_act
-from gea_torch.ops.lis import lis_residual_mlp, lis_residual_mlp_plain
+from gea_torch.ops.lis import lis_chain, lis_residual_mlp, lis_residual_mlp_plain
 from gea_torch.ops.seed import fused_seed, fused_seed_plain
 
 
@@ -53,12 +55,12 @@ class LISModule(nn.Module):
         self.act = TPReLU(hidden, learned=wn, use_kernels=use_kernels)
         self.fc2 = Dense(hidden, code_size, wn)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def kernel_args(self, z: torch.Tensor) -> tuple:
+        """The link's arguments (z, w1, b1, slope, trans, w2, b2). Weights
+        reach the kernels row-major in z's dtype: the cast writes them so,
+        and the kernel wrappers copy nothing."""
         dt = z.dtype
-        op = lis_residual_mlp if self.use_kernels else lis_residual_mlp_plain
-        # Weights reach the kernels row-major: the cast to the compute dtype
-        # writes them so, and the kernel wrappers copy nothing.
-        return op(
+        return (
             z,
             self.fc1.normalized_weight().t().to(dt, memory_format=torch.contiguous_format),
             self.fc1.bias,
@@ -67,6 +69,10 @@ class LISModule(nn.Module):
             self.fc2.normalized_weight().t().to(dt, memory_format=torch.contiguous_format),
             self.fc2.bias,
         )
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        op = lis_residual_mlp if self.use_kernels else lis_residual_mlp_plain
+        return op(*self.kernel_args(z))
 
 
 class UpBlock(nn.Module):
@@ -180,9 +186,14 @@ class GeneratorLIS(GeneratorCore):
         batch = z.shape[0]
         zs: List[torch.Tensor] = [z]
         x = z.to(dt)
-        for m in self.lis:
-            x = m(x)
-            zs.append(x)
+        if self.use_kernels and torch.is_grad_enabled() and len(self.lis):
+            # One backward call for the chain; exported (no_grad) and plain
+            # graphs keep one node a link.
+            zs += lis_chain(x, [m.kernel_args(x)[1:] for m in self.lis])
+        else:
+            for m in self.lis:
+                x = m(x)
+                zs.append(x)
         if not self.lis:
             render = zs[:1]
         elif render_all_stages or self.cfg.include_initial_image:

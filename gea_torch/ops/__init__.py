@@ -3,8 +3,9 @@
 * `tprelu` (Triton)   replaces `gea/ops/pallas/tprelu.py::fused_tprelu`, with
   its backward `fused_tprelu_backward` (`_bwd` there) as a second kernel;
 * `lis`    (CUDA C++) replaces `gea/ops/pallas/lis.py::lis_residual_mlp`,
-  with its backward `lis_residual_mlp_backward` (`_bwd` there) as a second
-  kernel (`csrc/lis_bwd.cu`);
+  with its backward (`_bwd` there) as a second kernel (`csrc/lis_bwd.cu`)
+  that walks a whole chain of links in one call, `lis_chain_backward` (a
+  link alone: `lis_residual_mlp_backward`);
 * `seed`   (CUDA C++) replaces `gea/ops/pallas/seed.py::fused_seed`, with
   its backward `fused_seed_backward` (`_bwd` there) as a second set of
   kernels (`csrc/seed_bwd.cu`).
@@ -19,6 +20,9 @@ are those of the kernels that ran.
 """
 
 from gea_torch.ops.lis import (  # noqa: F401
+    lis_chain,
+    lis_chain_backward,
+    lis_chain_backward_plain,
     lis_residual_mlp,
     lis_residual_mlp_backward,
     lis_residual_mlp_backward_plain,
@@ -38,7 +42,7 @@ from gea_torch.ops.tprelu import (  # noqa: F401
 )
 
 KERNELS = (fused_tprelu, fused_tprelu_backward, lis_residual_mlp, lis_residual_mlp_backward,
-           fused_seed, fused_seed_backward)
+           lis_chain_backward, fused_seed, fused_seed_backward)
 
 
 def reset_launch_counts() -> None:

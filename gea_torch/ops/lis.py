@@ -1,5 +1,6 @@
 """One LIS link, `z + W2 @ tprelu(W1 @ z + b1) + b2`, as one CUDA kernel
-(`gea_torch/csrc/lis.cu`).
+(`gea_torch/csrc/lis.cu`), and the backward of a chain of links as
+another (`gea_torch/csrc/lis_bwd.cu`).
 
 Replaces `gea/ops/pallas/lis.py::lis_residual_mlp`. Same arguments and the
 same rounding: both products accumulate in fp32, the TPReLU runs in fp32,
@@ -19,23 +20,29 @@ implementation is the plain version, its CUDA one launches the kernel (and
 counts the launch in `lis_residual_mlp.launches`) or raises, and its fake
 implementation gives the output's shape and dtype to the tracer.
 
-`lis_residual_mlp` is differentiable on both devices through
-`LISResidualMLP`, a `torch.autograd.Function` whose forward is the op. Its
-backward, the one of `gea/ops/pallas/lis.py::_bwd` (the gradients of z,
-w1, b1, slope, trans, w2 and b2), is a second kernel
-(`gea_torch/csrc/lis_bwd.cu`, one launch a link) bound as the custom op
-`gea_torch::lis_residual_mlp_backward`, with
-`lis_residual_mlp_backward_plain` as its plain version. It recomputes the
-hidden row from the saved inputs, pre exactly (fp64 products and sums,
-rounded once to fp32, as the plain version computes it, so that both put
-each TPReLU input on the same side of 0), and computes only the gradients
-asked for (a frozen link asks for dz alone). The gradient is not
-differentiable again (no path needs it): a second derivative raises.
+The backward, that of `gea/ops/pallas/lis.py::_bwd` (the gradients of z,
+w1, b1, slope, trans, w2 and b2) taken link after link down a chain, is
+the custom op `gea_torch::lis_chain_backward`: one call for the cotangents
+of every output of a chain z_{j+1} = link_j(z_j), one launch of the chain
+kernel (and one of a fixed-order reduce where weights or sums are asked
+for), laid out by the host plan `backward_plan`. `lis_chain_backward_plain`
+is its plain version: `lis_residual_mlp_backward_plain` from the last link
+down, each link's cotangent g + dz of the link above added in z's dtype.
+The generator's links run as `LISChain` (`lis_chain`) where gradients are
+recorded, whose backward is that call; a link alone (`LISResidualMLP`) has
+`gea_torch::lis_residual_mlp_backward`, the chain kernel on a chain of
+one. Both recompute the hidden row from the saved inputs, pre exactly
+(fp64 products and sums, rounded once to fp32, as the plain version
+computes it, so that both put each TPReLU input on the same side of 0),
+and compute only the gradients asked for (a frozen link asks for dz
+alone). The gradient is not differentiable again (no path needs it): a
+second derivative raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -170,15 +177,313 @@ def lis_residual_mlp_backward_plain(z, w1, b1, slope, trans, w2, g,
     return grads
 
 
+def lis_chain_backward_plain(zs, w1s, b1s, slopes, transes, w2s, gs, needs) -> list:
+    """The gradients of a chain of `lis_residual_mlp` links, z_{j+1} =
+    link_j(z_j), for the cotangents gs[j] of the outputs z_{j+1}: per link
+    [dz, dw1, db1, dslope, dtrans, dw2, db2], None where `needs[j]` is False
+    and for every link's dz but the first's (the others flow down the
+    chain). `zs[j]` is link j's input; `needs[j][0]`, for j > 0, is whether
+    any link below asks for anything (`check_chain_needs`). Composes
+    `lis_residual_mlp_backward_plain` from the last link down, each on its
+    total cotangent G = g (the last link) or g + dz of the link above, added
+    in z's dtype as the autograd engine adds the two."""
+    check_chain_needs(needs)
+    dt = zs[0].dtype
+    out = [[None] * _GRADS for _ in zs]
+    for j in range(len(zs) - 1, -1, -1):
+        if not any(needs[j]):  # nor does any link below
+            break
+        cot = gs[j].to(dt) if j == len(zs) - 1 else gs[j].to(dt) + dz
+        grads = lis_residual_mlp_backward_plain(zs[j], w1s[j], b1s[j], slopes[j], transes[j],
+                                                w2s[j], cot, needs[j])
+        dz = grads[0]
+        out[j] = [None] + list(grads[1:]) if j else list(grads)
+    return out
+
+
+def check_chain_needs(needs) -> None:
+    """Each link's seven flags (dz, dw1, db1, dslope, dtrans, dw2, db2);
+    for j > 0, dz is the cotangent link j hands down, asked for exactly
+    when a link below asks for any gradient."""
+    below = False
+    for j, need in enumerate(needs):
+        if len(need) != _GRADS:
+            raise ValueError(f"link {j}: need has {len(need)} flags, not {_GRADS}")
+        if j and bool(need[0]) != below:
+            raise ValueError(f"link {j}: need[0] is {bool(need[0])}, but the links below "
+                             f"{'ask' if below else 'do not ask'} for gradients")
+        below = below or any(need)
+
+
+# ------------------------------------------------------------------ the plan
+
+CHAIN_ROWS = 16  # rows of a row group: one cluster walks them down the chain
+MAX_LINKS = 8
+CLUSTERS = (16, 8)  # cluster sizes, by preference
+DEPTHS = (4, 3, 2, 1)  # ring slots, by preference
+_REDUCE_ELEMS = 1024  # elements a block of the reduce takes per pass (256 threads x 4)
+SMEM_LIMIT = build.SMEM_LIMIT - 1024  # a block's dynamic shared memory: the links' copy aside
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up(x: int, m: int) -> int:
+    return _cdiv(x, m) * m
+
+
+def chain_smem_bytes(code: int, hidden: int, links: int, cluster: int, depth: int,
+                     esize: int) -> int:
+    """Shared memory of a block of the chain kernel (`Layout` in
+    `csrc/lis_bwd.cu`, which the check script holds this to)."""
+    kz, wh, wo = _up(code, 16), _up(_cdiv(hidden, cluster), 16), _up(_cdiv(code, cluster), 16)
+    ld_z, ld_h, ld_o, ld_f = kz, wh + 8, wo + 8, cluster * wh
+    w1c_rows = _up(kz, min(kz, 256))
+    zb, vb = _up(CHAIN_ROWS * ld_z * esize, 16), _up(3 * wh * 4, 16)
+    p_item = _up(zb, 128) + _up(w1c_rows * wh * esize, 16) + vb
+    w_item = (zb + _up(wh * ld_z * esize, 16) + _up(wo * ld_f * esize, 16)
+              + _up(CHAIN_ROWS * ld_o * esize, 16) + vb)
+    rest = (2 * _up(cluster * CHAIN_ROWS * ld_o * esize, 16)
+            + _up(cluster * CHAIN_ROWS * ld_h * esize, 16)
+            + _up(CHAIN_ROWS * ld_o * esize, 16) + _up(CHAIN_ROWS * ld_h * esize, 16)
+            + links * _up(CHAIN_ROWS * ld_h * esize, 16) + links * _up(CHAIN_ROWS * wh * 4, 16)
+            + _up(CHAIN_ROWS * wh * 4, 16) + 8 * max(wh, wo) // 16 * 1024
+            + 8 * 16 * (16 * 4 + 16) + 8 * 8)
+    return depth * _up(max(p_item, w_item), 128) + rest
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """How one call of the chain kernel (`csrc/lis_bwd.cu`) is cut: the
+    batch into row groups of CHAIN_ROWS rows, one cluster each; the cluster
+    size and the ring's depth that fit shared memory (all row groups
+    resident at once where a cluster size allows it, by `resident`: the
+    clusters of each size the card holds at once); the fp32 slots of every
+    partial sum (row group by row group), and the reduce's jobs. A pure
+    function of its fields."""
+
+    batch: int
+    code: int
+    hidden: int
+    bf16: bool
+    needs: tuple
+    sms: int
+    resident: tuple = ()  # ((cluster size, clusters resident at once), ...)
+
+    @property
+    def links(self) -> int:
+        return len(self.needs)
+
+    @property
+    def groups(self) -> int:
+        return _cdiv(self.batch, CHAIN_ROWS)
+
+    @property
+    def first(self) -> int:
+        """The lowest link asked for anything (the walk ends there)."""
+        return next(j for j, n in enumerate(self.needs) if any(n))
+
+    def row_groups(self) -> list:
+        """(first row, rows) of each row group, cluster by cluster."""
+        return [(r * CHAIN_ROWS, min(CHAIN_ROWS, self.batch - r * CHAIN_ROWS))
+                for r in range(self.groups)]
+
+    @property
+    def config(self):
+        """(cluster, ring depth) or None if no cluster fits."""
+        esize = 2 if self.bf16 else 4
+        options = [(c, d) for d in DEPTHS for c in CLUSTERS]
+        fit = [o for o in options if chain_smem_bytes(
+            self.code, self.hidden, self.links, o[0], o[1], esize) <= SMEM_LIMIT]
+        held = dict(self.resident)
+        resident = [o for o in fit if self.groups <= held.get(o[0], 0)]
+        return (resident or fit or [None])[0]
+
+    @property
+    def smem_bytes(self) -> int:
+        cluster, depth = self.config
+        return chain_smem_bytes(self.code, self.hidden, self.links, cluster, depth,
+                                2 if self.bf16 else 4)
+
+    def sizes(self) -> tuple:
+        """Elements of a row group's slot of each slotted gradient (dw1,
+        db1, dslope, dtrans, dw2, db2)."""
+        c, h = self.code, self.hidden
+        return (c * h, h, h, h, h * c, c)
+
+    def slots(self) -> dict:
+        """{(link, gradient 0-5 of dw1..db2): fp32 offset of its row groups'
+        slots, one after another} for every slotted gradient asked for."""
+        out, at = {}, 0
+        for j, need in enumerate(self.needs):
+            for k, n in enumerate(self.sizes()):
+                if need[1 + k]:
+                    out[(j, k)] = at
+                    at += self.groups * n
+        return out
+
+    @property
+    def part_floats(self) -> int:
+        return sum(self.groups * self.sizes()[k] for _, k in self.slots())
+
+    @property
+    def reduce_blocks(self) -> int:
+        """Blocks of the reduce per job: enough to fill the card."""
+        jobs = len(self.slots())
+        if not jobs:
+            return 0
+        most = max(self.sizes()[k] for _, k in self.slots())
+        return max(1, min(_cdiv(most, _REDUCE_ELEMS), _cdiv(2 * self.sms, jobs)))
+
+    def launches(self) -> list:
+        """The kernels one call launches, in order."""
+        out = ["lis_chain_kernel<bf16>" if self.bf16 else "lis_chain_kernel<float>"]
+        return out + (["lis_chain_reduce"] if self.slots() else [])
+
+    def dims(self, f32_weights) -> list:
+        """The kernel's `dim` (`gea_lis_chain_backward`); f32_weights[j]:
+        link j's (dW1 in fp32, dW2 in fp32)."""
+        cluster, depth = self.config
+        out = [self.links, self.first, self.batch, self.code, self.hidden, int(self.bf16),
+               cluster, depth, self.groups, self.reduce_blocks]
+        slots = self.slots()
+        for j, need in enumerate(self.needs):
+            out += [sum(1 << i for i, n in enumerate(need) if n), *map(int, f32_weights[j])]
+            out += [slots.get((j, k), -1) for k in range(_GRADS - 1)]
+        return out
+
+
+def backward_plan(batch: int, code: int, hidden: int, bf16: bool, needs, sms: int,
+                  resident=()) -> ChainPlan:
+    needs = tuple(tuple(bool(n) for n in need) for need in needs)
+    check_chain_needs(needs)
+    return ChainPlan(batch, code, hidden, bool(bf16), needs, sms,
+                     tuple(sorted(dict(resident).items())))
+
+
+# ------------------------------------------------------------------ the ops
+
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("lis_bwd")
-    lib.gea_lis_backward.argtypes = [ctypes.POINTER(ctypes.c_uint64),
-                                     ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-    lib.gea_lis_backward.restype = ctypes.c_int
-    lib.gea_lis_backward_rows.argtypes = [ctypes.c_int] * 3
-    lib.gea_lis_backward_rows.restype = ctypes.c_int
+    lib.gea_lis_chain_backward.argtypes = [ctypes.POINTER(ctypes.c_uint64),
+                                           ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    lib.gea_lis_chain_backward.restype = ctypes.c_int
+    lib.gea_lis_chain_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.gea_lis_chain_smem_bytes.restype = ctypes.c_int
+    lib.gea_lis_chain_max_clusters.argtypes = [ctypes.c_int] * 2
+    lib.gea_lis_chain_max_clusters.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def resident_clusters(index: int, bf16: bool) -> tuple:
+    """((cluster size, clusters of the chain kernel the card holds at
+    once), ...), each block taking a whole SM's shared memory."""
+    lib = _bwd_lib()
+    out = []
+    with torch.cuda.device(index):
+        for cluster in CLUSTERS:
+            n = lib.gea_lis_chain_max_clusters(cluster, int(bf16))
+            if n < 0:
+                build.check(lib, -n, "lis_chain_backward (occupancy)")
+            out.append((cluster, n))
+    return tuple(out)
+
+
+def _grad_likes(z, w1, b1, slope, trans, w2) -> tuple:
+    """Each gradient's dtype and shape, by the input it is like: db2 is
+    fp32 (float64 for float64 z) of b2's shape, (code,)."""
+    return (z, w1, b1, slope, trans, w2,
+            z.new_empty(z.shape[1], dtype=torch.promote_types(z.dtype, torch.float32)))
+
+
+def _chain_likes(zs, w1s, b1s, slopes, transes, w2s) -> list:
+    return [_grad_likes(*link) for link in zip(zs, w1s, b1s, slopes, transes, w2s)]
+
+
+def _flat_needs(needs, links: int) -> list:
+    if len(needs) != _GRADS * links:
+        raise ValueError(f"need has {len(needs)} flags, not {_GRADS} for each of {links} links")
+    return [tuple(needs[_GRADS * j:_GRADS * (j + 1)]) for j in range(links)]
+
+
+def _launch_chain(what, zs, w1s, b1s, slopes, transes, w2s, gs, needs) -> tuple:
+    """The chain kernel's launch for CUDA tensors: (per link the seven
+    gradients, empty where not asked for (and for every dz but the first
+    link's), whether it launched)."""
+    n = len(zs)
+    if not 1 <= n <= MAX_LINKS or not n == len(w1s) == len(b1s) == len(slopes) == len(
+            transes) == len(w2s) == len(gs):
+        raise ValueError(f"{what}: {n} links (1 to {MAX_LINKS}, each with all its inputs)")
+    build.check_cuda_inputs(what, *zs, *w1s, *b1s, *slopes, *transes, *w2s, *gs)
+    check_chain_needs(needs)
+    dt = zs[0].dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: unsupported dtype {dt}")
+    batch, code = zs[0].shape
+    hidden = w1s[0].shape[1]
+    for z, w1, w2, g in zip(zs, w1s, w2s, gs):
+        if (z.dtype != dt or z.shape != (batch, code) or w1.shape != (code, hidden)
+                or w2.shape != (hidden, code) or g.shape != z.shape):
+            raise ValueError(f"{what}: z {tuple(z.shape)} {z.dtype} / w1 {tuple(w1.shape)} / w2 "
+                             f"{tuple(w2.shape)} / g {tuple(g.shape)} do not fit a chain on z "
+                             f"{(batch, code)} {dt}")
+    bf16 = dt == torch.bfloat16
+    piece = 8 if bf16 else 4  # elements of a 16-byte copy
+    if code % piece or hidden % piece:
+        raise ValueError(f"{what}: the {'bf16' if bf16 else 'fp32'} kernel takes code and "
+                         f"hidden divisible by {piece}; got code={code}, hidden={hidden}")
+    dev = zs[0].device
+    likes = _chain_likes(zs, w1s, b1s, slopes, transes, w2s)
+    grads = [[torch.empty(x.shape if need[i] and (i or not j) else (0,), dtype=x.dtype,
+                          device=dev) for i, x in enumerate(like)]
+             for j, (like, need) in enumerate(zip(likes, needs))]
+    if batch == 0 or not any(map(any, needs)):  # no launch; the sums of nothing are zero
+        return [[d.zero_() for d in link] for link in grads], False
+    plan = backward_plan(batch, code, hidden, bf16, needs, _sm_count(dev.index or 0),
+                         resident_clusters(dev.index or 0, bf16))
+    if plan.config is None:
+        raise ValueError(f"{what}: code={code}, hidden={hidden} over {n} links too wide for "
+                         f"shared memory")
+    # What the kernels write: dz in z's dtype, dw1 and dw2 in bf16 or fp32,
+    # the sums in fp32; another dtype goes through a copy.
+    outs = []
+    for link in grads:
+        kinds = [dt if i == 0 else d.dtype if i in (1, 5) and d.dtype in (torch.bfloat16,
+                                                                           torch.float32)
+                 else torch.float32 for i, d in enumerate(link)]
+        outs.append([d if d.dtype == k else torch.empty_like(d, dtype=k)
+                     for d, k in zip(link, kinds)])
+    # The kernel copies every operand in 16-byte pieces.
+    ins = []
+    for z, w1, b1, slope, trans, w2, g in zip(zs, w1s, b1s, slopes, transes, w2s, gs):
+        z, w1, w2, g = (build.aligned16(t.to(dt).contiguous()) for t in (z, w1, w2, g))
+        b1, slope, trans = (build.aligned16(v.float().contiguous()) for v in (b1, slope, trans))
+        ins += [z, w1, b1, slope, trans, w2, g]
+    part = torch.empty(plan.part_floats, dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in ins]
+    for j, (link, need) in enumerate(zip(outs, needs)):
+        ptrs += [d.data_ptr() if need[i] else 0 for i, d in enumerate(link) if i]
+    ptrs += [outs[0][0].data_ptr() if needs[0][0] else 0, part.data_ptr()]
+    dims = plan.dims([(o[1].dtype == torch.float32, o[5].dtype == torch.float32) for o in outs])
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        rc = lib.gea_lis_chain_backward((ctypes.c_uint64 * len(ptrs))(*ptrs),
+                                        (ctypes.c_longlong * len(dims))(*dims),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, rc, what)
+    for link, out in zip(grads, outs):
+        for d, o in zip(link, out):
+            if o is not d:
+                d.copy_(o)
+    return grads, True
 
 
 @torch.library.custom_op("gea_torch::lis_residual_mlp_backward", mutates_args=(),
@@ -195,13 +500,6 @@ def lis_backward_op(
                  for d, x in zip(grads, _grad_likes(z, w1, b1, slope, trans, w2)))
 
 
-def _grad_likes(z, w1, b1, slope, trans, w2) -> tuple:
-    """Each gradient's dtype and shape, by the input it is like: db2 is
-    fp32 (float64 for float64 z) of b2's shape, (code,)."""
-    return (z, w1, b1, slope, trans, w2,
-            z.new_empty(z.shape[1], dtype=torch.promote_types(z.dtype, torch.float32)))
-
-
 @lis_backward_op.register_fake
 def _(z, w1, b1, slope, trans, w2, g, need):
     return tuple(x.new_empty(x.shape if n else (0,))
@@ -210,55 +508,13 @@ def _(z, w1, b1, slope, trans, w2, g, need):
 
 @lis_backward_op.register_kernel("cuda")
 def _launch_backward(z, w1, b1, slope, trans, w2, g, need):
+    """One link: the chain kernel on a chain of one."""
     what = "lis_residual_mlp_backward"
-    build.check_cuda_inputs(what, z, w1, b1, slope, trans, w2, g)
     if len(need) != _GRADS:
         raise ValueError(f"{what}: need has {len(need)} flags, not {_GRADS}")
-    dt = z.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what}: unsupported dtype {dt}")
-    batch, code = z.shape
-    hidden = w1.shape[1]
-    if w1.shape != (code, hidden) or w2.shape != (hidden, code) or g.shape != z.shape:
-        raise ValueError(f"{what}: w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} / g "
-                         f"{tuple(g.shape)} do not fit z {tuple(z.shape)}")
-    bf16 = dt == torch.bfloat16
-    piece = 8 if bf16 else 4  # elements of a 16-byte copy
-    if code % piece or hidden % piece:
-        raise ValueError(f"{what}: the {'bf16' if bf16 else 'fp32'} kernel takes code and "
-                         f"hidden divisible by {piece}; got code={code}, hidden={hidden}")
-    lib = _bwd_lib()
-    rows = lib.gea_lis_backward_rows(code, hidden, int(bf16))
-    if rows == 0:
-        raise ValueError(f"{what}: code={code}, hidden={hidden} too wide for shared memory")
-    dev = z.device
-    grads = [torch.empty(x.shape if n else (0,), dtype=x.dtype, device=dev)
-             for x, n in zip(_grad_likes(z, w1, b1, slope, trans, w2), need)]
-    if batch == 0 or not any(need):  # no launch; the sums of nothing are zero
-        return tuple(d.zero_() for d in grads)
-    # What the kernel writes: dz in z's dtype, dw1 and dw2 in bf16 or fp32,
-    # the sums in fp32; another dtype goes through a copy.
-    kinds = [dt if i == 0 else d.dtype if i in (1, 5) and d.dtype in (torch.bfloat16,
-                                                                       torch.float32)
-             else torch.float32 for i, d in enumerate(grads)]
-    outs = [d if d.dtype == k else torch.empty_like(d, dtype=k) for d, k in zip(grads, kinds)]
-    # The kernel copies every operand in 16-byte pieces.
-    z, w1, w2, g = (build.aligned16(t.to(dt).contiguous()) for t in (z, w1, w2, g))
-    b1, slope, trans = (build.aligned16(v.float().contiguous()) for v in (b1, slope, trans))
-    carry = torch.empty(2 * code * hidden if batch > rows and (need[1] or need[5]) else 0,
-                        dtype=torch.float32, device=dev)
-    ptrs = [t.data_ptr() for t in (z, w1, b1, slope, trans, w2, g, *outs, carry)]
-    dims = [batch, code, hidden, int(bf16), sum(1 << i for i, n in enumerate(need) if n), rows,
-            int(kinds[1] == torch.float32), int(kinds[5] == torch.float32)]
-    with torch.cuda.device(dev):
-        rc = lib.gea_lis_backward((ctypes.c_uint64 * len(ptrs))(*ptrs),
-                                  (ctypes.c_int * len(dims))(*dims),
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, rc, what)
-    lis_residual_mlp_backward.launches += 1
-    for d, o in zip(grads, outs):
-        if o is not d:
-            d.copy_(o)
+    (grads,), launched = _launch_chain(what, [z], [w1], [b1], [slope], [trans], [w2], [g],
+                                       [tuple(need)])
+    lis_residual_mlp_backward.launches += launched
     return tuple(grads)
 
 
@@ -270,8 +526,56 @@ def lis_residual_mlp_backward(z, w1, b1, slope, trans, w2, g, need=(True,) * _GR
     return tuple(d if n else None for d, n in zip(grads, need))
 
 
+@torch.library.custom_op("gea_torch::lis_chain_backward", mutates_args=(), device_types="cpu")
+def lis_chain_op(
+    zs: list[torch.Tensor], w1s: list[torch.Tensor], b1s: list[torch.Tensor],
+    slopes: list[torch.Tensor], transes: list[torch.Tensor], w2s: list[torch.Tensor],
+    gs: list[torch.Tensor], need: list[bool],
+) -> list[torch.Tensor]:
+    """The op on the CPU: the plain version; per link its seven gradients
+    in order, empty where not asked for (and every dz but the first
+    link's). `need` holds each link's seven flags in turn."""
+    needs = _flat_needs(need, len(zs))
+    grads = lis_chain_backward_plain(zs, w1s, b1s, slopes, transes, w2s, gs, needs)
+    likes = _chain_likes(zs, w1s, b1s, slopes, transes, w2s)
+    return [d.contiguous() if d is not None else x.new_empty(0)
+            for link, like in zip(grads, likes) for d, x in zip(link, like)]
+
+
+@lis_chain_op.register_fake
+def _(zs, w1s, b1s, slopes, transes, w2s, gs, need):
+    needs = _flat_needs(need, len(zs))
+    return [x.new_empty(x.shape if n[i] and (i or not j) else (0,))
+            for j, (like, n) in enumerate(zip(_chain_likes(zs, w1s, b1s, slopes, transes, w2s),
+                                               needs))
+            for i, x in enumerate(like)]
+
+
+@lis_chain_op.register_kernel("cuda")
+def _launch_chain_backward(zs, w1s, b1s, slopes, transes, w2s, gs, need):
+    needs = _flat_needs(need, len(zs))
+    grads, launched = _launch_chain("lis_chain_backward", zs, w1s, b1s, slopes, transes, w2s,
+                                    gs, needs)
+    lis_chain_backward.launches += launched
+    return [d for link in grads for d in link]
+
+
+def lis_chain_backward(zs, w1s, b1s, slopes, transes, w2s, gs, needs) -> list:
+    """The gradients of a chain of links (`lis_chain_backward_plain`'s
+    arguments and result): the chain kernel on CUDA tensors, the plain
+    version on CPU ones."""
+    flat = lis_chain_op(list(zs), list(w1s), list(b1s), list(slopes), list(transes), list(w2s),
+                        list(gs), [bool(n) for need in needs for n in need])
+    return [[d if n and (i or not j) else None for i, (d, n) in enumerate(
+        zip(flat[_GRADS * j:_GRADS * (j + 1)], need))] for j, need in enumerate(needs)]
+
+
 def _backward(z, w1, b1, slope, trans, w2, g, need) -> tuple:
     return lis_residual_mlp_backward(z, w1, b1, slope, trans, w2, g, need)
+
+
+def _chain_backward(zs, w1s, b1s, slopes, transes, w2s, gs, needs) -> list:
+    return lis_chain_backward(zs, w1s, b1s, slopes, transes, w2s, gs, needs)
 
 
 class LISResidualMLP(torch.autograd.Function):
@@ -293,5 +597,45 @@ def lis_residual_mlp(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
     return LISResidualMLP.apply(z, w1, b1, slope, trans, w2, b2)
 
 
+class LISChain(torch.autograd.Function):
+    """A chain of links z_{j+1} = link_j(z_j) from z0, each link's (w1, b1,
+    slope, trans, w2, b2) in turn: the forward one link op a link, the
+    backward one call of `lis_chain_backward` for every output's cotangent
+    at once."""
+
+    @staticmethod
+    def forward(ctx, z0, *links):
+        n = len(links) // 6
+        zs = [z0]
+        for j in range(n):
+            zs.append(_forward(zs[-1], *links[6 * j:6 * j + 6]))
+        ctx.links = n
+        ctx.save_for_backward(*zs[:-1], *(t for j in range(n) for t in links[6 * j:6 * j + 5]))
+        return tuple(zs[1:])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *gs):
+        """The gradients that `ctx.needs_input_grad` asks for, None for the
+        others: each link's dz flag is whether anything below it asks."""
+        n, saved, asked = ctx.links, ctx.saved_tensors, ctx.needs_input_grad
+        w = [saved[n + 5 * j:n + 5 * j + 5] for j in range(n)]
+        needs, below = [], bool(asked[0])
+        for j in range(n):
+            own = tuple(bool(a) for a in asked[1 + 6 * j:7 + 6 * j])
+            needs.append((below, *own))
+            below = below or any(own)
+        grads = _chain_backward(saved[:n], *(list(x) for x in zip(*w)), gs, needs)
+        return (grads[0][0], *(d for link in grads for d in link[1:]))
+
+
+def lis_chain(z0, links) -> tuple:
+    """The outputs (z1, ..., zN) of the links (each (w1, b1, slope, trans,
+    w2, b2)) from z0; differentiable, with one backward call for the
+    chain."""
+    return LISChain.apply(z0, *(t for link in links for t in link))
+
+
 lis_residual_mlp.launches = 0
 lis_residual_mlp_backward.launches = 0
+lis_chain_backward.launches = 0

@@ -14,7 +14,9 @@ group, as phase 16 builds it) captures a K = 8 `StepDispatcher` graph,
 then times REPLAYS replays with CUDA events (device ms a step: the span of
 a replay over K), takes one replay under torch.profiler (device busy ms a
 step; the time of kernels whose names hold `tprelu_grad_`, TPReLU's
-backward kernels, `seed_bwd_`, the seed's, and `lis_bwd_`, LIS's) and
+backward kernels, `seed_bwd_`, the seed's, and `lis_chain_` (or, in a
+checkout from before the chain kernel, `lis_bwd_`), LIS's, with LIS's
+backward launches a step) and
 reads the graph pool's peak MB. Prints one JSON line per path and writes them all
 to `--out`. Two checkouts are compared within one call, in turns (A, B,
 B, A), each in its own process:
@@ -89,11 +91,13 @@ def main() -> int:
         busy, kernels = cs.device_profile(lambda: dispatch(state, reals))
         grad_ms = sum(ms for name, ms, _ in kernels if "tprelu_grad_" in name)
         seed_ms = sum(ms for name, ms, _ in kernels if "seed_bwd_" in name)
-        lis_ms = sum(ms for name, ms, _ in kernels if "lis_bwd_" in name)
+        lis = [(ms, n) for name, ms, n in kernels if "lis_bwd_" in name or "lis_chain_" in name]
+        lis_ms = sum(ms for ms, _ in lis)
         row = {"label": args.label, "path": tag, "k": k,
                "device_ms_per_step": statistics.median(spans), "spans_ms_per_step": spans,
                "busy_ms_per_step": busy / k, "tprelu_grad_ms_per_step": grad_ms / k,
                "seed_bwd_ms_per_step": seed_ms / k, "lis_bwd_ms_per_step": lis_ms / k,
+               "lis_bwd_launches_per_step": sum(n for _, n in lis) / k,
                "pool_peak_mb": dispatch.chunks[k].pool_peak_mb, "first_call_s": first_s,
                "card": smi, "torch": torch.__version__}
         print(json.dumps(row), flush=True)

@@ -82,7 +82,8 @@ def test_cpu_calls_launch_nothing(rng):
                    4).sum().backward()
     assert ops.launch_counts() == {
         "fused_tprelu": 0, "fused_tprelu_backward": 0, "lis_residual_mlp": 0,
-        "lis_residual_mlp_backward": 0, "fused_seed": 0, "fused_seed_backward": 0,
+        "lis_residual_mlp_backward": 0, "lis_chain_backward": 0, "fused_seed": 0,
+        "fused_seed_backward": 0,
     }
 
 

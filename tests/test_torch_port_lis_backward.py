@@ -308,24 +308,30 @@ NO_TPRELU = (True, True, True, False, False, True, True)  # LeakyReLU's fixed sl
 
 
 @pytest.mark.parametrize("trainer,want", [
-    ("g-lis", [ALL, WEIGHTS]), ("g-lis batch norm", [NO_TPRELU, (False,) + NO_TPRELU[1:]]),
-    ("r-separate", [DZ, DZ]), ("r-iterative", []),
+    ("g-lis", [[WEIGHTS, ALL]]), ("g-lis batch norm", [[(False,) + NO_TPRELU[1:], NO_TPRELU]]),
+    ("r-separate", [[DZ, DZ]]), ("r-iterative", []),
 ])
 def test_backward_calls_per_step(monkeypatch, trainer, want):
-    """LIS backwards per train step (2 links, last first) and what each
-    computes, which `chip_smoke.py` asserts as launches on the card: G-LIS
-    differentiates each link once, every gradient but the first link's dz
-    (its z is drawn); batch norm's links have no learned slope or offset;
-    R-separate's frozen G asks for dz alone; R-iterative's G has no LIS
-    link."""
+    """LIS backwards per train step (2 links) and what each link of a call
+    computes (first link first), which `chip_smoke.py` asserts as launches
+    on the card: one chain call a step differentiates both links, every
+    gradient but the first link's dz (its z is drawn); batch norm's links
+    have no learned slope or offset; R-separate's frozen G asks for dz
+    alone; R-iterative's G has no LIS link. No link is differentiated on
+    its own."""
     step = {"g-lis": lambda: _glis("weight"), "g-lis batch norm": lambda: _glis("batch"),
             "r-separate": _r_separate, "r-iterative": _r_iterative}[trainer]()
-    calls = []
+    calls, singles = [], []
 
-    def counted(*args, _f=lis._backward):
-        calls.append(tuple(args[-1]))
+    def counted(*args, _f=lis._chain_backward):
+        calls.append([tuple(n) for n in args[-1]])
         return _f(*args)
 
-    monkeypatch.setattr(lis, "_backward", counted)
+    def single(*args, _f=lis._backward):
+        singles.append(tuple(args[-1]))
+        return _f(*args)
+
+    monkeypatch.setattr(lis, "_chain_backward", counted)
+    monkeypatch.setattr(lis, "_backward", single)
     step()
-    assert calls == want
+    assert calls == want and singles == []
