@@ -46,9 +46,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    a link, one kernel backward) against autograd through the links' plain
    versions, and the device time of its backward;
 5. edge shapes the flagship never reaches, in fp32 and bf16: the seed at a
-   ragged batch, at s0 = 4 and 7, with c1 and code that are not multiples
-   of the tiles; the LIS link at a batch that is not a multiple of its row
-   tile and at widths below one tile; TPReLU and its backward at C = 3, 5,
+   ragged batch, at s0 = 4, 6 and 7, with c1 and code that are not multiples
+   of the tiles (rows and c1 that no 128 x 128 tile divides among them),
+   forward and backward each equal bit for bit over two calls; the LIS
+   link at a batch that is not a multiple of its row tile and at widths
+   below one tile; TPReLU and its backward at C = 3, 5,
    96 and 1000, one row and rows that are not a multiple of a tile, the
    backward with da and db at each and, at each, without them or with an
    fp32 cotangent into bf16 x; the seed's backward at each seed shape and
@@ -478,7 +480,7 @@ def device_profile(fn) -> tuple:
 # Kernel names by what they do, for the render + score breakdown; the
 # first rule that matches wins.
 CATEGORIES = (
-    ("port kernels", ("seed_tap_gemm", "seed_kernel_f32", "lis_kernel", "tprelu_kernel",
+    ("port kernels", ("seed_tap_gemm", "seed_f32_", "lis_kernel", "tprelu_kernel",
                       "tprelu_grad_", "seed_bwd_", "lis_chain_")),
     ("library convs (cuDNN)", ("xmma", "cudnn", "cutlass", "nhwc", "implicit_gemm")),
     ("library matmuls (cuBLAS)", ("gemm", "gemv")),
@@ -497,6 +499,15 @@ def by_category(rows) -> dict:
         cat = kernel_category(name)
         out[cat] = out.get(cat, 0.0) + ms
     return out
+
+
+def conv_pairs(s0: int) -> int:
+    """The (output pixel, tap) pairs of the seed's transposed conv (4x4,
+    stride 2, padding 1, s0 x s0 -> 2s0 x 2s0) that read inside the map: 2
+    taps an output row and 2 a column, less the border's taps that land on
+    the padding, (4 s0 - 2)^2. A pair is 2 c0 c1 operations an image; the
+    kernels skip the others, which add zeros."""
+    return (4 * s0 - 2) ** 2
 
 
 def bound(nbytes: float, nops: float, dtype) -> tuple:
@@ -576,7 +587,7 @@ def cases(cfg):
                     randn(c1, gen, 0.1), s0)
             nbytes = (e * (n * code + code * p + 16 * c0 * c1 + n * (2 * s0) ** 2 * c1)
                       + 4 * (p + 2 * c0 + c1))
-            nops = 2 * n * code * p + 2 * n * (2 * s0) ** 2 * 4 * c0 * c1
+            nops = 2 * n * code * p + 2 * n * conv_pairs(s0) * c0 * c1
             return args, nbytes, nops
         return make
 
@@ -656,7 +667,7 @@ def check_kernels(cfg) -> dict:
             b_ms, b_by = bound(nbytes, nops, dt)
             extra = ""
             c_ms = None
-            if name == "fused_seed" and dt == torch.bfloat16:
+            if name == "fused_seed":  # fp32: cuBLAS SGEMM and cuDNN with TF32 off
                 lib_args = list(args)
                 lib_args[5] = args[5].permute(2, 3, 0, 1).contiguous()
                 c_ms = time_ms(lambda: seed_composite(*lib_args))
@@ -667,6 +678,13 @@ def check_kernels(cfg) -> dict:
                   f"{floor_ms:.4f} ms{extra}  x{per_render}/render x{per_step}/step", flush=True)
             if dt == torch.float32:
                 row["max_abs_err_fp32"] = max(row["max_abs_err_fp32"], max_err)
+                f32 = row.setdefault("fp32", {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                              "composite_ms": None})
+                f32["ms"] += per_step * k_ms
+                f32["plain_ms"] += per_step * p_ms
+                f32["bound_ms"] += per_step * b_ms
+                if c_ms is not None:
+                    f32["composite_ms"] = (f32["composite_ms"] or 0.0) + per_step * c_ms
                 continue
             # bf16 is the main path's dtype: its times per train step make
             # the line; the times per scored render stay beside them.
@@ -730,7 +748,7 @@ def function_backward_cost(name: str, args) -> tuple:
     wp, wc, s0 = args[1], args[5], args[7]
     (n, code), p = z.shape, wp.shape[1]
     c0, c1, out = wc.shape[2], wc.shape[3], n * (2 * s0) ** 2 * wc.shape[3]
-    conv = 2 * n * (2 * s0) ** 2 * 4 * c0 * c1
+    conv = 2 * n * conv_pairs(s0) * c0 * c1
     return (e * (2 * n * code + 2 * code * p + 32 * c0 * c1 + out) + 4 * (2 * p + 4 * c0 + 2 * c1),
             6 * n * code * p + 2 * conv)
 
@@ -904,7 +922,7 @@ def seed_backward_cost(args, need) -> tuple:
     (n, code), p = z.shape, wp.shape[1]
     c0, c1 = wc.shape[2], wc.shape[3]
     out = n * (2 * s0) ** 2 * c1
-    conv = 2 * out * 4 * c0
+    conv = 2 * n * conv_pairs(s0) * c0 * c1
     e = z.element_size()
     return (e * (n * code * (1 + need[0]) + code * p * (1 + need[1]) + 16 * c0 * c1 * (1 + need[5])
                  + out) + 4 * (p * (1 + need[2]) + c0 * (2 + need[3] + need[4]) + 2 * c1 * need[6]),
@@ -971,6 +989,17 @@ def seed_left_out_rounding(args) -> float:
     return max(v[1] for v in grad_errors(variant, want).values())
 
 
+def seed_composite_backward_ms(args) -> float:
+    """Device time of the backward of `seed_composite` under autograd (every
+    gradient, cuBLAS and cuDNN in args' dtype) on `args` (z, wp, bp, slope,
+    trans, wc, bc, g, s0): a yardstick the port never calls."""
+    leaves = [a.detach().clone().requires_grad_(True) for a in args[:7]]
+    lib = list(leaves) + [args[8]]
+    lib[5] = leaves[5].permute(2, 3, 0, 1)
+    out = seed_composite(*lib)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, args[7], retain_graph=True))
+
+
 def check_seed_backward(cfg, rows: dict) -> None:
     """Phase 3 for the seed's backward kernels at both seed shapes (the
     G-LIS step's stacked codes and R-iterative's batch), in fp32 and bf16,
@@ -978,12 +1007,12 @@ def check_seed_backward(cfg, rows: dict) -> None:
     alone: `compare_seed_backward`, a second call equal to the first bit
     for bit (the kernels sum in a fixed order), and the time beside the
     plain version's, the
-    bound and the empty launch; in bf16 with every gradient also the
-    backward of the bf16 library composite (`seed_composite` under
-    autograd: cuBLAS and cuDNN, a yardstick the port never calls) and what a
-    kernel that left the ds rounding out would read. The bf16 calls with
-    every gradient (the G-LIS step's) make its row, summed per train
-    step."""
+    bound and the empty launch; with every gradient also the backward of
+    the library composite in the same dtype (`seed_composite_backward_ms`:
+    cuBLAS and cuDNN, TF32 off in fp32, a yardstick the port never calls)
+    and in bf16 what a kernel that left the ds rounding out would read. The
+    bf16 calls with every gradient (the G-LIS step's) make its row, summed
+    per train step; the fp32 ones its "fp32" entry."""
     floor_ms = rows["fused_seed"]["empty_launch_ms"]
     row = rows["fused_seed_backward"] = {
         "name": "fused_seed_backward", "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -1013,13 +1042,17 @@ def check_seed_backward(cfg, rows: dict) -> None:
                 err_key = "max_abs_err" if dt == torch.bfloat16 else "max_abs_err_fp32"
                 row[err_key] = max(row[err_key], abs_err)
                 extra = ""
+                if dt == torch.float32 and need == ALL_GRADS:  # TF32 off
+                    c_ms = seed_composite_backward_ms(args)
+                    extra = f"  composite backward {c_ms:.4f} ms"
+                    f32 = row.setdefault("fp32", {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                                  "composite_ms": 0.0})
+                    f32["ms"] += per_step * k_ms
+                    f32["plain_ms"] += per_step * p_ms
+                    f32["bound_ms"] += per_step * b_ms
+                    f32["composite_ms"] += per_step * c_ms
                 if dt == torch.bfloat16 and need == ALL_GRADS:
-                    leaves = [a.detach().clone().requires_grad_(True) for a in args[:7]]
-                    lib = list(leaves) + [args[8]]
-                    lib[5] = leaves[5].permute(2, 3, 0, 1)
-                    out = seed_composite(*lib)
-                    c_ms = time_ms(lambda: torch.autograd.grad(out, leaves, args[7],
-                                                               retain_graph=True))
+                    c_ms = seed_composite_backward_ms(args)
                     missed = seed_left_out_rounding(args)
                     row["left_out_ds_rounding"] = min(row["left_out_ds_rounding"] or 1.0, missed)
                     extra = (f"  composite backward {c_ms:.4f} ms; a kernel without the ds "
@@ -1032,7 +1065,6 @@ def check_seed_backward(cfg, rows: dict) -> None:
                     row["shapes"].append({"shape": label, "per_step": per_step, "ms": k_ms,
                                           "plain_ms": p_ms, "bound_ms": b_ms,
                                           "composite_ms": c_ms})
-                    del out, leaves, lib
                 print(f"[kernel] fused_seed_backward {label:44s} {str(dt)[6:]:8s} {what:14s} "
                       f"max|err|/max {rel:.3e} (tol {SEED_BWD_TOL[dt]}), mean|err|/mean "
                       f"{mean_rel:.3e} (tol {SEED_BWD_MEAN_TOL[dt]})  kernel {k_ms:.4f} ms  plain "
@@ -1040,9 +1072,10 @@ def check_seed_backward(cfg, rows: dict) -> None:
                       f"{floor_ms:.4f} ms{extra}  two calls bit for bit  "
                       f"x{per_step if need == ALL_GRADS else 0}/step", flush=True)
             del args
-    print(f"[kernel] fused_seed_backward per G-LIS step (bf16, every gradient): kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, composite backward "
-          f"{row['composite_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms", flush=True)
+    for what, r in (("bf16", row), ("fp32", row["fp32"])):
+        print(f"[kernel] fused_seed_backward per G-LIS step ({what}, every gradient): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, composite backward "
+              f"{r['composite_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms", flush=True)
     missed = row["left_out_ds_rounding"]
     print(f"[kernel] fused_seed_backward: sound runs read at most {row['max_mean_rel_err']} of "
           f"the mean; a kernel without the ds rounding at least {missed:.3e} (tol "
@@ -1354,6 +1387,10 @@ def check_edges() -> dict:
         (33, 40, 7, 256, 96),
         (7, 256, 5, 512, 256),
         (9, 256, 5, 512, 512),  # config 5's widths (the DP step's)
+        # Tile remainders of the fp32 product core (128 x 128): rows (batch x
+        # s0^2) and c1 that no tile divides.
+        (100, 256, 5, 512, 136),
+        (65, 256, 6, 128, 200),
     ]
     # (batch, code, hidden): batches that are not a multiple of the
     # forward's row tile or the backward's chunk, widths below one tile, one
@@ -1393,13 +1430,19 @@ def check_edges() -> dict:
                     randn(c0, gen, 0.1), randn((4, 4, c0, c1), gen, (16 * c0) ** -0.5, dt),
                     randn(c1, gen, 0.1), s0)
             label = f"seed batch {batch} code {code} s0 {s0} c0 {c0} c1 {c1}"
+            first = ops.fused_seed(*args)
             errs[f"{label} {str(dt)[6:]}"] = compare(
-                "fused_seed", label, dt, ops.fused_seed(*args), ops.fused_seed_plain(*args))
+                "fused_seed", label, dt, first, ops.fused_seed_plain(*args))
+            if not torch.equal(first, ops.fused_seed(*args)):
+                raise AssertionError(f"fused_seed {label} {dt}: two calls differ")
             g = randn((batch, 2 * s0, 2 * s0, c1), gen, 0.1, dt)
             for need in (ALL_GRADS, DZ_ONLY):
                 what = f"backward {label} {'every gradient' if need == ALL_GRADS else 'dz alone'}"
-                errs[f"{what} {str(dt)[6:]}"] = compare_seed_backward(
-                    what, dt, (*args[:7], g, s0), need)[0]
+                bwd = (*args[:7], g, s0)
+                errs[f"{what} {str(dt)[6:]}"] = compare_seed_backward(what, dt, bwd, need)[0]
+                one, two = ops.fused_seed_backward(*bwd, need), ops.fused_seed_backward(*bwd, need)
+                if not all(a is None or torch.equal(a, b) for a, b in zip(one, two)):
+                    raise AssertionError(f"fused_seed_backward {what} {dt}: two calls differ")
         for batch, code, hidden in lis_shapes:
             args = (randn((batch, code), gen, 1.0, dt), randn((code, hidden), gen, code**-0.5, dt),
                     randn(hidden, gen, 0.1), torch.rand(hidden, generator=gen).cuda() * 0.5,
@@ -1434,9 +1477,10 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
     the seed kernels too, LIS's eager) against autograd through its plain
     version at every case's shape (the R
     trainers differentiate through the scoring and R-only shapes too), for
-    one random cotangent; the device time of each Function's backward in
-    bf16 at the train step's shapes, summed per train step into the
-    kernel's row, under the train step's TF32 settings."""
+    one random cotangent; the device time of each Function's backward at
+    the train step's shapes, summed per train step into the kernel's row
+    (bf16; fp32 under `backward_ms_fp32`), under the train step's TF32
+    settings."""
     gen = torch.Generator().manual_seed(2)
     errs = {}
     for name, label, _, per_step, make in cases(cfg):
@@ -1469,12 +1513,14 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
                                      f"their max > {GRAD_TOL[dt]}")
             extra = ""
             # A step differentiates LIS's links as one chain (timed below).
-            if dt == torch.bfloat16 and per_step and name != "lis_residual_mlp":
+            if per_step and name != "lis_residual_mlp":
                 with cudnn_tf32():  # as the train step is timed
                     bwd_ms = time_ms(backward)
                 b_ms, b_by = bound(*function_backward_cost(name, args), dt)
-                row["backward_ms"] += per_step * bwd_ms
-                row["backward_bound_ms"] += per_step * b_ms
+                key = ("backward_ms", "backward_bound_ms") if dt == torch.bfloat16 else (
+                    "backward_ms_fp32", "backward_bound_ms_fp32")
+                row[key[0]] = row.get(key[0], 0.0) + per_step * bwd_ms
+                row[key[1]] = row.get(key[1], 0.0) + per_step * b_ms
                 extra = (f"  backward {bwd_ms:.4f} ms (bound {b_ms:.4f} ms, {b_by}) "
                          f"x{per_step}/step")
             errs[f"{name} {label} {str(dt)[6:]}"] = rel
@@ -1485,8 +1531,11 @@ def check_grads(cfg, kernel_rows: dict) -> dict:
     errs.update(check_chain_grads(cfg, kernel_rows["lis_residual_mlp"], gen))
     for name in PORT_BACKWARD.values():
         row = kernel_rows[name]
+        fp32 = (f"{row['backward_ms_fp32']:.4f} ms, bound {row['backward_bound_ms_fp32']:.4f} ms"
+                if "backward_ms_fp32" in row else "not timed here")
         print(f"[grad] {name} backward ({BACKWARD_KIND[name]}) per G-LIS step, bf16: "
-              f"{row['backward_ms']:.4f} ms, bound {row['backward_bound_ms']:.4f} ms", flush=True)
+              f"{row['backward_ms']:.4f} ms, bound {row['backward_bound_ms']:.4f} ms; fp32: "
+              f"{fp32}", flush=True)
     return errs
 
 
@@ -1709,7 +1758,7 @@ BACKWARD_KIND = {"fused_tprelu": "kernel backward, fused_tprelu_backward",
 # (lis_chain_kernel and lis_chain_reduce) and the seed's (seed_bwd_project, seed_bwd_gemm,
 # seed_bwd_f32, seed_bwd_reduce).
 PORT_KERNELS = {"tprelu_kernel": "fused_tprelu", "lis_kernel": "lis_residual_mlp",
-                "seed_tap_gemm": "fused_seed", "seed_kernel_f32": "fused_seed",
+                "seed_tap_gemm": "fused_seed", "seed_f32_": "fused_seed",
                 "tprelu_grad_": "fused_tprelu_backward", "seed_bwd_": "fused_seed_backward",
                 "lis_chain_": "lis_chain_backward"}
 LIBRARY_CATS = ("library convs (cuDNN)", "library matmuls (cuBLAS)")
@@ -3586,7 +3635,8 @@ def graph_trainers() -> dict:
 
 # Each wrapper's kernels by their names in a torch.profiler trace, with the
 # launches one call makes: a bf16 seed call is two launches of seed_tap_gemm
-# (the projection, then the transposed conv); every seed backward that
+# (the projection, then the transposed conv), an fp32 one seed_f32_project
+# then seed_f32_conv; every seed backward that
 # computes any gradient (in either dtype) launches seed_bwd_project once,
 # every LIS chain backward lis_chain_kernel once. A link's backward alone
 # (`lis_residual_mlp_backward`, a chain of one) launches the same kernel
@@ -3596,7 +3646,7 @@ KERNEL_EVENTS = {"fused_tprelu": (("tprelu_kernel", 1),),
                  "lis_residual_mlp": (("lis_kernel_", 1),),
                  "lis_residual_mlp_backward": (),
                  "lis_chain_backward": (("lis_chain_kernel", 1),),
-                 "fused_seed": (("seed_tap_gemm", 2), ("seed_kernel_f32", 1)),
+                 "fused_seed": (("seed_tap_gemm", 2), ("seed_f32_", 2)),
                  "fused_seed_backward": (("seed_bwd_project", 1),)}
 
 
@@ -5430,8 +5480,9 @@ def main() -> int:
             "backward_bound_ms": row.get("backward_bound_ms"),
             "render_ms": row["render_ms"], "render_plain_ms": row["render_plain_ms"],
             "render_bound_ms": row["render_bound_ms"],
+            "fp32": row.get("fp32"),
             "per": "bf16, one flagship train step (every launch of the kernel in it); "
-                   "render_* per scored render",
+                   "render_* per scored render; fp32: the same step's shapes in fp32",
             "shapes": row["shapes"],
         })
     print(json.dumps({"serving": served, "fp32_agreement": fp32, "edges": edges,

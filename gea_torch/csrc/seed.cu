@@ -17,7 +17,9 @@
 //
 // Bound on the H100: operations. At the flagship shape (256 codes, code
 // 256, s0 5, c0 512, c1 256) one call is 1.7 GFLOP of projection and
-// 26.8 GFLOP of transposed conv, 28.8 us on the bf16 tensor cores.
+// 21.7 GFLOP of transposed conv (the (output pixel, tap) pairs that read
+// inside the map, (4 s0 - 2)^2 an image), 23.7 us on the bf16 tensor
+// cores.
 //
 // bf16 design: two launches of one kernel template (seed_tap_gemm), each a
 // sum of products on the tensor cores (wgmma, fp32 accumulation), fed by
@@ -46,16 +48,41 @@
 // cost more than its product. TMA boxes of 128-byte rows, and parameters
 // loaded once per column pair, removed both.
 //
-// The fp32 instance stays on the CUDA cores (TF32 would lose the fp32
-// tolerance): one block of kThreads threads per kCodes codes computes the
-// projection and TPReLU into a zero-bordered map in shared memory, then
-// each thread owns one (phase, output channel) item and keeps its
-// kCodes * s0 * s0 outputs in registers.
+// fp32 design (the port's exact mode; TF32 would lose the fp32 tolerance):
+// the same two passes on the CUDA cores, each a launch of the register-
+// tiled fp32 product core of sgemm_f32.cuh (128 x 128 tiles, 8 x 8 outputs
+// a thread, operands brought in by cp.async into a ring, 2 blocks an SM):
+//
+//  A. seed_f32_project: rows = codes, columns = s0*s0*c0, K = code; the
+//     epilogue adds bp, applies the TPReLU and writes the fp32 seed map
+//     transposed, (s0*s0*c0, batch rounded up to a multiple of 4): 13.1 MB
+//     at the flagship, held in L2 for pass B.
+//  B. seed_f32_conv, one output parity a y-slice of the grid: rows = the
+//     map's pixels, pixel-major in the parity's order (`parity_pixel`: the
+//     pixels with 4 taps inside the map first; a tile is one or two pixel
+//     positions of many images), columns = c1, K = 4 taps x c0. The
+//     blocks start row tile by row tile, so every parity's costliest
+//     tiles run first and the cheap border tiles fill the last wave
+//     (400 tiles on 264 block slots at the flagship). Each tap gathers its
+//     shifted window of the map, 4 images of a pixel in one 16-byte piece
+//     of the transposed map (a table of each piece's source pixel a tap,
+//     made once a tile), and reads Wc at the flipped tap in place; a tap
+//     outside the image for every row of the tile is skipped, so the
+//     border's zeros (a fifth of the taps at s0 = 5) cost nothing.
+//
+// So Wp and Wc cross L2 once per tile row and column, not once per pair of
+// codes as in the one-launch kernel this replaces (128 blocks of 2 codes,
+// 203 KB of shared memory each at s0 = 5, one resident a SM: 2.30 ms at
+// config 5's shape against a 0.67 ms bound). Bound: operations, 23.4 GFLOP
+// at the flagship (the conv's pairs inside the map), 0.350 ms at 67
+// TFLOP/s of fp32 FFMA. s0 is a runtime argument (4..7); the grids come
+// from the host's plan (ForwardPlan.dims).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sgemm_f32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -303,142 +330,226 @@ int launch_bf16(const void* z, const void* wp, const void* bp, const void* slope
 
 // ------------------------------------------------------------ fp32, CUDA cores
 
-constexpr int kCodes = 2;
-constexpr int kThreads = 512;
+// Both passes are sgemm_f32.cuh's product core: 128 x 128 tiles, 8 x 8
+// outputs a thread, a cp.async ring. The seed map passes between them
+// transposed, (s0*s0*c0, batch_p) with the batch padded to batch_p, a
+// multiple of 4, so that pass B's rows, pixel-major, come 4 images to a
+// 16-byte piece.
+struct F32Args {
+  const float *z, *wp, *bp, *slope, *trans, *wc, *bc;
+  float *map, *out;
+  int batch, batch_p, code, s0, c0, c1, proj;
+};
 
-template <int S0>
-__global__ void __launch_bounds__(kThreads)
-seed_kernel_f32(const float* __restrict__ z, const float* __restrict__ wp,
-                const float* __restrict__ bp, const float* __restrict__ slope,
-                const float* __restrict__ trans, const float* __restrict__ wc,
-                const float* __restrict__ bc, float* __restrict__ out, int batch, int code,
-                int c0, int c1) {
-  constexpr int P = S0 + 2;  // side of the zero-bordered map
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* zs = reinterpret_cast<float*>(smem_raw);  // [kCodes][code]
-  float* hp = zs + kCodes * code;                  // [kCodes][P][P][c0]
-  const int n0 = blockIdx.x * kCodes;
+constexpr int kPieces = gea::sg::kBM / 4;   // 16-byte pieces of 4 rows a tile column
+constexpr int kConvTable = 4 * kPieces;     // ints: a piece's map pixel a tap
+constexpr int kConvSmem = gea::sg::kRingBytes + 4 * (kConvTable + gea::sg::kWalkInts);
 
-  for (int i = threadIdx.x; i < kCodes * code; i += blockDim.x) {
-    const int n = i / code;
-    zs[i] = (n0 + n < batch) ? z[(size_t)n0 * code + i] : 0.f;
-  }
-  for (int i = threadIdx.x; i < kCodes * P * P * c0; i += blockDim.x) hp[i] = 0.f;
-  __syncthreads();
-
-  // Projection + TPReLU into the interior of hp.
-  const int proj = S0 * S0 * c0;
-  for (int p = threadIdx.x; p < proj; p += blockDim.x) {
-    float acc[kCodes];
+// Pass A: map^T = tprelu(z @ Wp + bp)^T, (proj, batch_p) fp32. X = z, its
+// k contiguous (4-byte copies); Y = Wp, its columns contiguous (16-byte).
+// The rows past the batch read zeros (their map columns are never used).
+// Grid (column tiles, row tiles).
+__global__ void __launch_bounds__(gea::sg::kThreads, gea::sg::kBlocksPerSM)
+seed_f32_project(const F32Args p) {
+  namespace sg = gea::sg;
+  extern __shared__ __align__(16) float ring[];
+  const int n0 = blockIdx.x * sg::kBN, m0 = blockIdx.y * sg::kBM;
+  const int xk = sg::cols_k(), yn = n0 + sg::rows_mn();
+  unsigned rows_ok = 0;
 #pragma unroll
-    for (int n = 0; n < kCodes; ++n) acc[n] = 0.f;
-    for (int k = 0; k < code; ++k) {
-      const float w = wp[(size_t)k * proj + p];
+  for (int q = 0; q < sg::kColCopies; ++q)
+    rows_ok |= (unsigned)(m0 + sg::cols_mn(q) < p.batch) << q;
+  const float* zrow = p.z + (size_t)(m0 + sg::cols_mn(0)) * p.code + xk;
+  auto load = [&](float* st, int step) {
+    const int k0 = step * sg::kBK;
+    const bool kx = k0 + xk < p.code;
 #pragma unroll
-      for (int n = 0; n < kCodes; ++n) acc[n] = fmaf(zs[n * code + k], w, acc[n]);
+    for (int q = 0; q < sg::kColCopies; ++q) {
+      const size_t dm = sg::cols_mn(q) - sg::cols_mn(0);
+      const bool ok = kx && ((rows_ok >> q) & 1);
+      sg::cp4(st + xk * sg::kLd + sg::cols_mn(q), ok ? zrow + dm * p.code + k0 : p.z, ok);
     }
-    const int c = p % c0;
-    const int ij = p / c0;
-    const int i = ij / S0, j = ij - (ij / S0) * S0;
-    const float bpp = bp[p], a = slope[c], t = trans[c];
 #pragma unroll
-    for (int n = 0; n < kCodes; ++n)
-      hp[((n * P + i + 1) * P + j + 1) * c0 + c] = tprelu(__fadd_rn(acc[n], bpp), a, t);
-  }
-  __syncthreads();
-
-  // Transposed conv: one (phase, output channel) item per thread at a time.
-  const int side = 2 * S0;
-  for (int item = threadIdx.x; item < 4 * c1; item += blockDim.x) {
-    const int phase = item / c1;
-    const int co = item - phase * c1;
-    const int du = phase >> 1, dv = phase & 1;
-    float acc[kCodes][S0][S0];
+    for (int q = 0; q < sg::kRowCopies; ++q) {
+      const int k = k0 + sg::rows_k(q);
+      const bool ok = k < p.code && yn < p.proj;
+      sg::cp16(st + sg::kTile + sg::rows_k(q) * sg::kLd + sg::rows_mn(),
+               ok ? p.wp + (size_t)k * p.proj + yn : p.wp, ok);
+    }
+  };
+  float acc[8][8];
+  sg::mainloop(ring, (p.code + sg::kBK - 1) / sg::kBK, load, acc);
 #pragma unroll
-    for (int n = 0; n < kCodes; ++n)
+  for (int h = 0; h < 2; ++h) {
+    const int col = n0 + sg::out_col(h);  // proj and c0 are multiples of 4: 4 channels of a pixel
+    if (col >= p.proj) continue;
+    const int c = col % p.c0;
 #pragma unroll
-      for (int i = 0; i < S0; ++i)
+    for (int e = 0; e < 4; ++e) {
+      const float b = __ldg(p.bp + col + e), a = __ldg(p.slope + c + e);
+      const float t = __ldg(p.trans + c + e);
 #pragma unroll
-        for (int j = 0; j < S0; ++j) acc[n][i][j] = 0.f;
-
+      for (int g = 0; g < 2; ++g) {  // rows 4 ty .. 4 ty + 3 of each half: 4 images a store
+        const int row = m0 + sg::out_row(4 * g);
+        if (row >= p.batch_p) continue;
+        float v[4];
 #pragma unroll
-    for (int tap = 0; tap < 4; ++tap) {
-      const int a = tap >> 1, b = tap & 1;
-      const int oi = du + a, oj = dv + b;
-      const float* wt = wc + (size_t)((3 - du - 2 * a) * 4 + (3 - dv - 2 * b)) * c0 * c1 + co;
-      for (int ci = 0; ci < c0; ci += 4) {
-        const float w0 = wt[(size_t)(ci + 0) * c1];
-        const float w1 = wt[(size_t)(ci + 1) * c1];
-        const float w2 = wt[(size_t)(ci + 2) * c1];
-        const float w3 = wt[(size_t)(ci + 3) * c1];
-#pragma unroll
-        for (int n = 0; n < kCodes; ++n)
-#pragma unroll
-          for (int i = 0; i < S0; ++i)
-#pragma unroll
-            for (int j = 0; j < S0; ++j) {
-              const float4 h =
-                  *reinterpret_cast<const float4*>(&hp[((n * P + i + oi) * P + j + oj) * c0 + ci]);
-              float v = acc[n][i][j];
-              v = fmaf(h.x, w0, v);
-              v = fmaf(h.y, w1, v);
-              v = fmaf(h.z, w2, v);
-              v = fmaf(h.w, w3, v);
-              acc[n][i][j] = v;
-            }
+        for (int r = 0; r < 4; ++r) v[r] = tprelu(__fadd_rn(acc[4 * g + r][4 * h + e], b), a, t);
+        *reinterpret_cast<float4*>(p.map + (size_t)(col + e) * p.batch_p + row) =
+            make_float4(v[0], v[1], v[2], v[3]);
       }
-    }
-    const float bias = bc[co];
-#pragma unroll
-    for (int n = 0; n < kCodes; ++n) {
-      if (n0 + n >= batch) break;
-#pragma unroll
-      for (int i = 0; i < S0; ++i)
-#pragma unroll
-        for (int j = 0; j < S0; ++j) {
-          const size_t o = (((size_t)(n0 + n) * side + 2 * i + du) * side + 2 * j + dv) * c1 + co;
-          out[o] = __fadd_rn(acc[n][i][j], bias);
-        }
     }
   }
 }
 
-template <int S0>
+// The pixel at position q of output parity (du, dv)'s order: first the
+// (s0-1)^2 pixels whose 4 taps all read inside the map, then the s0-1 of
+// the edge column with 2, the s0-1 of the edge row with 2, the corner
+// with 1. For du = 0 the edge row is i = 0 (tap a = 0 reads row -1), for
+// du = 1 it is i = s0-1; likewise the column.
+__device__ __forceinline__ void parity_pixel(int q, int du, int dv, int s0, int& i, int& j) {
+  const int e = s0 - 1;
+  int a, b;
+  if (q < e * e) {
+    a = q / e, b = q - a * e;
+  } else if (q < e * e + e) {
+    a = q - e * e, b = e;
+  } else {
+    a = e, b = q < e * e + 2 * e ? q - e * e - e : e;
+  }
+  i = a + 1 - du, j = b + 1 - dv;
+  i = i == s0 ? 0 : i, j = j == s0 ? 0 : j;
+}
+
+// Pass B, output parity (du, dv) = blockIdx.y: row m = q * batch_p + n is
+// image n (n >= batch: a padding row, skipped) at the parity's q-th pixel
+// (i, j) (`parity_pixel`), columns c1, K = 4 taps x c0. X = the map at the
+// tap's shifted pixel (i + du + a - 1, j + dv + b - 1), zero outside the
+// image: in the transposed map 4 rows are 16 contiguous bytes. A table of
+// each piece's map pixel a tap, and the taps with a row inside the image
+// (`TapWalk`), are made once a tile. Y = Wc[3 - du - 2a, 3 - dv - 2b] in
+// place, its output channels contiguous. Grid (column tiles, 4, row
+// tiles): the blocks start in order of their row tile, so the tiles of
+// every parity with 4 taps run first and those with fewer fill the tail.
+__global__ void __launch_bounds__(gea::sg::kThreads, gea::sg::kBlocksPerSM)
+seed_f32_conv(const F32Args p) {
+  namespace sg = gea::sg;
+  extern __shared__ __align__(16) float ring[];
+  int* table = reinterpret_cast<int*>(ring + sg::kStages * sg::kStage);  // [tap][piece]
+  int* walk = table + kConvTable;
+  const int n0 = blockIdx.x * sg::kBN, m0 = blockIdx.z * sg::kBM;
+  const int du = blockIdx.y >> 1, dv = blockIdx.y & 1;
+  const int s0 = p.s0, rows = p.batch_p * s0 * s0;
+  if (threadIdx.x == 0) walk[0] = 0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < kConvTable; e += sg::kThreads) {
+    const int t = e / kPieces, m = m0 + 4 * (e % kPieces);
+    int off = -1;
+    if (m < rows) {
+      const int q = m / p.batch_p, n = m - q * p.batch_p;
+      int i, j;
+      parity_pixel(q, du, dv, s0, i, j);
+      const int ii = i + du + (t >> 1) - 1, jj = j + dv + (t & 1) - 1;
+      if ((unsigned)ii < (unsigned)s0 && (unsigned)jj < (unsigned)s0) {
+        off = (ii * s0 + jj) * p.c0;
+        if (n < p.batch) atomicOr(walk, 1 << t);
+      }
+    }
+    table[e] = off;
+  }
+  __syncthreads();
+  sg::tap_walk_set(walk);
+  __syncthreads();
+  const sg::TapWalk taps = sg::tap_walk(walk, p.c0);
+  const int mn = sg::rows_mn(), yn = n0 + mn;
+  const int n_piece = m0 + mn < rows ? (m0 + mn) % p.batch_p : 0;  // the piece's first image
+  auto load = [&](float* st, int step) {
+    int t, c;
+    taps.at(step, t, c);
+    const int off = table[t * kPieces + mn / 4];
+    const int tap = (3 - du - 2 * (t >> 1)) * 4 + (3 - dv - 2 * (t & 1));
+#pragma unroll
+    for (int q = 0; q < sg::kRowCopies; ++q) {
+      const int k = c + sg::rows_k(q);
+      const bool okx = k < p.c0 && off >= 0;
+      sg::cp16(st + sg::rows_k(q) * sg::kLd + mn,
+               okx ? p.map + (size_t)(off + k) * p.batch_p + n_piece : p.map, okx);
+      const bool oky = k < p.c0 && yn < p.c1;
+      sg::cp16(st + sg::kTile + sg::rows_k(q) * sg::kLd + mn,
+               oky ? p.wc + ((size_t)tap * p.c0 + k) * p.c1 + yn : p.wc, oky);
+    }
+  };
+  float acc[8][8];
+  sg::mainloop(ring, taps.steps(), load, acc);
+  const int side = 2 * s0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + sg::out_row(i);
+    if (m >= rows) continue;
+    const int q = m / p.batch_p, n = m - q * p.batch_p;
+    if (n >= p.batch) continue;
+    int pi, pj;
+    parity_pixel(q, du, dv, s0, pi, pj);
+    float* o = p.out + (((size_t)n * side + 2 * pi + du) * side + 2 * pj + dv) * p.c1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + sg::out_col(h);  // c1 is a multiple of 4
+      if (col >= p.c1) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = __fadd_rn(acc[i][4 * h + e], __ldg(p.bc + col + e));
+      *reinterpret_cast<float4*>(o + col) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The grids, shared bytes and padded batch come from the host's plan
+// (gea_torch/ops/seed.py::ForwardPlan.dims): batch_p, then for pass A and
+// pass B the grid (x, y, z) and the shared bytes, which must be the
+// kernels' own.
 int launch_f32(const void* z, const void* wp, const void* bp, const void* slope,
-               const void* trans, const void* wc, const void* bc, void* out, int batch,
-               int code, int c0, int c1, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kCodes * (code + (S0 + 2) * (S0 + 2) * c0);
-  cudaError_t err = cudaFuncSetAttribute(
-      seed_kernel_f32<S0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+               const void* trans, const void* wc, const void* bc, void* map, void* out,
+               int batch, int code, int s0, int c0, int c1, const int* plan,
+               cudaStream_t stream) {
+  namespace sg = gea::sg;
+  if (plan == nullptr || plan[4] != sg::kRingBytes || plan[8] != kConvSmem)
+    return (int)cudaErrorInvalidValue;
+  F32Args p{static_cast<const float*>(z), static_cast<const float*>(wp),
+            static_cast<const float*>(bp), static_cast<const float*>(slope),
+            static_cast<const float*>(trans), static_cast<const float*>(wc),
+            static_cast<const float*>(bc), static_cast<float*>(map), static_cast<float*>(out),
+            batch, plan[0], code, s0, c0, c1, s0 * s0 * c0};
+  cudaError_t err = cudaFuncSetAttribute(seed_f32_project,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         sg::kRingBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(seed_f32_conv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kConvSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((batch + kCodes - 1) / kCodes);
-  seed_kernel_f32<S0><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(z), static_cast<const float*>(wp),
-      static_cast<const float*>(bp), static_cast<const float*>(slope),
-      static_cast<const float*>(trans), static_cast<const float*>(wc),
-      static_cast<const float*>(bc), static_cast<float*>(out), batch, code, c0, c1);
+  seed_f32_project<<<dim3(plan[1], plan[2], plan[3]), sg::kThreads, sg::kRingBytes,
+                     stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  seed_f32_conv<<<dim3(plan[5], plan[6], plan[7]), sg::kThreads, kConvSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // z (N, code); wp (code, s0*s0*c0); wc (4, 4, c0, c1) HWIO, not flipped; bp,
-// slope, trans, bc fp32; out (N, 2s0, 2s0, c1). `map` is the bf16 scratch
-// (N, s0, s0, c0) of the bf16 path (unused in fp32).
+// slope, trans, bc fp32; out (N, 2s0, 2s0, c1). `map` is the seed map
+// scratch: bf16 (N, s0, s0, c0); fp32 transposed, (s0*s0*c0, N rounded up
+// to a multiple of 4). `plan`: the fp32 plan (`launch_f32`); unread in bf16.
 extern "C" int gea_seed_forward(const void* z, const void* wp, const void* bp,
                                 const void* slope, const void* trans, const void* wc,
                                 const void* bc, void* map, void* out, int batch, int code,
-                                int s0, int c0, int c1, int is_bf16, void* stream) {
+                                int s0, int c0, int c1, int is_bf16, const int* plan,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (s0 < 4 || s0 > 7) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return launch_bf16(z, wp, bp, slope, trans, wc, bc, map, out, batch, code, s0, c0, c1, s);
-  switch (s0) {
-    case 4: return launch_f32<4>(z, wp, bp, slope, trans, wc, bc, out, batch, code, c0, c1, s);
-    case 5: return launch_f32<5>(z, wp, bp, slope, trans, wc, bc, out, batch, code, c0, c1, s);
-    case 6: return launch_f32<6>(z, wp, bp, slope, trans, wc, bc, out, batch, code, c0, c1, s);
-    case 7: return launch_f32<7>(z, wp, bp, slope, trans, wc, bc, out, batch, code, c0, c1, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_f32(z, wp, bp, slope, trans, wc, bc, map, out, batch, code, s0, c0, c1, plan, s);
 }
 
 extern "C" const char* gea_cuda_error_string(int code) {

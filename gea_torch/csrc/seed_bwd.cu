@@ -20,10 +20,11 @@
 // transposed conv is not recomputed: no gradient needs its output.
 //
 // Bound on the H100: operations. At the G-LIS step's shape (256 codes, code
-// 256, s0 5, c0 512, c1 256) one call is 58.7 GFLOP of bf16 products (the
+// 256, s0 5, c0 512, c1 256) one call is 48.5 GFLOP of bf16 products (the
 // projection 1.7, dz 1.7, dwp 1.7, the conv's data and weight gradients
-// 26.8 each), 59.4 us on the bf16 tensor cores (the projection's 1.7 run
-// in fp64, below, whose tensor cores peak at 67 TFLOP/s).
+// 21.7 each, counting the (pixel, tap) pairs inside the image), 49.1 us
+// on the bf16 tensor cores (the projection's 1.7 run in fp64, below, whose
+// tensor cores peak at 67 TFLOP/s).
 //
 // A call is at most four launches, each only where a gradient asked for
 // needs it (gea_torch/ops/seed.py::backward_plan sizes them on the host):
@@ -85,17 +86,28 @@
 // and the reduce adds them in a fixed order, so the gradients are the same
 // bit for bit from run to run.
 //
-// The fp32 instance (TF32 would lose the fp32 tolerance) shares launches 1
-// and 4 and runs D, dz, dwp and dWc as simple tiled products on the CUDA
-// cores (seed_bwd_f32: 64 x 64 tiles, 4 x 4 outputs a thread) with the same
-// epilogues (D's ds step and slots too), dWc unsplit.
+// fp32 design (the port's exact mode; TF32 would lose the fp32 tolerance):
+// launches 1 and 4 are shared; D, dz, dwp and dWc run on the CUDA cores,
+// each a launch of the register-tiled fp32 product core of sgemm_f32.cuh
+// (seed_bwd_f32: 128 x 128 tiles, k-steps of 32, operands brought in by
+// cp.async into a 2-deep ring with the gathers' row offsets computed once
+// a tile, 8 x 8 outputs a thread, 2 blocks an SM), with the same epilogues
+// (D's ds step, and its slots: 8 a row tile). D runs after two transposes
+// (Wc to (16, c1, c0), g to (4 s0^2 c1, batch_p)) and skips the taps that
+// land outside g for every row of its tile; dz runs in the same K chunks;
+// dWc's taps by cost, in wc_chunks K chunks that the reduce sums. The
+// grids and shared bytes come from the host's plan (BackwardPlan.dims).
+// Bound at the G-LIS step's shape: 48.5 GFLOP, 0.724 ms at 67 TFLOP/s of
+// fp32 FFMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <mutex>
 
+#include "sgemm_f32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -110,7 +122,7 @@ struct Args {
   int per;                         // D (bf16): whole images a tile
   int nkb, nkc;                    // k-steps of 64 over the batch, over c1
   int z_chunk, z_steps, splits;    // dz: k-steps a chunk, k-steps in all, chunks
-  int wc_chunks;                   // dWc (bf16): K chunks a tap
+  int wc_chunks;                   // dWc: K chunks a tap
   int n_wc, n_z, n_wp;             // W (bf16): items of each kind
   int d_tiles_n, d_items;          // D: column tiles, tiles in all
   int sums, act_slots;             // D: write dslope and dtrans partials; slots
@@ -126,6 +138,9 @@ struct Args {
   float* part_act;    // (2, act_slots, c0): dslope, dtrans
   float* part_bc;     // (gchunks, c1)
   float* wc_part;     // (wc_chunks, 16, c0, c1) where wc_chunks > 1
+  float* wct;         // fp32 D: Wc as (16, c1, c0)
+  float* gt;          // fp32 D: g as (4 s0^2 c1, batch_p)
+  int batch_p;        // fp32 D: the batch rounded up to a multiple of 4
   void *dwp, *dwc;    // outputs
   void* w_out;        // fp32 W
   const void *a_src, *b_src;  // fp32 W: A(m, (pos, n)) = a_src[n * a_ld + plane_a * a_ps + m]
@@ -764,128 +779,255 @@ seed_bwd_gemm(const __grid_constant__ Maps maps, const Args p) {
 
 // ------------------------------------------------------------ fp32, CUDA cores
 
-constexpr int kFT = 64, kFK = 16;  // output tile, k-step
+// D, dz, dwp and dWc in fp32, each a launch of sgemm_f32.cuh's product core
+// (128 x 128 tiles, 8 x 8 outputs a thread, a cp.async ring), grid (column
+// tiles, row tiles, z):
+//
+//  D    rows = h's pixels pixel-major ((i * s0 + j) * batch_p + n, the
+//       batch padded to a multiple of 4; padding rows dropped), columns c0,
+//       K = 16 taps x c1, the taps with no row of the tile inside the image
+//       skipped (`TapWalk`). X = g at the tap's pixel (2i - 1 + kh, 2j - 1
+//       + kw), zero outside, from gt, g transposed to (4 s0^2 c1, batch_p)
+//       so that 4 images of a pixel are one 16-byte piece, with a table of
+//       each piece's g pixel a tap made once a tile; Y = Wc[kh, kw]^T from
+//       wct (16, c1, c0). seed_bwd_f32_transpose makes both before D. The
+//       epilogue is the ds step; a warp's column sums over its 16 rows in
+//       each half of the tile go to a slot each (8 a row tile).
+//  dz   rows = codes, columns = code, K = proj in chunks (z = the chunk),
+//       fp32 partials a chunk. X = ds, Y = Wp^T (4-byte copies).
+//  W    dwp = z^T ds (K = batch) and dWc[tap] (z = the tap, taps by cost,
+//       and its K chunk: fp32 partials where the plan splits K so that the
+//       card holds two blocks an SM) = sum over the tap's pixel pairs of
+//       h^T g (K = pairs x batch):
+//       A(m, (pos, n)) = a_src[n a_ld + plane_a a_ps + m], B likewise, both
+//       k-major (16-byte copies).
+constexpr int kDPieces = gea::sg::kBM / 4;  // 16-byte pieces of 4 rows a tile column
+constexpr int kDTable = 16 * kDPieces;       // ints: a piece's g pixel a tap
+constexpr int kF32Slots = 8;                // D's slots a row tile (the plan's WARPS)
 
 template <int PASS>
-__device__ __forceinline__ float a_f32(const Args& p, int m, int k) {
-  if (PASS == kData) {
-    const int tap = k / p.c1, c = k - tap * p.c1, side = 2 * p.s0;
-    const int img = m / p.area, rem = m - img * p.area, i = rem / p.s0, j = rem - i * p.s0;
-    const int y = 2 * i - 1 + (tap >> 2), x = 2 * j - 1 + (tap & 3);
-    if ((unsigned)y >= (unsigned)side || (unsigned)x >= (unsigned)side) return 0.f;
-    return static_cast<const float*>(p.g)[(((size_t)img * side + y) * side + x) * p.c1 + c];
-  }
-  if (PASS == kDz) return static_cast<const float*>(p.ds)[(size_t)m * p.proj + k];
-  const int pos = k / p.batch, n = k - pos * p.batch;
-  int pa = 0, pb = 0;
-  if (p.w_taps) tap_planes(p.s0, blockIdx.z, pos, pa, pb);
-  return static_cast<const float*>(p.a_src)[n * p.a_ld + pa * p.a_ps + m];
+constexpr int f32_smem() {
+  return gea::sg::kRingBytes + (PASS == kData ? 4 * (kDTable + gea::sg::kWalkInts) : 0);
 }
 
 template <int PASS>
-__device__ __forceinline__ float b_f32(const Args& p, int k, int n) {
-  const float* wp = static_cast<const float*>(p.wp);
+__global__ void __launch_bounds__(gea::sg::kThreads, gea::sg::kBlocksPerSM)
+seed_bwd_f32(const Args p) {
+  namespace sg = gea::sg;
+  extern __shared__ __align__(16) float ring[];
+  const int n0 = blockIdx.x * sg::kBN, m0 = blockIdx.y * sg::kBM;
+  const int tid = threadIdx.x;
+  int rows, cols, k0 = 0, k1 = 0;
+  float acc[8][8];
   if (PASS == kData) {
-    const int tap = k / p.c1, c = k - tap * p.c1;
-    return static_cast<const float*>(p.wc)[((size_t)tap * p.c0 + n) * p.c1 + c];
-  }
-  if (PASS == kDz) return wp[(size_t)n * p.proj + k];
-  const int pos = k / p.batch, b = k - pos * p.batch;
-  int pa = 0, pb = 0;
-  if (p.w_taps) tap_planes(p.s0, blockIdx.z, pos, pa, pb);
-  return static_cast<const float*>(p.b_src)[b * p.b_ld + pb * p.b_ps + n];
-}
-
-template <int PASS>
-__global__ void __launch_bounds__(256) seed_bwd_f32(const Args p) {
-  __shared__ float as[kFK][kFT + 4], bs[kFK][kFT + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * kFT, n0 = blockIdx.y * kFT;
-  int rows, cols, k0 = 0, k1;
-  if (PASS == kData) {
-    rows = p.batch * p.area, cols = p.c0, k1 = 16 * p.c1;
+    int* table = reinterpret_cast<int*>(ring + sg::kStages * sg::kStage);  // [tap][piece]
+    int* walk = table + kDTable;
+    const int s0 = p.s0, side = 2 * s0;
+    rows = p.batch_p * p.area, cols = p.c0;
+    if (tid == 0) walk[0] = 0;
+    __syncthreads();
+    for (int e = tid; e < kDTable; e += sg::kThreads) {
+      const int tap = e / kDPieces, m = m0 + 4 * (e % kDPieces);
+      int off = -1;
+      if (m < rows) {  // pixel-major: m = (i * s0 + j) * batch_p + n
+        const int pix = m / p.batch_p, n = m - pix * p.batch_p, i = pix / s0, j = pix - i * s0;
+        const int y = 2 * i - 1 + (tap >> 2), x = 2 * j - 1 + (tap & 3);
+        if ((unsigned)y < (unsigned)side && (unsigned)x < (unsigned)side) {
+          off = (y * side + x) * p.c1;
+          if (n < p.batch) atomicOr(walk, 1 << tap);
+        }
+      }
+      table[e] = off;
+    }
+    __syncthreads();
+    sg::tap_walk_set(walk);
+    __syncthreads();
+    const sg::TapWalk taps = sg::tap_walk(walk, p.c1);
+    const int mn = sg::rows_mn(), yn = n0 + mn;
+    const int n_piece = m0 + mn < rows ? (m0 + mn) % p.batch_p : 0;  // the piece's first image
+    auto load = [&](float* st, int step) {
+      int tap, c;
+      taps.at(step, tap, c);
+      const int off = table[tap * kDPieces + mn / 4];
+#pragma unroll
+      for (int q = 0; q < sg::kRowCopies; ++q) {
+        const int kc = c + sg::rows_k(q);
+        const bool okx = kc < p.c1 && off >= 0;  // g^T rows: 4 images of a pixel a piece
+        sg::cp16(st + sg::rows_k(q) * sg::kLd + mn,
+                 okx ? p.gt + (size_t)(off + kc) * p.batch_p + n_piece : p.gt, okx);
+        const bool oky = kc < p.c1 && yn < p.c0;  // Wc^T[tap] rows: c0 contiguous
+        sg::cp16(st + sg::kTile + sg::rows_k(q) * sg::kLd + mn,
+                 oky ? p.wct + ((size_t)tap * p.c1 + kc) * p.c0 + yn : p.wct, oky);
+      }
+    };
+    sg::mainloop(ring, taps.steps(), load, acc);
   } else if (PASS == kDz) {
     rows = p.batch, cols = p.code;
     k0 = blockIdx.z * p.z_chunk * 64;
     k1 = min(k0 + p.z_chunk * 64, p.proj);
+    const float* ds = static_cast<const float*>(p.ds);
+    const float* wp = static_cast<const float*>(p.wp);
+    const int xk = sg::cols_k();
+    unsigned ok_x = 0, ok_y = 0;
+#pragma unroll
+    for (int q = 0; q < sg::kColCopies; ++q) {
+      ok_x |= (unsigned)(m0 + sg::cols_mn(q) < rows) << q;
+      ok_y |= (unsigned)(n0 + sg::cols_mn(q) < cols) << q;
+    }
+    const float* xrow = ds + (size_t)(m0 + sg::cols_mn(0)) * p.proj + xk;
+    const float* yrow = wp + (size_t)(n0 + sg::cols_mn(0)) * p.proj + xk;
+    auto load = [&](float* st, int step) {
+      const int kb = k0 + step * sg::kBK;
+      const bool kin = kb + xk < k1;
+#pragma unroll
+      for (int q = 0; q < sg::kColCopies; ++q) {
+        const size_t dm = sg::cols_mn(q) - sg::cols_mn(0);
+        const bool okx = kin && ((ok_x >> q) & 1), oky = kin && ((ok_y >> q) & 1);
+        sg::cp4(st + xk * sg::kLd + sg::cols_mn(q), okx ? xrow + dm * p.proj + kb : ds, okx);
+        sg::cp4(st + sg::kTile + xk * sg::kLd + sg::cols_mn(q),
+                oky ? yrow + dm * p.proj + kb : wp, oky);
+      }
+    };
+    sg::mainloop(ring, (k1 - k0 + sg::kBK - 1) / sg::kBK, load, acc);
   } else {
-    const TapPositions t = tap_positions(p.s0, blockIdx.z);
-    rows = p.w_rows, cols = p.w_cols, k1 = (p.w_taps ? t.ni * t.nj : 1) * p.batch;
-  }
-  float acc[4][4];
+    // dWc: z = (the tap's rank by cost) * wc_chunks + its K chunk.
+    const int tap = p.w_taps ? tap_by_cost(blockIdx.z / p.wc_chunks) : 0;
+    const int chunks = p.w_taps ? p.wc_chunks : 1, chunk = blockIdx.z % chunks;
+    const TapPositions t = tap_positions(p.s0, tap);
+    rows = p.w_rows, cols = p.w_cols;
+    const int kdim = (p.w_taps ? t.ni * t.nj : 1) * p.batch;
+    k0 = (int)((long long)chunk * kdim / chunks);
+    k1 = (int)((long long)(chunk + 1) * kdim / chunks);
+    const float* a = static_cast<const float*>(p.a_src);
+    const float* b = static_cast<const float*>(p.b_src);
+    const int mn = sg::rows_mn();
+    const bool ok_a = m0 + mn < rows, ok_b = n0 + mn < cols;
+    // K = (position, image): with the batch and k0 multiples of kBK a
+    // k-step is kBK images of one position, whose planes are found once a
+    // step; otherwise once a copy.
+    const bool whole = p.batch % sg::kBK == 0 && k0 % sg::kBK == 0;
+    auto load = [&](float* st, int step) {
+      const int kb = k0 + step * sg::kBK, pos0 = kb / p.batch, n0k = kb - pos0 * p.batch;
+      int pa0 = 0, pb0 = 0;
+      if (whole && p.w_taps) tap_planes(p.s0, tap, pos0, pa0, pb0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int kb = k0; kb < k1; kb += kFK) {
-    for (int e = tid; e < kFK * kFT; e += 256) {
-      const int kk = e % kFK, mm = e / kFK, k = kb + kk, m = m0 + mm;
-      as[kk][mm] = k < k1 && m < rows ? a_f32<PASS>(p, m, k) : 0.f;
-    }
-    for (int e = tid; e < kFK * kFT; e += 256) {
-      const int nn = e % kFT, kk = e / kFT, k = kb + kk, n = n0 + nn;
-      bs[kk][nn] = k < k1 && n < cols ? b_f32<PASS>(p, k, n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+      for (int q = 0; q < sg::kRowCopies; ++q) {
+        const int kr = sg::rows_k(q), k = kb + kr;
+        int n = n0k + kr, pa = pa0, pb = pb0;
+        if (!whole) {
+          const int pos = k / p.batch;
+          n = k - pos * p.batch;
+          if (p.w_taps) tap_planes(p.s0, tap, pos, pa, pb);
+        }
+        const bool kin = k < k1;
+        sg::cp16(st + kr * sg::kLd + mn,
+                 kin && ok_a ? a + n * p.a_ld + pa * p.a_ps + m0 + mn : a, kin && ok_a);
+        sg::cp16(st + sg::kTile + kr * sg::kLd + mn,
+                 kin && ok_b ? b + n * p.b_ld + pb * p.b_ps + n0 + mn : b, kin && ok_b);
+      }
+    };
+    sg::mainloop(ring, (k1 - k0 + sg::kBK - 1) / sg::kBK, load, acc);
   }
 
-  if (PASS == kData) {  // the ds step; a warp's 8 rows (ty, ty ^ 1) summed into its slot
-    float sl[4] = {0.f, 0.f, 0.f, 0.f}, tr[4] = {0.f, 0.f, 0.f, 0.f};
+  if (PASS == kData) {
+    // The ds step. Slots: a warp's 16 rows of each half of the tile (rows
+    // 0-63, 64-127) and its 64 columns; the warp beside it takes the other
+    // 64 columns of the same slots. 8 slots a row tile, as in bf16.
+    float sl[2][8], tr[2][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-      if (row >= rows) continue;
+    for (int j = 0; j < 8; ++j) sl[0][j] = sl[1][j] = tr[0][j] = tr[1][j] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx * 4 + j;
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + sg::out_row(i);
+      if (m >= rows) continue;
+      const int pix = m / p.batch_p, n = m - pix * p.batch_p;  // h's row n * s0^2 + pix
+      if (n >= p.batch) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + sg::out_col(h);  // c0 is a multiple of 4
         if (col >= cols) continue;
-        const size_t o = (size_t)row * p.c0 + col;
-        ds_step<float>(p, o, acc[i][j], p.s[o], __ldg(p.slope + col), sl[j], tr[j]);
+        const size_t o = ((size_t)n * p.area + pix) * p.c0 + col;
+        const float4 s4 = *reinterpret_cast<const float4*>(p.s + o);
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds_step<float>(p, o + e, acc[i][4 * h + e], sv[e], __ldg(p.slope + col + e),
+                         sl[i >> 2][4 * h + e], tr[i >> 2][4 * h + e]);
       }
     }
     if (!p.sums) return;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      sl[j] = __fadd_rn(sl[j], __shfl_xor_sync(0xffffffffu, sl[j], 16));
-      tr[j] = __fadd_rn(tr[j], __shfl_xor_sync(0xffffffffu, tr[j], 16));
-    }
-    if (tid % 32 >= 16) return;
-    const size_t slot = (size_t)blockIdx.x * 8 + tid / 32, stride = (size_t)p.act_slots * p.c0;
+    for (int half = 0; half < 2; ++half)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= cols) continue;
-      p.part_act[slot * p.c0 + col] = sl[j];
-      p.part_act[stride + slot * p.c0 + col] = tr[j];
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int d = 8; d <= 16; d *= 2) {  // the warp's 4 ty with this tx
+          sl[half][j] = __fadd_rn(sl[half][j], __shfl_xor_sync(0xffffffffu, sl[half][j], d));
+          tr[half][j] = __fadd_rn(tr[half][j], __shfl_xor_sync(0xffffffffu, tr[half][j], d));
+        }
+    if (tid % 32 >= 8) return;
+    const size_t stride = (size_t)p.act_slots * p.c0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const size_t slot = (size_t)blockIdx.y * kF32Slots + (tid / 64) * 2 + half;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + sg::out_col(j >> 2) + (j & 3);
+        if (col >= cols) continue;
+        p.part_act[slot * p.c0 + col] = sl[half][j];
+        p.part_act[stride + slot * p.c0 + col] = tr[half][j];
+      }
     }
     return;
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + sg::out_row(i);
+    if (row >= rows) continue;
 #pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      const int row = m0 + ty * 4 + i, col = n0 + tx * 4 + j;
-      if (row >= rows || col >= cols) continue;
-      if (PASS == kDz)
-        store2(p.dz_part + ((size_t)blockIdx.z * p.batch + row) * p.code + col, acc[i][j],
-               acc[i][j + 1], col + 1 < cols);
-      else
-        store2(p.w_out, p.w_bf16, ((size_t)blockIdx.z * rows + row) * cols + col, acc[i][j],
-               acc[i][j + 1], col + 1 < cols);
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + sg::out_col(h);  // code, proj and c1 are multiples of 4
+      if (col >= cols) continue;
+      const float v0 = acc[i][4 * h], v1 = acc[i][4 * h + 1], v2 = acc[i][4 * h + 2],
+                  v3 = acc[i][4 * h + 3];
+      if (PASS == kDz) {
+        *reinterpret_cast<float4*>(p.dz_part + ((size_t)blockIdx.z * p.batch + row) * p.code +
+                                   col) = make_float4(v0, v1, v2, v3);
+      } else {  // dWc's chunks > 1: fp32 partials (chunk, tap, c0, c1)
+        const int tap = p.w_taps ? tap_by_cost(blockIdx.z / p.wc_chunks) : 0;
+        const int slot = p.w_taps ? (blockIdx.z % p.wc_chunks) * 16 + tap : 0;
+        const size_t o = ((size_t)slot * rows + row) * cols + col;
+        const bool part = p.w_taps && p.wc_chunks > 1;
+        store2(part ? (void*)p.wc_part : p.w_out, p.w_bf16 && !part, o, v0, v1, true);
+        store2(part ? (void*)p.wc_part : p.w_out, p.w_bf16 && !part, o + 2, v2, v3, true);
+      }
     }
+  }
+}
+
+// fp32 D's operands transposed, so that D reads both in 16-byte pieces:
+// dst[z][c][r] = src[z][r][c] for r < rows, c < cols, dst's rows `ld`
+// long (Wc (16, c0, c1) as (16, c1, c0); g (batch, 4 s0^2 c1) as
+// (4 s0^2 c1, batch_p), its padding columns unwritten: only padding rows
+// of D read them). 32 x 32 tiles through shared memory; grid (column
+// tiles, row tiles, z).
+__global__ void __launch_bounds__(256) seed_bwd_f32_transpose(const float* __restrict__ src,
+                                                              float* __restrict__ dst, int rows,
+                                                              int cols, int ld) {
+  __shared__ float t[32][33];
+  src += (size_t)blockIdx.z * rows * cols;
+  dst += (size_t)blockIdx.z * cols * ld;
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int lane = threadIdx.x % 32, row = threadIdx.x / 32;
+  for (int r = row; r < 32; r += 8) {
+    const int i = r0 + r, c = c0 + lane;
+    t[r][lane] = i < rows && c < cols ? src[(size_t)i * cols + c] : 0.f;
+  }
+  __syncthreads();
+  for (int r = row; r < 32; r += 8) {
+    const int c = c0 + r, i = r0 + lane;
+    if (c < cols && i < rows) dst[(size_t)c * ld + i] = t[lane][r];
+  }
 }
 
 // ------------------------------------------------------------ 4. sums, both types
@@ -968,10 +1110,58 @@ int launch_project(const Args& p, int blocks, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// `plan`: the pass's grid (x, y, z) and shared bytes from the host's plan
+// (BackwardPlan.dims); the bytes must be the kernel's own.
 template <int PASS>
-int launch_f32(const Args& p, dim3 grid, cudaStream_t st) {
-  seed_bwd_f32<PASS><<<grid, 256, 0, st>>>(p);
+int launch_f32(const Args& p, const int* plan, cudaStream_t st) {
+  if (plan[3] != f32_smem<PASS>()) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(seed_bwd_f32<PASS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         f32_smem<PASS>());
+  if (err != cudaSuccess) return (int)err;
+  seed_bwd_f32<PASS><<<dim3(plan[0], plan[1], plan[2]), gea::sg::kThreads, f32_smem<PASS>(),
+                       st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// fp32 dWc runs beside D on a side stream of the caller's device, forked
+// from the caller's stream after D's transposes and joined before the
+// reduce: D's tiles alone fill 200 of 264 block slots at the flagship, and
+// dWc's blocks take the rest as D's end. Made once a device, outside a
+// stream capture (a capture forks and joins it as any other stream); a
+// call captured before it exists runs dWc after D on the caller's stream.
+// The kernels and their sums are the same either way.
+struct Fork {
+  cudaStream_t side;
+  cudaEvent_t fork, join;
+};
+constexpr int kMaxDevices = 64;
+
+int side_stream(cudaStream_t st, Fork** out) {
+  static Fork forks[kMaxDevices];
+  static bool made[kMaxDevices];
+  static std::mutex mu;
+  *out = nullptr;
+  int dev = 0;
+  GEA_TRY((int)cudaGetDevice(&dev));
+  if (dev >= kMaxDevices) return 0;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!made[dev]) {
+    cudaStreamCaptureStatus cap = cudaStreamCaptureStatusNone;
+    if (cudaStreamIsCapturing(st, &cap) != cudaSuccess) {
+      (void)cudaGetLastError();  // the legacy stream beside a capture: no fork
+      return 0;
+    }
+    if (cap != cudaStreamCaptureStatusNone) return 0;
+    Fork f{};
+    GEA_TRY((int)cudaStreamCreateWithFlags(&f.side, cudaStreamNonBlocking));
+    GEA_TRY((int)cudaEventCreateWithFlags(&f.fork, cudaEventDisableTiming));
+    GEA_TRY((int)cudaEventCreateWithFlags(&f.join, cudaEventDisableTiming));
+    forks[dev] = f;
+    made[dev] = true;
+  }
+  *out = &forks[dev];
+  return 0;
 }
 
 int backward(const u64* ptr, const int* dim, cudaStream_t st) {
@@ -985,10 +1175,12 @@ int backward(const u64* ptr, const int* dim, cudaStream_t st) {
   p.n_wc = dim[16], p.n_z = dim[17], p.n_wp = dim[18];
   const int w_grid = dim[19];
   p.r_tiles = dim[20], p.act_slots = dim[21];
+  const int* f32_grids = dim + 22;  // fp32: D, dz, dwp, dWc, each (x, y, z, shared bytes)
   const int batch = p.batch, code = p.code, s0 = p.s0, c0 = p.c0, c1 = p.c1;
   const int area = s0 * s0, proj = area * c0;
   p.area = area, p.proj = proj;
   p.per = is_bf16 ? kBM / area : 0;
+  p.batch_p = (batch + 3) / 4 * 4;
   p.nkb = cdiv(batch, 64), p.nkc = cdiv(c1, 64), p.z_steps = cdiv(proj, 64);
   p.d_items = d_tiles_m * p.d_tiles_n;
   p.r_tiles_n = cdiv(proj, kRN);
@@ -1008,8 +1200,11 @@ int backward(const u64* ptr, const int* dim, cudaStream_t st) {
   p.part_act = reinterpret_cast<float*>(ptr[11]);
   p.part_bc = reinterpret_cast<float*>(ptr[12]);
   p.wc_part = reinterpret_cast<float*>(ptr[13]);
-  p.dwp = reinterpret_cast<void*>(ptr[15]);
-  p.dwc = reinterpret_cast<void*>(ptr[19]);
+  p.wct = reinterpret_cast<float*>(ptr[14]);
+  p.gt = reinterpret_cast<float*>(ptr[15]);
+  const u64* out = ptr + 16;  // dz, dwp, dbp, dslope, dtrans, dWc, dbc
+  p.dwp = reinterpret_cast<void*>(out[1]);
+  p.dwc = reinterpret_cast<void*>(out[5]);
 
   // 1. The projection, and dbc's column partials.
   const int col_blocks = (need & 64) ? cdiv(c1, 128) * gchunks : 0;
@@ -1033,6 +1228,11 @@ int backward(const u64* ptr, const int* dim, cudaStream_t st) {
   };
   if (is_bf16 && gea::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
 
+  // fp32 D and dWc in parallel (`side_stream`).
+  Fork* fork = nullptr;
+  if (!is_bf16 && (need & 31) && (need & 32)) GEA_TRY(side_stream(st, &fork));
+  cudaStream_t wc_stream = fork != nullptr ? fork->side : st;
+
   // 2. D with the ds step.
   if (need & 31) {
     if (is_bf16) {
@@ -1048,8 +1248,19 @@ int backward(const u64* ptr, const int* dim, cudaStream_t st) {
                     p.per * area))
         return (int)cudaErrorInvalidValue;
       GEA_TRY(launch_gemm<kData>(maps, p, d_grid, st));
-    } else {
-      GEA_TRY(launch_f32<kData>(p, dim3(d_tiles_m, p.d_tiles_n), st));
+    } else {  // Wc and g transposed for D's 16-byte copies, then D on 128 x 128 tiles
+      const float* wc = static_cast<const float*>(p.wc);
+      seed_bwd_f32_transpose<<<dim3(cdiv(c1, 32), cdiv(c0, 32), 16), 256, 0, st>>>(
+          wc, p.wct, c0, c1, c0);
+      GEA_TRY((int)cudaGetLastError());
+      seed_bwd_f32_transpose<<<dim3(cdiv(4 * area * c1, 32), cdiv(batch, 32), 1), 256, 0, st>>>(
+          static_cast<const float*>(p.g), p.gt, batch, 4 * area * c1, p.batch_p);
+      GEA_TRY((int)cudaGetLastError());
+      if (fork != nullptr) {
+        GEA_TRY((int)cudaEventRecord(fork->fork, st));
+        GEA_TRY((int)cudaStreamWaitEvent(fork->side, fork->fork, 0));
+      }
+      GEA_TRY(launch_f32<kData>(p, f32_grids, st));
     }
   }
 
@@ -1083,38 +1294,40 @@ int backward(const u64* ptr, const int* dim, cudaStream_t st) {
       return (int)cudaErrorInvalidValue;
     if (p.n_wc + p.n_z + p.n_wp > 0) GEA_TRY(launch_gemm<kWeight>(maps, p, w_grid, st));
   } else {
-    if (need & 1)
-      GEA_TRY(launch_f32<kDz>(p, dim3(cdiv(batch, kFT), cdiv(code, kFT), p.splits), st));
-    if (need & 2) {  // dwp = z^T ds
-      Args w = p;
-      w.w_rows = code, w.w_cols = proj, w.w_taps = 0, w.w_bf16 = p.dwp_bf16, w.w_out = p.dwp;
-      w.a_src = p.z, w.a_ld = code, w.a_ps = 0, w.b_src = p.ds, w.b_ld = proj, w.b_ps = 0;
-      GEA_TRY(launch_f32<kWeight>(w, dim3(cdiv(code, kFT), cdiv(proj, kFT), 1), st));
-    }
     if (need & 32) {  // dWc[tap] = sum over the tap's pixel pairs of h^T g
       Args w = p;
       w.w_rows = c0, w.w_cols = c1, w.w_taps = 16, w.w_bf16 = p.dwc_bf16, w.w_out = p.dwc;
       w.a_src = p.h, w.a_ld = proj, w.a_ps = c0, w.b_src = p.g, w.b_ld = 4 * area * c1,
       w.b_ps = c1;
-      GEA_TRY(launch_f32<kWeight>(w, dim3(cdiv(c0, kFT), cdiv(c1, kFT), 16), st));
+      GEA_TRY(launch_f32<kWeight>(w, f32_grids + 12, wc_stream));
+      if (fork != nullptr) GEA_TRY((int)cudaEventRecord(fork->join, fork->side));
     }
+    if (need & 1)
+      GEA_TRY(launch_f32<kDz>(p, f32_grids + 4, st));
+    if (need & 2) {  // dwp = z^T ds
+      Args w = p;
+      w.w_rows = code, w.w_cols = proj, w.w_taps = 0, w.w_bf16 = p.dwp_bf16, w.w_out = p.dwp;
+      w.a_src = p.z, w.a_ld = code, w.a_ps = 0, w.b_src = p.ds, w.b_ld = proj, w.b_ps = 0;
+      GEA_TRY(launch_f32<kWeight>(w, f32_grids + 8, st));
+    }
+    if (fork != nullptr) GEA_TRY((int)cudaStreamWaitEvent(st, fork->join, 0));
   }
 
   // 4. The sums.
   Sums sums{};
   int n = 0;
   if (need & 1)
-    sums.s[n++] = {p.dz_part, reinterpret_cast<void*>(ptr[14]), p.splits, batch * code, 0,
+    sums.s[n++] = {p.dz_part, reinterpret_cast<void*>(out[0]), p.splits, batch * code, 0,
                    out_bf16 & 1};
-  if (need & 4) sums.s[n++] = {p.ds, reinterpret_cast<void*>(ptr[16]), batch, proj, is_bf16, 0};
+  if (need & 4) sums.s[n++] = {p.ds, reinterpret_cast<void*>(out[2]), batch, proj, is_bf16, 0};
   if (need & 8)
-    sums.s[n++] = {p.part_act, reinterpret_cast<void*>(ptr[17]), p.act_slots, c0, 0, 0};
+    sums.s[n++] = {p.part_act, reinterpret_cast<void*>(out[3]), p.act_slots, c0, 0, 0};
   if (need & 16)
-    sums.s[n++] = {p.part_act + (size_t)p.act_slots * c0, reinterpret_cast<void*>(ptr[18]),
+    sums.s[n++] = {p.part_act + (size_t)p.act_slots * c0, reinterpret_cast<void*>(out[4]),
                    p.act_slots, c0, 0, 0};
-  if ((need & 32) && is_bf16 && p.wc_chunks > 1)
+  if ((need & 32) && p.wc_chunks > 1)
     sums.s[n++] = {p.wc_part, p.dwc, p.wc_chunks, 16 * c0 * c1, 0, p.dwc_bf16};
-  if (need & 64) sums.s[n++] = {p.part_bc, reinterpret_cast<void*>(ptr[20]), gchunks, c1, 0, 0};
+  if (need & 64) sums.s[n++] = {p.part_bc, reinterpret_cast<void*>(out[6]), gchunks, c1, 0, 0};
   if (n == 0) return 0;
   // The longest sums first (insertion sort on the terms a column).
   for (int i = 1; i < n; ++i)
@@ -1134,14 +1347,16 @@ int backward(const u64* ptr, const int* dim, cudaStream_t st) {
 // ptr: z, wp, bp, slope, trans, wc, g (inputs; z, wp, wc and g in the
 // computing type, bp, slope and trans fp32), then the wrapper's scratch s
 // (fp32), h, ds, the dz partials, the dslope and dtrans partials, the dbc
-// partials and the dWc partials, then the outputs dz, dwp, dbp, dslope,
+// partials, the dWc partials and fp32 D's transposed Wc and g, then the outputs
+// dz, dwp, dbp, dslope,
 // dtrans, dWc and dbc (dbp, dslope, dtrans and dbc fp32). dim: batch, code,
 // s0, c0, c1, is_bf16, need (bit i for gradient i, in that order), bf16
 // outputs (bits 0, 1, 5 for dz, dwp, dWc), then the plan
 // (gea_torch/ops/seed.py::BackwardPlan.dims): dz's k-steps a chunk and
 // chunks, dWc's chunks a tap, g's rows a column-sum chunk and chunks, D's
 // tiles (rows, columns) and blocks, W's items (dWc, dz, dwp) and blocks,
-// the projection's tiles, D's partial slots.
+// the projection's tiles, D's partial slots, and in fp32 the grid (x, y, z)
+// and shared bytes of D, dz, dwp and dWc.
 extern "C" int gea_seed_backward(const unsigned long long* ptr, const int* dim, void* stream) {
   return backward(ptr, dim, static_cast<cudaStream_t>(stream));
 }

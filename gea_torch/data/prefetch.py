@@ -12,17 +12,25 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterator
 
 import numpy as np
 import torch
 
 
+# How long closing the iterator waits for its worker to finish a host batch.
+CLOSE_TIMEOUT_S = 60.0
+# The worker threads' name.
+THREAD_NAME = "gea_torch-prefetch"
+
+
 def device_prefetch(host_iter: Iterator[np.ndarray], device: torch.device,
                     depth: int = 2) -> Iterator[torch.Tensor]:
     """Wrap a host batch iterator; yields tensors on `device`, `depth`
-    ahead. A worker error reaches the consumer; an abandoned iterator's
-    thread exits."""
+    ahead. A worker error reaches the consumer. Closing the iterator (or
+    dropping it) stops the worker thread and waits for it to end (at most
+    CLOSE_TIMEOUT_S, for a host batch in progress)."""
     device = torch.device(device)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
@@ -61,7 +69,8 @@ def device_prefetch(host_iter: Iterator[np.ndarray], device: torch.device,
         finally:
             put(None)
 
-    threading.Thread(target=worker, daemon=True).start()
+    thread = threading.Thread(target=worker, name=THREAD_NAME, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -80,3 +89,17 @@ def device_prefetch(host_iter: Iterator[np.ndarray], device: torch.device,
             yield t
     finally:
         stop.set()
+        # The worker ends before the iterator does. Left running, a daemon
+        # thread may be inside a torch call (a tensor made from or handed
+        # back to numpy, a pinned copy) when the interpreter exits; torch
+        # takes the GIL back in a C++ destructor there, and the process
+        # aborts ("terminate called without an active exception"), as a
+        # spawned rank did at the end of its run. A put waiting on the full
+        # queue is released; a host batch in progress is waited for.
+        deadline = time.monotonic() + CLOSE_TIMEOUT_S
+        while thread.is_alive() and time.monotonic() < deadline:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                pass
+            thread.join(timeout=0.05)

@@ -13,9 +13,13 @@ TMA): the projection, whose epilogue applies bias and TPReLU and writes the
 seed map (N, s0, s0, c0) into a scratch buffer allocated here, then the
 transposed conv, one output parity per block, whose blocks hold whole
 images so that the map is read once for all four taps and Wc is read at the
-flipped taps in place. Bound: operations, 28.8 us at the flagship shape on
-the H100's bf16 tensor cores. In fp32 a call is one launch on the CUDA
-cores. Either way it counts as one launch in `fused_seed.launches`.
+flipped taps in place. Bound: operations, 23.7 us at the flagship shape on
+the H100's bf16 tensor cores. In fp32 a call is the same two passes on the
+CUDA cores, each a launch of the register-tiled fp32 product core
+(`csrc/sgemm_f32.cuh`; `forward_plan` gives their grids), the fp32 map
+between them transposed; bound: operations, 0.350 ms at the flagship
+shape on the H100's 67 TFLOP/s of fp32 FFMA. Either way a call counts as
+one launch in `fused_seed.launches`.
 
 The kernels are the custom op `gea_torch::fused_seed` (`torch.library`), so
 `torch.export` records a call as one node of an exported graph: its CPU
@@ -51,7 +55,50 @@ from torch.autograd.function import once_differentiable
 
 from gea_torch.ops import build
 
-_CODES_F32 = 2  # codes per block of the fp32 kernel; kCodes in csrc/seed.cu
+# The fp32 product core (csrc/sgemm_f32.cuh): block tile (rows, columns),
+# k-step, threads, ring depth and ring bytes, and 2 blocks resident an SM.
+F32_TILE = (128, 128)
+F32_BK = 32
+F32_THREADS = 256
+F32_STAGES = 2
+F32_RING_BYTES = F32_STAGES * 2 * F32_BK * (F32_TILE[0] + 4) * 4
+F32_BLOCKS_PER_SM = 2
+F32_WALK_INTS = 18  # a convolution tile's list of taps (kWalkInts)
+
+
+def pad4(batch: int) -> int:
+    """The batch rounded up to a multiple of 4: the fp32 convolutions' rows
+    come 4 images of a pixel to a 16-byte piece."""
+    return -(-batch // 4) * 4
+
+
+def pixel_major(m: int, batch: int, s0: int, parity=None) -> tuple:
+    """(n, i, j) of row m of the fp32 convolutions' rows, pixel-major over
+    the padded batch: m = q * pad4(batch) + n, n >= batch a padding row
+    whose output is dropped, q the pixel's position: i * s0 + j in the
+    backward's D, `parity_pixel(q, parity, s0)` in the forward's conv (a
+    128-row tile is one or two pixel positions of many images, so a tap
+    that lands outside the image for all of them is skipped)."""
+    q, n = divmod(m, pad4(batch))
+    return (n, *(divmod(q, s0) if parity is None else parity_pixel(q, parity, s0)))
+
+
+def parity_pixel(q: int, parity: int, s0: int) -> tuple:
+    """(i, j) at position q of the forward conv's rows for output parity
+    (du, dv) = (parity // 2, parity % 2) (csrc/seed.cu's `parity_pixel`):
+    first the (s0-1)^2 pixels whose 4 taps read inside the map, then the
+    edge column's s0-1 and the edge row's s0-1 with 2, the corner with 1,
+    so that a conv tile's cost falls with its row tile."""
+    e, du, dv = s0 - 1, parity >> 1, parity & 1
+    if q < e * e:
+        a, b = divmod(q, e)
+    elif q < e * e + e:
+        a, b = q - e * e, e
+    else:
+        a, b = e, (q - e * e - e if q < e * e + 2 * e else e)
+    return (a + 1 - du) % s0, (b + 1 - dv) % s0
+
+
 # The backward's split of its sums (csrc/seed_bwd.cu): rows of g a chunk of
 # its column sums, and at least this many k-steps of 64 a split of dz's K.
 _COLSUM_ROWS = 128
@@ -139,7 +186,7 @@ def fused_seed_backward_plain(z, wp, bp, slope, trans, wc, bc, g, s0: int,
 def _lib() -> ctypes.CDLL:
     lib = build.load("seed")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gea_seed_forward.argtypes = [p] * 9 + [i, i, i, i, i, i, p]
+    lib.gea_seed_forward.argtypes = [p] * 9 + [i, i, i, i, i, i, ctypes.POINTER(i), p]
     lib.gea_seed_forward.restype = ctypes.c_int
     return lib
 
@@ -176,13 +223,11 @@ def _check_shapes(what: str, z, wp, wc, s0: int) -> None:
             f"{what}: the bf16 kernel takes code, c0, c1 divisible by 8; got "
             f"code={code}, c0={c0}, c1={c1}"
         )
-    if not bf16 and (code % 4 or c0 % 4):
+    if not bf16 and (code % 4 or c0 % 4 or c1 % 4):
         raise ValueError(
-            f"{what}: the fp32 kernel takes code, c0 divisible by 4; got "
-            f"code={code}, c0={c0}"
+            f"{what}: the fp32 kernel takes code, c0, c1 divisible by 4; got "
+            f"code={code}, c0={c0}, c1={c1}"
         )
-    if not bf16 and 4 * _CODES_F32 * (code + (s0 + 2) ** 2 * c0) > build.SMEM_LIMIT:
-        raise ValueError(f"{what}: the fp32 seed map of c0={c0} does not fit shared memory")
 
 
 @seed_op.register_kernel("cuda")
@@ -199,14 +244,19 @@ def _launch(z, wp, bp, slope, trans, wc, bc, s0: int) -> torch.Tensor:
     # The bf16 kernel's tensor maps need 16-byte aligned bases.
     z, wp, wc = (build.aligned16(t.to(dt).contiguous()) for t in (z, wp, wc))
     f32 = [v.float().contiguous() for v in (bp, slope, trans, bc)]
-    seed_map = torch.empty((batch, s0, s0, c0) if bf16 else (0,), dtype=dt, device=z.device)
+    # The seed map between the passes: bf16 (N, s0, s0, c0); fp32 transposed,
+    # (s0 * s0 * c0, N padded to a multiple of 4: `forward_plan`).
+    plan = None if bf16 else forward_plan(batch, code, s0, c0, c1)
+    seed_map = torch.empty((batch, s0, s0, c0) if bf16 else (s0 * s0 * c0, plan.batch_p),
+                           dtype=dt, device=z.device)
+    dims = [] if bf16 else plan.dims()
     lib = _lib()
     with torch.cuda.device(z.device):
         rc = lib.gea_seed_forward(
             z.data_ptr(), wp.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
             f32[2].data_ptr(), wc.data_ptr(), f32[3].data_ptr(), seed_map.data_ptr(),
             out.data_ptr(), batch, code, s0, c0, c1, int(bf16),
-            torch.cuda.current_stream(z.device).cuda_stream,
+            (ctypes.c_int * len(dims))(*dims), torch.cuda.current_stream(z.device).cuda_stream,
         )
     build.check(lib, rc, "fused_seed")
     fused_seed.launches += 1
@@ -253,13 +303,16 @@ class BackwardPlan:
     `colsum_blocks` blocks of g's column sums, `gchunks` chunks of
     `_COLSUM_ROWS` rows); D (bf16: `d_grid` persistent blocks over
     `d_items` tiles of `per` whole images x 128 channels; fp32: a grid of
-    64 x 64 tiles), whose warps write `act_slots` slots of dslope and
-    dtrans partials (8 a row tile); W (bf16: `w_grid` persistent blocks over
-    `w_items` items: dWc tiles in `wc_chunks` K chunks, taps by cost, then
-    dz tiles in `splits` chunks of `z_chunk` k-steps, then dwp tiles), each
-    block's items in snake order; the reduce, over the `sums` sets of
-    partials. `block_items`, `d_item` and `w_item` list the same items as
-    the kernels' `item_of`, `d_item` and `w_item`."""
+    128 x 128 tiles of the fp32 product core), whose warps write
+    `act_slots` slots of dslope and dtrans partials (8 a row tile); W
+    (bf16: `w_grid` persistent blocks over `w_items` items: dWc tiles in
+    `wc_chunks` K chunks, taps by cost, then dz tiles in `splits` chunks
+    of `z_chunk` k-steps, then dwp tiles), each block's items in snake
+    order; the reduce, over the `sums` sets of partials. `block_items`,
+    `d_item` and `w_item` list the same items as the kernels' `item_of`,
+    `d_item` and `w_item`. In fp32 D (after transposes of Wc and g), dz,
+    dwp and dWc (in `wc_chunks` K chunks too) are launches of their own
+    (`f32_passes`, `f32_tiles`)."""
 
     batch: int
     code: int
@@ -271,7 +324,7 @@ class BackwardPlan:
     sms: int
 
     TILE = 128  # the bf16 passes' output tile (kBM = kBN)
-    TILE_F32 = 64  # the fp32 passes' (kFT)
+    TILE_F32 = F32_TILE[0]  # the fp32 passes' (sgemm_f32.cuh's kBM = kBN)
     R_TILE = (64, 64)  # the projection's (kRM, kRN)
     WARPS = 8  # D's warps a tile, each with a slot of partials
 
@@ -319,7 +372,7 @@ class BackwardPlan:
     def d_tiles_m(self) -> int:
         if self.bf16:
             return _cdiv(self.batch, self.per)
-        return _cdiv(self.batch * self.area, self.TILE_F32)
+        return _cdiv(pad4(self.batch) * self.area, self.TILE_F32)  # `pixel_major` rows
 
     @property
     def d_tiles_n(self) -> int:
@@ -355,9 +408,11 @@ class BackwardPlan:
     @property
     def wc_chunks(self) -> int:
         """dWc's K chunks a tap: as many as the card holds beside the 16
-        taps' tiles, no more than the corners' k-steps; 1 in fp32."""
+        taps' tiles (in fp32 two blocks an SM), no more than the corners'
+        k-steps."""
         if not self.bf16:
-            return 1
+            return max(1, min(F32_BLOCKS_PER_SM * self.sms // (16 * self.wc_tiles),
+                              (self.s0 - 1) ** 2 * self.batch // F32_BK))
         return max(1, min(self.sms // (16 * self.wc_tiles), (self.s0 - 1) ** 2 * self.nkb))
 
     @property
@@ -441,6 +496,9 @@ class BackwardPlan:
             "dbc_part": ((self.gchunks, self.c1), f32, need[6]),
             "dwc_part": ((self.wc_chunks, 16, self.c0, self.c1), f32,
                          need[5] and self.wc_chunks > 1),
+            "wct": ((16, self.c1, self.c0), f32, self.need_dh and not self.bf16),
+            "gt": ((4 * self.area * self.c1, pad4(self.batch)), f32,
+                   self.need_dh and not self.bf16),
         }
         return {k: (shape if used else (0,), kind) for k, (shape, kind, used) in bufs.items()}
 
@@ -461,34 +519,169 @@ class BackwardPlan:
             out.append(("dbc", "dbc_part", self.gchunks, self.c1))
         return out
 
+    def f32_passes(self) -> dict:
+        """{pass: (grid (column tiles, row tiles, z), shared bytes)} of the
+        fp32 passes a call launches (`seed_bwd_f32<PASS>`), in launch
+        order, which the launches take through `dims`; {} in bf16. D's
+        blocks also hold a table of each 4-row piece's g pixel a tap and the
+        list of its taps (those inside g for one of the tile's rows); D
+        reads Wc and g transposed (`wct`, `gt`, made by two launches of
+        `seed_bwd_f32_transpose` before it). dWc needs neither D nor its
+        transposes: with D it runs on a side stream forked after them, so
+        its blocks fill the slots D's leave free (csrc/seed_bwd.cu's
+        `side_stream`), and joins before the reduce."""
+        if self.bf16:
+            return {}
+        r, c = F32_TILE
+        out = {}
+        if self.need_dh:
+            out["D"] = ((self.d_tiles_n, self.d_tiles_m, 1),
+                        F32_RING_BYTES + 4 * (16 * (r // 4) + F32_WALK_INTS))
+        if self.need[5]:
+            out["dWc"] = ((_cdiv(self.c1, c), _cdiv(self.c0, r), 16 * self.wc_chunks),
+                          F32_RING_BYTES)
+        if self.need[0]:
+            out["dz"] = ((_cdiv(self.code, c), _cdiv(self.batch, r), self.splits),
+                         F32_RING_BYTES)
+        if self.need[1]:
+            out["dwp"] = ((_cdiv(self.proj, c), _cdiv(self.code, r), 1), F32_RING_BYTES)
+        return out
+
+    def f32_tiles(self, name: str) -> list:
+        """(output, rows, columns, k range) of each block of fp32 pass
+        `name`, in grid order: D writes ds (batch * s0 * s0, c0) rows
+        (`pixel_major`), dz the partials of its K chunk, dwp (code, proj),
+        dWc its tap's (c0, c1), or with wc_chunks > 1 that chunk's partials
+        (taps by cost along z, then chunks), each summing its k range."""
+        (gx, gy, gz), _ = self.f32_passes()[name]
+        r, c = F32_TILE
+        out = []
+        for z in range(gz):
+            if name == "D":
+                what, k = "ds", (0, 16 * self.c1)
+            elif name == "dz":
+                k0 = z * self.z_chunk * 64
+                what, k = ("dz_part", z), (k0, min(k0 + self.z_chunk * 64, self.proj))
+            elif name == "dwp":
+                what, k = "dwp", (0, self.batch)
+            else:
+                tap, chunk = TAPS_BY_COST[z // self.wc_chunks], z % self.wc_chunks
+                kdim = _tap_pairs(self.s0, tap) * self.batch
+                what = ("dwc", tap, chunk)
+                k = (chunk * kdim // self.wc_chunks, (chunk + 1) * kdim // self.wc_chunks)
+            for y in range(gy):
+                for x in range(gx):
+                    out.append((what, range(y * r, (y + 1) * r), range(x * c, (x + 1) * c), k))
+        return out
+
     def launches(self) -> list:
         """The kernels one call launches, in order."""
         out = []
         if self.r_tiles + self.colsum_blocks:
             out.append("seed_bwd_project")
         if self.need_dh:
-            out.append("seed_bwd_gemm<D>" if self.bf16 else "seed_bwd_f32<D>")
+            out += (["seed_bwd_gemm<D>"] if self.bf16 else
+                    ["seed_bwd_f32_transpose<Wc>", "seed_bwd_f32_transpose<g>",
+                     "seed_bwd_f32<D>"])
         if self.bf16:
             if self.w_items:
                 out.append("seed_bwd_gemm<W>")
         else:
-            out += [k for k, n in (("seed_bwd_f32<dz>", 0), ("seed_bwd_f32<dwp>", 1),
-                                   ("seed_bwd_f32<dWc>", 5)) if self.need[n]]
+            out += [f"seed_bwd_f32<{k}>" for k in self.f32_passes() if k != "D"]
         if self.sums():
             out.append("seed_bwd_reduce")
         return out
 
     def dims(self) -> list:
         """The plan's part of the kernels' `dim` (after need and the output
-        types)."""
+        types); in fp32 the launches take their grids and shared bytes
+        from `f32_passes` (zeros for a pass not launched)."""
+        passes = self.f32_passes()
+        grids = [v for name in ("D", "dz", "dwp", "dWc")
+                 for v in ((*passes[name][0], passes[name][1]) if name in passes else (0,) * 4)]
         return [self.z_chunk, self.splits, self.wc_chunks, _COLSUM_ROWS, self.gchunks,
                 self.d_tiles_m, self.d_tiles_n, self.d_grid, self.n_wc, self.n_z, self.n_wp,
-                self.w_grid, self.r_tiles, self.act_slots]
+                self.w_grid, self.r_tiles, self.act_slots, *grids]
 
 
 def backward_plan(batch: int, code: int, s0: int, c0: int, c1: int, bf16: bool, need,
                   sms: int) -> BackwardPlan:
     return BackwardPlan(batch, code, s0, c0, c1, bool(bf16), tuple(bool(n) for n in need), sms)
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """How one fp32 call of the seed's forward is cut up (csrc/seed.cu):
+    two launches of the fp32 product core (csrc/sgemm_f32.cuh), each a grid
+    (column tiles, row tiles, z) of F32_TILE tiles, F32_THREADS threads a
+    block, F32_STAGES k-steps of F32_BK in its ring and F32_BLOCKS_PER_SM
+    blocks resident an SM:
+
+    * "project" (`seed_f32_project`): rows the codes, columns s0*s0*c0, K =
+      code; writes the fp32 seed map transposed, (s0*s0*c0, `batch_p`).
+    * "conv" (`seed_f32_conv`): one output parity (du, dv) = (y // 2, y %
+      2) a y-slice, rows the map's pixels in the parity's order
+      (`pixel_major` with `parity_pixel`), row tiles along z, columns c1, K
+      = 4 taps x c0, of which a tile sums those inside the map for one of
+      its rows; its blocks also hold a table of each tile row's map row a
+      tap, and the list of taps. The blocks start row tile by row tile,
+      the costliest first.
+
+    The launches take their grids, shared bytes and `batch_p` from
+    `dims`, so the plan the tests check is the one that runs."""
+
+    batch: int
+    code: int
+    s0: int
+    c0: int
+    c1: int
+
+    @property
+    def area(self) -> int:
+        return self.s0 * self.s0
+
+    @property
+    def proj(self) -> int:
+        return self.area * self.c0
+
+    @property
+    def batch_p(self) -> int:
+        return pad4(self.batch)
+
+    @property
+    def conv_rows(self) -> int:
+        return self.batch_p * self.area
+
+    def passes(self) -> dict:
+        """{pass: (grid, K, shared bytes)} in launch order."""
+        r, c = F32_TILE
+        return {
+            "project": ((_cdiv(self.proj, c), _cdiv(self.batch_p, r), 1), self.code,
+                        F32_RING_BYTES),
+            "conv": ((_cdiv(self.c1, c), 4, _cdiv(self.conv_rows, r)), 4 * self.c0,
+                     F32_RING_BYTES + 4 * (4 * (r // 4) + F32_WALK_INTS)),
+        }
+
+    def dims(self) -> list:
+        """The kernels' `plan`: batch_p, then each pass's grid (x, y, z) and
+        shared bytes."""
+        return [self.batch_p] + [v for grid, _, smem in self.passes().values()
+                                 for v in (*grid, smem)]
+
+    def tiles(self, name: str) -> list:
+        """(parity, rows, columns) of each block of pass `name`, in grid
+        order (the projection's parity 0)."""
+        (gx, gy, gz), _, _ = self.passes()[name]
+        r, c = F32_TILE
+        if name == "project":
+            return [(0, range(y * r, (y + 1) * r), range(x * c, (x + 1) * c))
+                    for y in range(gy) for x in range(gx)]
+        return [(z, range(y * r, (y + 1) * r), range(x * c, (x + 1) * c))
+                for y in range(gz) for z in range(gy) for x in range(gx)]
+
+
+def forward_plan(batch: int, code: int, s0: int, c0: int, c1: int) -> ForwardPlan:
+    return ForwardPlan(batch, code, s0, c0, c1)
 
 
 @torch.library.custom_op("gea_torch::fused_seed_backward", mutates_args=(), device_types="cpu")

@@ -3,20 +3,23 @@
 for comparing two checkouts of the repo on one card.
 
     python scripts/torch_graphed_steps.py [--root DIR] [--label NAME] [--out FILE]
+        [--dtype bfloat16|float32] [--paths g-lis,r-iterative,...]
 
 Imports `gea_torch` and `chip_smoke` from `--root` (default: this
-checkout), builds the CUDA kernels there, and for each of four paths at
-flagship width, bf16, batch 64, BCE (`chip_smoke.graph_trainers()`: G-LIS,
-R-separate against a frozen G and D, R-iterative at chain length 2;
-G-LIS with `--norm batch`, as phase 17 of `chip_smoke.py` builds it; and
-the data-parallel G-LIS step at config 5, 160x160, on a world-1 NCCL
-group, as phase 16 builds it) captures a K = 8 `StepDispatcher` graph,
-then times REPLAYS replays with CUDA events (device ms a step: the span of
-a replay over K), takes one replay under torch.profiler (device busy ms a
-step; the time of kernels whose names hold `tprelu_grad_`, TPReLU's
-backward kernels, `seed_bwd_`, the seed's, and `lis_chain_` (or, in a
-checkout from before the chain kernel, `lis_bwd_`), LIS's, with LIS's
-backward launches a step) and
+checkout), builds the CUDA kernels there, and for each of five paths at
+flagship width, batch 64, BCE, in bf16 or with `--dtype float32` in fp32
+(`chip_smoke.graph_trainers()`: G-LIS, R-separate against a frozen G and D
+(made in bf16: leave it out of an fp32 run), R-iterative at chain length
+2; G-LIS with `--norm batch`, as phase 17 of `chip_smoke.py` builds it;
+and the data-parallel G-LIS step at config 5, 160x160, on a world-1 NCCL
+group, as phase 16 builds it; `--paths` picks some) captures a K = 8
+`StepDispatcher` graph, then times REPLAYS replays with CUDA events
+(device ms a step: the span of a replay over K), takes one replay under
+torch.profiler (device busy ms a step; the time of kernels whose names
+hold `tprelu_grad_`, TPReLU's backward kernels, `seed_bwd_`, the seed's,
+`seed_tap_gemm` or `seed_f32_`, the seed's forward, and `lis_chain_` (or,
+in a checkout from before the chain kernel, `lis_bwd_`), LIS's, with
+LIS's backward launches a step) and
 reads the graph pool's peak MB. Prints one JSON line per path and writes them all
 to `--out`. Two checkouts are compared within one call, in turns (A, B,
 B, A), each in its own process:
@@ -42,6 +45,9 @@ def main() -> int:
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     p.add_argument("--label", default="this checkout")
     p.add_argument("--out", default=None)
+    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"),
+                   help="the compute dtype of every path")
+    p.add_argument("--paths", default="", help="paths to run, separated by ','")
     args = p.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -72,6 +78,9 @@ def main() -> int:
                               lambda c: build_glis_train_step(c, dp=dp), cs.real_batch(dp_cfg))
     rows = []
     for tag, (cfg, make_state, build_step, real) in entries.items():
+        if args.paths and tag not in args.paths.split(","):
+            continue
+        cfg = cfg.replace(dtype=args.dtype)
         k = cfg.steps_per_dispatch
         state, step = make_state(cfg), build_step(cfg)
         dispatch = StepDispatcher(cfg, step)
@@ -91,12 +100,16 @@ def main() -> int:
         busy, kernels = cs.device_profile(lambda: dispatch(state, reals))
         grad_ms = sum(ms for name, ms, _ in kernels if "tprelu_grad_" in name)
         seed_ms = sum(ms for name, ms, _ in kernels if "seed_bwd_" in name)
+        seed_fwd_ms = sum(ms for name, ms, _ in kernels
+                          if "seed_tap_gemm" in name or "seed_f32_" in name
+                          or "seed_kernel_f32" in name)
         lis = [(ms, n) for name, ms, n in kernels if "lis_bwd_" in name or "lis_chain_" in name]
         lis_ms = sum(ms for ms, _ in lis)
-        row = {"label": args.label, "path": tag, "k": k,
+        row = {"label": args.label, "path": tag, "dtype": args.dtype, "k": k,
                "device_ms_per_step": statistics.median(spans), "spans_ms_per_step": spans,
                "busy_ms_per_step": busy / k, "tprelu_grad_ms_per_step": grad_ms / k,
-               "seed_bwd_ms_per_step": seed_ms / k, "lis_bwd_ms_per_step": lis_ms / k,
+               "seed_bwd_ms_per_step": seed_ms / k, "seed_fwd_ms_per_step": seed_fwd_ms / k,
+               "lis_bwd_ms_per_step": lis_ms / k,
                "lis_bwd_launches_per_step": sum(n for _, n in lis) / k,
                "pool_peak_mb": dispatch.chunks[k].pool_peak_mb, "first_call_s": first_s,
                "card": smi, "torch": torch.__version__}
