@@ -628,6 +628,12 @@ KERNEL = {
 }
 
 
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
 def compare(name, label, dt, got, want) -> float:
     """Hold a kernel's output against its plain version within TOL; return
     the largest |difference|."""
@@ -660,13 +666,20 @@ def check_kernels(cfg) -> dict:
         })
         for dt in (torch.float32, torch.bfloat16):
             args, nbytes, nops = make(dt)
-            max_err = compare(name, label, dt, KERNEL[name](*args), PLAIN[name](*args))
+            got = KERNEL[name](*args)
+            max_err = compare(name, label, dt, got, PLAIN[name](*args))
             atol, rtol = TOL[name][dt]
             k_ms = time_ms(lambda: KERNEL[name](*args))
             p_ms = time_ms(lambda: PLAIN[name](*args))
             b_ms, b_by = bound(nbytes, nops, dt)
             extra = ""
             c_ms = None
+            if name == "lis_residual_mlp" and dt == torch.float32:
+                # The fp32 output's bytes: equal across checkouts whose
+                # kernels keep PR 1's fmaf chains (the seeded inputs of
+                # `cases`; scripts/torch_f32_kernels.py compares two).
+                sha = digest(got)
+                extra = f"  sha256 {sha}"
             if name == "fused_seed":  # fp32: cuBLAS SGEMM and cuDNN with TF32 off
                 lib_args = list(args)
                 lib_args[5] = args[5].permute(2, 3, 0, 1).contiguous()
@@ -679,7 +692,9 @@ def check_kernels(cfg) -> dict:
             if dt == torch.float32:
                 row["max_abs_err_fp32"] = max(row["max_abs_err_fp32"], max_err)
                 f32 = row.setdefault("fp32", {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                              "composite_ms": None})
+                                              "composite_ms": None, "empty_launch_ms": floor_ms})
+                if name == "lis_residual_mlp":
+                    f32["sha256"] = sha
                 f32["ms"] += per_step * k_ms
                 f32["plain_ms"] += per_step * p_ms
                 f32["bound_ms"] += per_step * b_ms
@@ -1396,7 +1411,7 @@ def check_edges() -> dict:
     # forward's row tile or the backward's chunk, widths below one tile, one
     # row, and lis_hidden_mult 2 (the backward then walks the batch in smaller chunks).
     lis_shapes = [(30, 256, 256), (30, 40, 48), (1, 256, 512), (17, 256, 256), (33, 256, 256),
-                  (128, 256, 256), (64, 256, 512)]
+                  (128, 256, 256), (256, 256, 256), (64, 256, 512)]
     # (rows, channels): C not a power of two, one row, rows that are not a
     # multiple of the backward's tile (32 rows at C = 64) nor of the forward's;
     # the backward with da and db at each, and at each one more case: dx
@@ -1449,17 +1464,53 @@ def check_edges() -> dict:
                     randn(hidden, gen, 0.1), randn((hidden, code), gen, hidden**-0.5, dt),
                     randn(code, gen, 0.1))
             label = f"LIS batch {batch} code {code} hidden {hidden}"
-            errs[f"{label} {str(dt)[6:]}"] = compare(
-                "lis_residual_mlp", label, dt, ops.lis_residual_mlp(*args),
-                ops.lis_residual_mlp_plain(*args))
+            errs[f"{label} {str(dt)[6:]}"] = check_lis_forward(label, dt, args)
             for links in (1, 2, 3):
                 chain = lis_chain_args(batch, code, hidden, links, dt, gen)
                 for what, needs in lis_chain_needs(links).items():
                     errs[f"backward {label} x{links} {what} {str(dt)[6:]}"] = compare_lis_chain(
                         f"backward {label} x{links} {what}", dt, chain, needs)[0]
+    # A ring shallower than the chunks (wider than the flagship: the fp32
+    # kernel streams its weight slices through the ring).
+    for batch, code, hidden in [(20, 1024, 1024), (9, 512, 2048), (72, 256, 2048)]:
+        args = (randn((batch, code), gen), randn((code, hidden), gen, code**-0.5),
+                randn(hidden, gen, 0.1), torch.rand(hidden, generator=gen).cuda() * 0.5,
+                randn(hidden, gen, 0.1), randn((hidden, code), gen, hidden**-0.5),
+                randn(code, gen, 0.1))
+        plan = ops.lis.forward_plan(batch, code, hidden, False, ops.lis._sm_count(0))
+        if not plan.depth < plan.chunks:
+            raise AssertionError(f"LIS ring case {batch, code, hidden}: the plan {plan.dims()} "
+                                 f"holds all {plan.chunks} chunks")
+        label = f"LIS batch {batch} code {code} hidden {hidden} ring {plan.depth}/{plan.chunks}"
+        errs[f"{label} float32"] = check_lis_forward(label, torch.float32, args)
     for k, v in errs.items():
         print(f"[edge] {k:52s} max|err| {v:.3e}", flush=True)
     return errs
+
+
+def check_lis_forward(label: str, dt, args) -> float:
+    """The LIS forward at one shape: within TOL of its plain version, two
+    calls equal bit for bit, the first min(17, batch) rows in a batch of
+    their own equal to the same rows of the full batch bit for bit, and the
+    kernel's shared bytes (`gea_lis_smem_bytes`) the plan's."""
+    (batch, code), hidden = args[0].shape, args[1].shape[1]
+    plan = ops.lis.forward_plan(batch, code, hidden, dt == torch.bfloat16, ops.lis._sm_count(0))
+    lib = ops.lis._lib()
+    smem = lib.gea_lis_smem_bytes(code, hidden, int(plan.bf16), *plan.config)
+    if smem != plan.smem_bytes:
+        raise AssertionError(f"lis_residual_mlp {label} {dt}: the kernel's layout takes {smem} "
+                             f"shared bytes, the plan {plan.smem_bytes}")
+    first = ops.lis_residual_mlp(*args)
+    err = compare("lis_residual_mlp", label, dt, first, ops.lis_residual_mlp_plain(*args))
+    if not torch.equal(first, ops.lis_residual_mlp(*args)):
+        raise AssertionError(f"lis_residual_mlp {label} {dt}: two calls differ")
+    n = min(17, batch)
+    part = ops.lis_residual_mlp(args[0][:n].contiguous(), *args[1:])
+    torch.cuda.synchronize()
+    if digest(part) != digest(first[:n]):
+        raise AssertionError(f"lis_residual_mlp {label} {dt}: the first {n} rows differ in a "
+                             f"batch of {n} from the same rows in the batch of {batch}")
+    return err
 
 
 # ------------------------------------------------------- kernel gradients

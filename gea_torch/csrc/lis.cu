@@ -29,15 +29,34 @@
 // eighth of each weight, so no SM streams W1 whole. Each warp's products run
 // as two independent accumulator chains.
 //
-// The fp32 instance stays on the CUDA cores (TF32 would lose the fp32
-// tolerance): one block of 256 threads per kRowsF32 rows; thread j computes
-// hidden column j (then output column c) for the block's rows.
+// fp32 design (the same cluster structure on the FFMA pipe; TF32 would
+// lose the fp32 tolerance): a cluster of `cluster` (16 or 8) blocks of
+// kF32Threads threads shares a tile of `rows` (8 or 16) rows, all three from
+// the host plan (gea_torch/ops/lis.py::forward_plan). One thread of block
+// `rank` has TMA copy its slices of W1 (hidden columns [rank wh, +wh)) and
+// W2 (output columns [rank wo, +wo)) in chunks of kChunk k-rows into a ring
+// of `depth` slots, each chunk of W1 with the same columns of the tile's z
+// rows, and the vector slices by bulk copies, each slot completing on its
+// own mbarrier; where the ring holds every chunk (the flagship) all copies
+// are in flight from the start, and the first product starts when its
+// first chunk lands. Each thread owns a register tile of outputs (1 x 1 up
+// to 2 x 4, by the layer's rows x columns) and walks k in order, one fmaf
+// chain an output from 0, exactly as a single accumulator would: the
+// outputs do not depend on the plan, the batch or the tile. Hidden slice
+// and TPReLU, then the slice stored into every block's full hidden rows
+// (distributed shared memory) and one cluster barrier, then the output
+// columns, + b2, + the residual from the block's copy of z. What bounds it
+// at the flagship (NVIDIA H100 80GB HBM3, scripts/torch_lis_forward_variants.py):
+// of about 13.5 us a link, the launch takes about 5, the products 3.5 (the
+// latency of their shared-memory loads, which one k-ordered chain an output
+// leaves exposed), the exchange and its cluster barrier 1.4.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -222,94 +241,327 @@ int launch_bf16(const void* z, const void* w1, const void* b1, const void* slope
 
 // ------------------------------------------------------------ fp32, CUDA cores
 
-constexpr int kRowsF32 = 4;
-constexpr int kThreadsF32 = 256;
+constexpr int kF32Threads = 256;  // threads of the products; one more warp copies
+constexpr int kChunk = 64;     // k-rows of a weight slice a ring slot holds
+constexpr int kMaxSlots = 32;  // ring slots (one mbarrier each)
+constexpr int kMaxTile = 8;    // outputs a thread holds (2 x 4)
+constexpr int kSmemLimit = 232448;
 
-__global__ void __launch_bounds__(kThreadsF32)
-lis_kernel_f32(const float* __restrict__ z, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ slope,
-               const float* __restrict__ trans, const float* __restrict__ w2,
-               const float* __restrict__ b2, float* __restrict__ out, int batch, int code,
-               int hidden) {
-  extern __shared__ float smem[];
-  float* zs = smem;                     // [kRowsF32][code]
-  float* hs = smem + kRowsF32 * code;   // [kRowsF32][hidden]
-  const int row0 = blockIdx.x * kRowsF32;
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-  for (int i = threadIdx.x; i < kRowsF32 * code; i += blockDim.x) {
-    const int r = i / code;
-    const int c = i - r * code;
-    zs[i] = (row0 + r < batch) ? z[(size_t)(row0 + r) * code + c] : 0.f;
+// Shared memory of a block, in floats after the ring's mbarriers (at a
+// 128-byte aligned base): z's rows in chunks of kChunk columns ([chunk][row]
+// [kChunk], as TMA lands each chunk's box), the ring's slots (kChunk k-rows
+// of the wider slice each), the full hidden rows (padded by 4 floats), the
+// block's hidden slice and the vector slices.
+struct F32Layout {
+  int wh, wo, ws, ld_h, n1, chunks, zs, ring, hf, hl, vec, bytes;
+  __host__ __device__ F32Layout(int code, int hidden, int rows, int cluster, int depth) {
+    wh = round_up(cdiv(hidden, cluster), 4);
+    wo = round_up(cdiv(code, cluster), 4);
+    ws = wh > wo ? wh : wo;
+    ld_h = hidden + 4;  // rows 4 banks apart: a warp's float4 reads of several rows
+    n1 = cdiv(code, kChunk);
+    chunks = n1 + cdiv(hidden, kChunk);
+    zs = 0;
+    ring = zs + n1 * rows * kChunk;
+    hf = ring + depth * kChunk * ws;
+    hl = hf + rows * ld_h;
+    vec = hl + rows * wh;  // b1, slope, trans of the hidden slice; b2 of the output slice
+    bytes = 128 + 8 * kMaxSlots + 4 * (vec + 3 * wh + wo);
   }
-  __syncthreads();
+};
 
-  // Hidden layer: h = tprelu(z @ W1 + b1), kept in shared memory.
-  for (int j = threadIdx.x; j < hidden; j += blockDim.x) {
-    float acc[kRowsF32];
-#pragma unroll
-    for (int r = 0; r < kRowsF32; ++r) acc[r] = 0.f;
-    for (int k = 0; k < code; ++k) {
-      const float w = w1[(size_t)k * hidden + j];
-#pragma unroll
-      for (int r = 0; r < kRowsF32; ++r) acc[r] = fmaf(zs[r * code + k], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsF32; ++r)
-      hs[r * hidden + j] = tprelu(__fadd_rn(acc[r], b1[j]), slope[j], trans[j]);
+// The outputs a thread holds for a layer of rows x w: the first tile of
+// 1 x 1, 1 x 2, 2 x 2, 2 x 4 whose tiles the block's threads cover.
+__host__ __device__ inline int tile_size(int rows, int w) {
+  int t = 1;
+  while (t < kMaxTile && rows * w > t * kF32Threads) t *= 2;
+  return t;
+}
+
+struct F32Args {
+  CUtensorMap zmap, w1map, w2map;  // boxes: z kChunk x rows, W1 wh x kChunk, W2 wo x kChunk
+  const float *b1, *slope, *trans, *b2;
+  float* out;
+  int batch, code, hidden, rows, depth;
+};
+
+// `bytes` (a multiple of 16) from global src into this block's shared
+// memory at dst by the copy engine, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(gea::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(gea::smem_u32(bar))
+      : "memory");
+}
+
+// One thread: chunk c of the block's weight slices (W1's k-rows first,
+// then W2's) into ring slot c % depth by TMA, with the same k-columns of
+// z's rows for W1's chunks and the vector slices with W1's last (the first
+// product needs none of them), all completing on the slot's barrier. Reads
+// outside the tensors land as zeros.
+__device__ void issue_chunk(const F32Args& a, const F32Layout& L, float* smem, uint64_t* bars,
+                            int c, int r0, int h0, int o0) {
+  uint64_t* bar = bars + c % a.depth;
+  float* slot = smem + L.ring + (c % a.depth) * kChunk * L.ws;
+  if (c >= L.n1) {
+    gea::mbar_expect_tx(bar, 4 * kChunk * L.wo);
+    gea::tma_load_2d(slot, &a.w2map, o0, (c - L.n1) * kChunk, bar);
+    return;
   }
-  __syncthreads();
+  const bool last = c == L.n1 - 1;
+  const int nh = max(0, min(L.wh, a.hidden - h0)), no = max(0, min(L.wo, a.code - o0));
+  gea::mbar_expect_tx(bar, 4 * kChunk * (a.rows + L.wh) + (last ? 4 * (3 * nh + no) : 0));
+  gea::tma_load_2d(smem + L.zs + c * a.rows * kChunk, &a.zmap, c * kChunk, r0, bar);
+  gea::tma_load_2d(slot, &a.w1map, h0, c * kChunk, bar);
+  if (!last) return;
+  float* v = smem + L.vec;
+  if (nh) {
+    bulk_load(v, a.b1 + h0, 4 * nh, bar);
+    bulk_load(v + L.wh, a.slope + h0, 4 * nh, bar);
+    bulk_load(v + 2 * L.wh, a.trans + h0, 4 * nh, bar);
+  }
+  if (no) bulk_load(v + 3 * L.wh, a.b2 + o0, 4 * no, bar);
+}
 
-  // Output layer and residual: out = z + (h @ W2 + b2).
-  for (int c = threadIdx.x; c < code; c += blockDim.x) {
-    float acc[kRowsF32];
-#pragma unroll
-    for (int r = 0; r < kRowsF32; ++r) acc[r] = 0.f;
-    for (int k = 0; k < hidden; ++k) {
-      const float w = w2[(size_t)k * code + c];
-#pragma unroll
-      for (int r = 0; r < kRowsF32; ++r) acc[r] = fmaf(hs[r * hidden + k], w, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsF32; ++r)
-      if (row0 + r < batch)
-        out[(size_t)(row0 + r) * code + c] = __fadd_rn(zs[r * code + c], __fadd_rn(acc[r], b2[c]));
+template <int N>
+__device__ __forceinline__ void lds(float (&b)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    b[0] = v.x, b[1] = v.y, b[2] = v.z, b[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    b[0] = v.x, b[1] = v.y;
+  } else {
+    b[0] = *p;
   }
 }
 
+// One layer: out[r][j] = sum_k A[r][k] B[k][j] over k = 0 .. K - 1 in
+// order, for rows x w outputs, B the layer's chunks (k-rows of w floats)
+// from ring chunk c0 on; A's chunk i at A + i * a_chunk, rows lda apart. A
+// thread holds RT x CT outputs (rows rt0.., columns j0..), each one fmaf
+// chain from 0, and hands each sum to epi(r, j, sum). In a ring shallower
+// than the chunks, every chunk ends with a barrier of the product's threads
+// and the copy of the chunk `depth` on into the slot just read.
+template <int RT, int CT, class Epi>
+__device__ __forceinline__ void layer(const F32Args& a, const F32Layout& L, float* smem,
+                                      uint64_t* bars, const float* A, int a_chunk, int lda, int K,
+                                      int w, int c0, int r0, int h0, int o0, Epi epi) {
+  const int tid = threadIdx.x, across = w / CT;
+  const bool active = tid < (a.rows / RT) * across;
+  const int j0 = (tid % across) * CT, rt0 = (tid / across) * RT;
+  const bool ring = a.depth < L.chunks;
+  float acc[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
+  constexpr int kUnroll = RT * CT == 1 ? 16 : RT * CT == 2 ? 8 : 4;  // k-steps of 4 loaded ahead
+  const int n = cdiv(K, kChunk);
+  for (int i = 0; i < n; ++i) {
+    const int c = c0 + i;
+    gea::mbar_wait(bars + c % a.depth, (c / a.depth) & 1);
+    if (active) {
+      const float* B = smem + L.ring + (c % a.depth) * kChunk * L.ws + j0;
+      const float* Ar = A + i * a_chunk + rt0 * lda;
+      const int kc = min(kChunk, K - i * kChunk);
+#pragma unroll kUnroll
+      for (int k = 0; k < kc; k += 4) {
+        float x[RT][4];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) lds(x[r], Ar + r * lda + k);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float b[CT];
+          lds(b, B + (k + kk) * w);
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int j = 0; j < CT; ++j) acc[r][j] = fmaf(x[r][kk], b[j], acc[r][j]);
+        }
+      }
+    }
+    if (ring) {
+      gea::named_barrier(1, kF32Threads);  // every product thread is done with the slot
+      if (tid == 0 && c + a.depth < L.chunks)
+        issue_chunk(a, L, smem, bars, c + a.depth, r0, h0, o0);
+    }
+  }
+  if (active)
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) epi(rt0 + r, j0 + j, acc[r][j]);
+}
+
+template <class Epi>
+__device__ __forceinline__ void any_layer(const F32Args& a, const F32Layout& L, float* smem,
+                                          uint64_t* bars, const float* A, int a_chunk, int lda,
+                                          int K, int w, int c0, int r0, int h0, int o0, Epi epi) {
+  switch (tile_size(a.rows, w)) {
+    case 1: return layer<1, 1>(a, L, smem, bars, A, a_chunk, lda, K, w, c0, r0, h0, o0, epi);
+    case 2: return layer<1, 2>(a, L, smem, bars, A, a_chunk, lda, K, w, c0, r0, h0, o0, epi);
+    case 4: return layer<2, 2>(a, L, smem, bars, A, a_chunk, lda, K, w, c0, r0, h0, o0, epi);
+    default: return layer<2, 4>(a, L, smem, bars, A, a_chunk, lda, K, w, c0, r0, h0, o0, epi);
+  }
+}
+
+__global__ void __launch_bounds__(kF32Threads + 32, 1)
+lis_kernel_f32_cluster(const __grid_constant__ F32Args a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const F32Layout L(a.code, a.hidden, a.rows, cl, a.depth);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // TMA's boxes land at 128-byte aligned addresses. The base is offset from
+  // smem_raw, not cast from an integer, so that the compiler still knows
+  // every pointer below as shared memory (ld.shared, not generic loads).
+  unsigned char* base = smem_raw + ((128 - (gea::smem_u32(smem_raw) & 127)) & 127);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base);
+  float* smem = reinterpret_cast<float*>(base + 8 * kMaxSlots);
+  const int tid = threadIdx.x;
+  const bool copier = tid == kF32Threads;  // lane 0 of the last warp
+  const int r0 = (blockIdx.x / cl) * a.rows, h0 = rank * L.wh, o0 = rank * L.wo;
+  if (copier) {
+    const CUtensorMap* maps[3] = {&a.zmap, &a.w1map, &a.w2map};
+    for (const CUtensorMap* m : maps)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m)) : "memory");
+    for (int s = 0; s < a.depth; ++s) gea::mbar_init(bars + s, 1);
+    gea::mbar_init_fence();
+  }
+  __syncthreads();
+  // The copier issues the first chunks while the product's threads wait for
+  // the first to land.
+  if (copier)
+    for (int c = 0; c < min(a.depth, L.chunks); ++c) issue_chunk(a, L, smem, bars, c, r0, h0, o0);
+  // This block has started: its shared memory may be written by the others
+  // once every block has arrived (the wait comes before the first push).
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // Hidden slice: T(tprelu(z W1[:, h0:h0+wh] + b1)), into hl.
+  const float* zs = smem + L.zs;
+  float *hf = smem + L.hf, *hl = smem + L.hl;
+  const float *b1s = smem + L.vec, *as = b1s + L.wh, *ts = as + L.wh, *b2s = ts + L.wh;
+  if (tid < kF32Threads)
+    any_layer(a, L, smem, bars, zs, a.rows * kChunk, kChunk, a.code, L.wh, 0, r0, h0, o0,
+              [&](int r, int j, float acc) {
+                hl[r * L.wh + j] = tprelu(__fadd_rn(acc, b1s[j]), as[j], ts[j]);
+              });
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every block has started
+  // The slice into every block's full hidden rows (distributed shared
+  // memory), then a cluster barrier: every block's rows are whole.
+  const int per = L.wh / 4, pieces = a.rows * per;
+  for (int q = tid; q < cl * pieces; q += blockDim.x) {
+    const int dst = q / pieces, r = q % pieces / per, j = 4 * (q % per);
+    if (h0 + j < a.hidden)
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(hf, dst) + r * L.ld_h + h0 + j) =
+          *reinterpret_cast<const float4*>(hl + r * L.wh + j);
+  }
+  cluster.sync();
+  if (tid >= kF32Threads) return;  // the copier's warp: W2's chunks are in flight or in the ring
+
+  // Output slice: z + (h W2[:, o0:o0+wo] + b2).
+  any_layer(a, L, smem, bars, hf, kChunk, L.ld_h, a.hidden, L.wo, L.n1, r0, h0, o0,
+            [&](int r, int j, float acc) {
+              const int col = o0 + j;
+              if (col < a.code && r0 + r < a.batch)
+                a.out[(size_t)(r0 + r) * a.code + col] = __fadd_rn(
+                    zs[col / kChunk * a.rows * kChunk + r * kChunk + col % kChunk],
+                    __fadd_rn(acc, b2s[j]));
+            });
+}
+
+// An fp32 row-major tensor (rows x cols) in boxes of box_cols x box_rows,
+// dense in shared memory; reads outside it land as zeros.
+bool f32_map(CUtensorMap* m, const void* p, int rows, int cols, int box_cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, one[2] = {1, 1};
+  gea::EncodeTiled fn = gea::encode_tiled();
+  return fn != nullptr &&
+         fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(p), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// plan: rows, cluster, ring depth, blocks, shared bytes (forward_plan's
+// dims); any other grid or shared size than this kernel's is refused.
 int launch_f32(const void* z, const void* w1, const void* b1, const void* slope,
                const void* trans, const void* w2, const void* b2, void* out, int batch,
-               int code, int hidden, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRowsF32 * (code + hidden);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lis_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((batch + kRowsF32 - 1) / kRowsF32);
-  lis_kernel_f32<<<grid, kThreadsF32, smem, stream>>>(
-      static_cast<const float*>(z), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(slope),
-      static_cast<const float*>(trans), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<float*>(out), batch, code, hidden);
+               int code, int hidden, const int* plan, cudaStream_t stream) {
+  if (plan == nullptr || code % 4 || hidden % 4) return (int)cudaErrorInvalidValue;
+  const int rows = plan[0], cluster = plan[1], depth = plan[2], blocks = plan[3], smem = plan[4];
+  const F32Layout L(code, hidden, rows, cluster, depth);
+  if ((rows != 8 && rows != 16) || (cluster != 8 && cluster != 16) || depth < 1 ||
+      depth > kMaxSlots || blocks != cdiv(batch, rows) * cluster || smem != L.bytes ||
+      smem > kSmemLimit || rows * L.ws > kMaxTile * kF32Threads)
+    return (int)cudaErrorInvalidValue;
+  F32Args a{};
+  if (!f32_map(&a.zmap, z, batch, code, kChunk, rows) ||
+      !f32_map(&a.w1map, w1, code, hidden, L.wh, kChunk) ||
+      !f32_map(&a.w2map, w2, hidden, code, L.wo, kChunk))
+    return (int)cudaErrorInvalidValue;
+  a.b1 = static_cast<const float*>(b1);
+  a.slope = static_cast<const float*>(slope);
+  a.trans = static_cast<const float*>(trans);
+  a.b2 = static_cast<const float*>(b2);
+  a.out = static_cast<float*>(out);
+  a.batch = batch, a.code = code, a.hidden = hidden, a.rows = rows, a.depth = depth;
+  cudaError_t err = cudaFuncSetAttribute(lis_kernel_f32_cluster,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)  // a cluster of 16 is above the portable 8
+    err = cudaFuncSetAttribute(lis_kernel_f32_cluster,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kF32Threads + 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lis_kernel_f32_cluster, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory the kernel needs for a hidden width (bf16 or fp32).
-extern "C" long long gea_lis_smem_bytes(int code, int hidden, int is_bf16) {
+// Shared memory of a block of the kernel for these widths: bf16, the
+// cluster layout (rows, cluster and depth unread); fp32, the plan's rows,
+// cluster and ring depth.
+extern "C" long long gea_lis_smem_bytes(int code, int hidden, int is_bf16, int rows, int cluster,
+                                        int depth) {
   if (is_bf16) return 2 * (long long)ClusterLayout(code, hidden).total;
-  return (long long)sizeof(float) * kRowsF32 * (code + hidden);
+  return F32Layout(code, hidden, rows, cluster, depth).bytes;
 }
 
+// plan: forward_plan's dims (rows, cluster, ring depth, blocks, shared
+// bytes); a bf16 plan must name the bf16 kernel's own tile, cluster and
+// shared bytes.
 extern "C" int gea_lis_forward(const void* z, const void* w1, const void* b1,
                                const void* slope, const void* trans, const void* w2,
                                const void* b2, void* out, int batch, int code, int hidden,
-                               int is_bf16, void* stream) {
+                               int is_bf16, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (is_bf16) {
+    if (plan == nullptr || plan[0] != kRows || plan[1] != kCluster ||
+        plan[3] != cdiv(batch, kRows) * kCluster ||
+        plan[4] != 2 * ClusterLayout(code, hidden).total)
+      return (int)cudaErrorInvalidValue;
     return launch_bf16(z, w1, b1, slope, trans, w2, b2, out, batch, code, hidden, s);
-  return launch_f32(z, w1, b1, slope, trans, w2, b2, out, batch, code, hidden, s);
+  }
+  return launch_f32(z, w1, b1, slope, trans, w2, b2, out, batch, code, hidden, plan, s);
 }
 
 extern "C" const char* gea_cuda_error_string(int code) {

@@ -8,11 +8,15 @@ the hidden row is cast to z's dtype before the second product, and that
 product (plus b2) is cast to z's dtype before the residual add.
 
 The link is bound by launch latency (0.1 us of bytes at the flagship shape).
-The bf16 kernel runs on the tensor cores (mma.sync) as thread block
-clusters of 8 blocks that share a tile of 16 rows: each block computes an
-eighth of the hidden columns and of the output columns, and the blocks
-exchange their hidden slices through distributed shared memory, so no SM
-reads a weight whole. The fp32 kernel stays on the CUDA cores.
+Both kernels run as thread block clusters whose blocks share a tile of
+rows: each block computes a slice of the hidden columns and of the output
+columns, and the blocks exchange their hidden slices through distributed
+shared memory, so no SM reads a weight whole. The bf16 kernel runs on the
+tensor cores (mma.sync), clusters of 8 on 16 rows; the fp32 kernel on the
+FFMA pipe, clusters of 16 or 8 on 8 or 16 rows with its weight slices
+streamed through a ring, as the host plan `forward_plan` lays it out, each
+output one fmaf chain in k order (the same bits whatever the plan or the
+batch).
 
 The kernel is the custom op `gea_torch::lis_residual_mlp` (`torch.library`),
 so `torch.export` records it as one node of an exported graph: its CPU
@@ -67,9 +71,9 @@ def lis_residual_mlp_plain(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = build.load("lis")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gea_lis_forward.argtypes = [p] * 8 + [i, i, i, i, p]
+    lib.gea_lis_forward.argtypes = [p] * 8 + [i, i, i, i, ctypes.POINTER(i), p]
     lib.gea_lis_forward.restype = ctypes.c_int
-    lib.gea_lis_smem_bytes.argtypes = [i, i, i]
+    lib.gea_lis_smem_bytes.argtypes = [i] * 6
     lib.gea_lis_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -105,9 +109,15 @@ def _launch(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
             f"lis_residual_mlp: the bf16 kernel takes code divisible by 8 and "
             f"hidden by 16; got code={code}, hidden={hidden}"
         )
-    lib = _lib()
-    if lib.gea_lis_smem_bytes(code, hidden, int(bf16)) > build.SMEM_LIMIT:
+    if not bf16 and (code % 4 or hidden % 4):
+        raise ValueError(
+            f"lis_residual_mlp: the fp32 kernel takes code and hidden divisible by 4; "
+            f"got code={code}, hidden={hidden}"
+        )
+    plan = forward_plan(batch, code, hidden, bf16, _sm_count(z.device.index or 0))
+    if plan.config is None:
         raise ValueError(f"lis_residual_mlp: code+hidden={code + hidden} too wide")
+    lib = _lib()
     z = build.aligned16(z.contiguous())
     out = torch.empty_like(z)
     if batch == 0:
@@ -119,7 +129,7 @@ def _launch(z, w1, b1, slope, trans, w2, b2) -> torch.Tensor:
         rc = lib.gea_lis_forward(
             z.data_ptr(), w1.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(),
             f32[2].data_ptr(), w2.data_ptr(), f32[3].data_ptr(), out.data_ptr(),
-            batch, code, hidden, int(bf16),
+            batch, code, hidden, int(bf16), (ctypes.c_int * 5)(*plan.dims()),
             torch.cuda.current_stream(z.device).cuda_stream,
         )
     build.check(lib, rc, "lis_residual_mlp")
@@ -215,14 +225,15 @@ def check_chain_needs(needs) -> None:
         below = below or any(need)
 
 
-# ------------------------------------------------------------------ the plan
+# ------------------------------------------------------------ the forward's plan
 
-CHAIN_ROWS = 16  # rows of a row group: one cluster walks them down the chain
-MAX_LINKS = 8
-CLUSTERS = (16, 8)  # cluster sizes, by preference
-DEPTHS = (4, 3, 2, 1)  # ring slots, by preference
-_REDUCE_ELEMS = 1024  # elements a block of the reduce takes per pass (256 threads x 4)
-SMEM_LIMIT = build.SMEM_LIMIT - 1024  # a block's dynamic shared memory: the links' copy aside
+FWD_THREADS = 256  # threads of a block of the fp32 kernel
+FWD_CHUNK = 64  # weight k-rows a ring slot holds
+FWD_SLOTS = 32  # ring slots at most (one mbarrier each, 8 bytes)
+FWD_TILES = ((1, 1), (1, 2), (2, 2), (2, 4))  # a thread's outputs, rows x columns
+FWD_CLUSTERS = (16, 8)
+FWD_ROWS = (8, 16)
+BF16_ROWS, BF16_CLUSTER = 16, 8  # the bf16 kernel's (`lis.cu`: kRows, kCluster)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -231,6 +242,155 @@ def _cdiv(a: int, b: int) -> int:
 
 def _up(x: int, m: int) -> int:
     return _cdiv(x, m) * m
+
+
+def bf16_slices(code: int, hidden: int) -> tuple:
+    """(wh, wo): the hidden and output columns of a block of the bf16
+    kernel, an eighth of each rounded up to whole 16-byte pieces."""
+    return _up(_cdiv(hidden, BF16_CLUSTER), 8), _up(_cdiv(code, BF16_CLUSTER), 8)
+
+
+def bf16_smem_bytes(code: int, hidden: int) -> int:
+    """Shared memory of a block of the bf16 kernel (`ClusterLayout`)."""
+    kz, rows = _up(code, 16), BF16_ROWS
+    wh, wo = bf16_slices(code, hidden)
+    elems = (rows * (kz + 8) + kz * (wh + 8) + hidden * (wo + 8) + rows * (wh + 8)
+             + rows * (hidden + 8) + 2 * (3 * wh + wo))
+    return 2 * elems
+
+
+def f32_slices(code: int, hidden: int, cluster: int) -> tuple:
+    """(wh, wo): the hidden and output columns of a block of the fp32
+    kernel, its cluster's share rounded up to whole 16-byte pieces."""
+    return _up(_cdiv(hidden, cluster), 4), _up(_cdiv(code, cluster), 4)
+
+
+def f32_smem_bytes(code: int, hidden: int, rows: int, cluster: int, depth: int) -> int:
+    """Shared memory of a block of the fp32 kernel (`F32Layout`): 128 bytes
+    to align its base, the ring's mbarriers, z's rows in chunks of
+    FWD_CHUNK columns, `depth` ring slots of FWD_CHUNK k-rows of the wider
+    slice, the full hidden rows (padded by 4 floats), the block's slice of
+    them and the vector slices."""
+    wh, wo = f32_slices(code, hidden, cluster)
+    floats = (_cdiv(code, FWD_CHUNK) * rows * FWD_CHUNK + depth * FWD_CHUNK * max(wh, wo)
+              + rows * (hidden + 4) + rows * wh + 3 * wh + wo)
+    return 128 + 8 * FWD_SLOTS + 4 * floats
+
+
+def thread_tile(rows: int, w: int) -> tuple:
+    """(rows, columns) of the outputs a thread of the fp32 kernel holds for
+    a layer of rows x w outputs (`tile_size` in `lis.cu`): the first tile of
+    FWD_TILES whose tiles the block's threads cover."""
+    return next((t for t in FWD_TILES if rows * w <= t[0] * t[1] * FWD_THREADS), FWD_TILES[-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """How one launch of the LIS forward (`csrc/lis.cu`) is cut: the batch
+    into tiles of `rows` rows, one thread block cluster of `cluster` blocks
+    a tile; block `rank` of a cluster computes hidden columns [rank wh,
+    +wh) and output columns [rank wo, +wo). bf16: the kernel's fixed 16
+    rows on clusters of 8. fp32: clusters of 16 where each block still gets
+    at least 8 columns of the narrower width, else 8; 8 rows a tile while
+    the clusters' blocks fit `sms` SMs, else 16; the ring as deep as the
+    chunks where shared memory holds them (all copies in flight at once),
+    else the deepest ring that fits (of 2 slots or more where one does). A
+    pure function of its fields; the launch takes its grid and shared bytes
+    from `dims` and refuses any other shared size."""
+
+    batch: int
+    code: int
+    hidden: int
+    bf16: bool
+    sms: int = 132
+
+    @property
+    def chunks(self) -> int:
+        """Ring chunks: W1's k-rows (code), then W2's (hidden)."""
+        return _cdiv(self.code, FWD_CHUNK) + _cdiv(self.hidden, FWD_CHUNK)
+
+    @functools.cached_property
+    def config(self):
+        """(rows, cluster, ring depth), or None if no layout fits."""
+        if self.bf16:
+            fits = bf16_smem_bytes(self.code, self.hidden) <= build.SMEM_LIMIT
+            return (BF16_ROWS, BF16_CLUSTER, 0) if fits else None
+        clusters = FWD_CLUSTERS if min(self.code, self.hidden) >= 8 * FWD_CLUSTERS[0] else (
+            FWD_CLUSTERS[::-1])
+        most = FWD_TILES[-1][0] * FWD_TILES[-1][1] * FWD_THREADS
+        for least in (2, 1):  # a ring of one slot only where no deeper one fits
+            for cluster in clusters:
+                few = _cdiv(self.batch, FWD_ROWS[0]) * cluster <= self.sms
+                for rows in (FWD_ROWS if few else FWD_ROWS[::-1]):
+                    if rows * max(f32_slices(self.code, self.hidden, cluster)) > most:
+                        continue
+                    for depth in range(min(self.chunks, FWD_SLOTS), least - 1, -1):
+                        if f32_smem_bytes(self.code, self.hidden, rows, cluster,
+                                          depth) <= build.SMEM_LIMIT:
+                            return rows, cluster, depth
+        return None
+
+    @property
+    def rows(self) -> int:
+        return self.config[0]
+
+    @property
+    def cluster(self) -> int:
+        return self.config[1]
+
+    @property
+    def depth(self) -> int:
+        return self.config[2]
+
+    @property
+    def blocks(self) -> int:
+        return _cdiv(self.batch, self.rows) * self.cluster
+
+    @property
+    def smem_bytes(self) -> int:
+        if self.bf16:
+            return bf16_smem_bytes(self.code, self.hidden)
+        return f32_smem_bytes(self.code, self.hidden, self.rows, self.cluster, self.depth)
+
+    def slices(self) -> tuple:
+        """(wh, wo) of a block."""
+        if self.bf16:
+            return bf16_slices(self.code, self.hidden)
+        return f32_slices(self.code, self.hidden, self.cluster)
+
+    def blocks_layout(self) -> list:
+        """(rows, hidden columns, output columns) each block computes, in
+        launch order (block b: tile b // cluster, rank b % cluster)."""
+        wh, wo = self.slices()
+        out = []
+        for b in range(self.blocks):
+            tile, rank = divmod(b, self.cluster)
+            r0 = tile * self.rows
+            out.append((range(r0, min(self.batch, r0 + self.rows)),
+                        range(min(self.hidden, rank * wh), min(self.hidden, (rank + 1) * wh)),
+                        range(min(self.code, rank * wo), min(self.code, (rank + 1) * wo))))
+        return out
+
+    def dims(self) -> list:
+        """The launch's `plan`: rows, cluster, ring depth, blocks, shared
+        bytes."""
+        rows, cluster, depth = self.config
+        return [rows, cluster, depth, self.blocks, self.smem_bytes]
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(batch: int, code: int, hidden: int, bf16: bool, sms: int = 132) -> ForwardPlan:
+    return ForwardPlan(batch, code, hidden, bool(bf16), sms)
+
+
+# ----------------------------------------------------------- the backward's plan
+
+CHAIN_ROWS = 16  # rows of a row group: one cluster walks them down the chain
+MAX_LINKS = 8
+CLUSTERS = (16, 8)  # cluster sizes, by preference
+DEPTHS = (4, 3, 2, 1)  # ring slots, by preference
+_REDUCE_ELEMS = 1024  # elements a block of the reduce takes per pass (256 threads x 4)
+SMEM_LIMIT = build.SMEM_LIMIT - 1024  # a block's dynamic shared memory: the links' copy aside
 
 
 def chain_smem_bytes(code: int, hidden: int, links: int, cluster: int, depth: int,

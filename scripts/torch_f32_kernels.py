@@ -21,6 +21,10 @@ off; a yardstick the port never calls) and its backward under autograd.
 The seed forward and backward are also checked at the edge shapes
 (`EDGES`: ragged batches, a c1 that no tile divides, s0 4 and 7, the
 tiny tests' widths), with two calls on the same inputs equal bit for bit.
+LIS's forward runs at `LIS_CASES` on inputs seeded here (timed at the
+flagship's widths, batches 1, 64, 128 and 256, beside its plain version and
+bound), each with the sha256 of its output's bytes (`lis_digest`): two
+checkouts whose kernels compute the same bits print the same digests.
 Prints one JSON line per instance, the SM clock and power nvidia-smi reads
 while the flagship's seed forward and backward run back to back (`[clock]`,
 with the FFMA peak at that clock), then the instances of a step ranked by
@@ -36,6 +40,7 @@ About 60 s on an H100 with the build.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -48,6 +53,18 @@ EDGES = [  # (batch, code, s0, c0, c1)
     (1, 16, 4, 8, 4), (3, 16, 5, 8, 4), (33, 40, 7, 256, 96), (100, 256, 5, 512, 136),
     (65, 256, 6, 128, 132), (9, 256, 5, 512, 512),
 ]
+# (batch, code, hidden, timed): LIS's forward at the flagship's widths, then
+# chip_smoke's edge shapes and a ring shallower than its chunks.
+LIS_CASES = [
+    (1, 256, 256, True), (64, 256, 256, True), (128, 256, 256, True), (256, 256, 256, True),
+    (30, 40, 48, False), (17, 256, 256, False), (33, 256, 256, False), (64, 256, 512, False),
+    (20, 1024, 1024, False),
+]
+
+
+def lis_digest(t) -> str:
+    """sha256 of an fp32 tensor's bytes."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def under_load(fn, seconds: float = 4.0) -> str:
@@ -94,7 +111,7 @@ def main() -> int:
     smi = cs.nvidia_smi()
     print(f"{args.label}: {smi}; torch {torch.__version__}", flush=True)
     build.build_all()
-    for src in ("seed", "seed_bwd"):
+    for src in ("lis", "seed", "seed_bwd"):
         entry = ""
         for line in build.BUILD_LOGS.get(src, "").splitlines():
             if "Compiling entry" in line:
@@ -116,10 +133,13 @@ def main() -> int:
     for where, cases in shape_sets:
         for name, label, _, per_step, make in cases:
             a, nbytes, nops = make(dt)
-            err = cs.compare(name, label, dt, cs.KERNEL[name](*a), cs.PLAIN[name](*a))
+            got = cs.KERNEL[name](*a)
+            err = cs.compare(name, label, dt, got, cs.PLAIN[name](*a))
             row = {"where": where, "instance": name, "shape": label, "per_step": per_step,
                    "max_abs_err": err, "ms": cs.time_ms(lambda: cs.KERNEL[name](*a)),
                    "plain_ms": cs.time_ms(lambda: cs.PLAIN[name](*a))}
+            if name == "lis_residual_mlp":
+                row["sha256"] = lis_digest(got)
             row["bound_ms"], row["bound_by"] = cs.bound(nbytes, nops, dt)
             if name == "fused_seed":
                 lib = list(a)
@@ -167,8 +187,31 @@ def main() -> int:
                 emit(row)
             del a
 
-    # The edges: forward and backward against plain, two calls bit for bit.
+    # LIS's forward at LIS_CASES, each on its own seeded inputs.
     bad = 0
+    for batch, code, hidden, timed in LIS_CASES:
+        gen = torch.Generator().manual_seed(batch * 7919 + code * 31 + hidden)
+        a = (cs.randn((batch, code), gen), cs.randn((code, hidden), gen, code**-0.5),
+             cs.randn(hidden, gen, 0.1), torch.rand(hidden, generator=gen).cuda() * 0.5,
+             cs.randn(hidden, gen, 0.1), cs.randn((hidden, code), gen, hidden**-0.5),
+             cs.randn(code, gen, 0.1))
+        label = f"LIS ({batch}, {code}) x ({code}, {hidden})"
+        got = ops.lis_residual_mlp(*a)
+        err = cs.compare("lis_residual_mlp", label, dt, got, ops.lis_residual_mlp_plain(*a))
+        same = torch.equal(got, ops.lis_residual_mlp(*a))
+        bad += not same
+        row = {"where": "lis cases", "instance": "lis_residual_mlp", "shape": label,
+               "per_step": 0, "max_abs_err": err, "sha256": lis_digest(got),
+               "two_calls_equal": same}
+        if timed:
+            row["ms"] = cs.time_ms(lambda: ops.lis_residual_mlp(*a))
+            row["plain_ms"] = cs.time_ms(lambda: ops.lis_residual_mlp_plain(*a))
+            nbytes = 4 * (2 * batch * code + 2 * code * hidden + 3 * hidden + code)
+            row["bound_ms"], row["bound_by"] = cs.bound(nbytes, 4 * batch * code * hidden, dt)
+        emit(row)
+        del a
+
+    # The edges: forward and backward against plain, two calls bit for bit.
     gen = torch.Generator().manual_seed(9)
     for batch, code, s0, c0, c1 in EDGES:
         p = s0 * s0 * c0
@@ -216,7 +259,8 @@ def main() -> int:
         with open(args.out, "a") as f:
             for r in rows:
                 f.write(json.dumps(r) + "\n")
-    print(f"{args.label}: {bad} edge shapes whose two calls differ; {smi}", flush=True)
+    print(f"{args.label}: {bad} LIS cases and edge shapes whose two calls differ; {smi}",
+          flush=True)
     return 1 if bad else 0
 
 
