@@ -28,6 +28,12 @@ current stream and copied back into pinned memory without a wait, and an
 event recorded after the copy says when it has landed: `stream` keeps up to
 `depth` batches in flight that way.
 
+With `gea_torch.utils.trace` on, a request's host time is split into
+spans: `serve.draw` (each batch's codes), `serve.stage_in` (pinned copies
+to the card), `serve.render` (the render's launch), `serve.stage_out` (the
+copies back and their event), `serve.join` (the batches joined and cut)
+and `serve.topk`.
+
 `model.sharded()` serves the same program data-parallel
 (`DataParallelServingModel`): one replica a card, the batch split over
 them.
@@ -48,6 +54,7 @@ import torch.nn as nn
 from gea_torch.config import resolve_device
 from gea_torch.models import Discriminator, GeneratorLIS, Reverter
 from gea_torch.models.reverter import blend_correction, iterative_chain
+from gea_torch.utils import trace
 
 ARTIFACT = "model.pt2"
 MANIFEST = "manifest.json"
@@ -77,9 +84,10 @@ def topk_rounds(draw, count: int, threshold: float = 0.0, max_rounds: int = 1):
     rounds = 0
     for r in range(1 if threshold <= 0 else max_rounds):
         out = draw(r)
-        best = out if best is None else _cat(best, out)
-        order = np.argsort(best["scores"])[::-1][:count]
-        best = _take(best, order)
+        with trace.span("serve.topk"):
+            best = out if best is None else _cat(best, out)
+            order = np.argsort(best["scores"])[::-1][:count]
+            best = _take(best, order)
         rounds = r + 1
         if threshold <= 0 or (best["scores"] >= threshold).all():
             break
@@ -212,18 +220,21 @@ def _enqueue(fn, device: torch.device, args: List[np.ndarray]) -> Dict[str, Any]
     copy."""
     cuda = device.type == "cuda"
     with torch.inference_mode():
-        if cuda:
-            tensors = [torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
-                       for a in args]
-        else:
-            tensors = [torch.from_numpy(a).to(device) for a in args]
-        out = fn(*tensors)
-        if not cuda:
-            return {k: _Fetch(v) for k, v in out.items()}
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
-            v, non_blocking=True) for k, v in out.items()}
-        event = torch.cuda.Event()
-        event.record()
+        with trace.span("serve.stage_in"):
+            if cuda:
+                tensors = [torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+                           for a in args]
+            else:
+                tensors = [torch.from_numpy(a).to(device) for a in args]
+        with trace.span("serve.render"):
+            out = fn(*tensors)
+        with trace.span("serve.stage_out"):
+            if not cuda:
+                return {k: _Fetch(v) for k, v in out.items()}
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                v, non_blocking=True) for k, v in out.items()}
+            event = torch.cuda.Event()
+            event.record()
     return {k: _Fetch(v, event) for k, v in host.items()}
 
 
@@ -348,20 +359,21 @@ class ServingModel:
             done = 0
             while done < count:
                 n = fixed or min(batch_size, count - done)
-                z = rng.standard_normal((n, self.code_size)).astype(np.float32)
-                if self.spatial_noise_shape is not None:
-                    yield z, rng.standard_normal(
-                        (n, *self.spatial_noise_shape)).astype(np.float32)
-                else:
-                    yield z
+                # The span closes before the yield: the render runs outside it.
+                with trace.span("serve.draw"):
+                    z = rng.standard_normal((n, self.code_size)).astype(np.float32)
+                    sn = (None if self.spatial_noise_shape is None else rng.standard_normal(
+                        (n, *self.spatial_noise_shape)).astype(np.float32))
+                yield z if sn is None else (z, sn)
                 done += n
 
         chunks = list(self.stream(gen()))
         out = {}
-        for k in chunks[0]:
-            axis = 1 if k == "stages" else 0
-            v = np.concatenate([c[k] for c in chunks], axis=axis)
-            out[k] = v[:, :count] if axis else v[:count]
+        with trace.span("serve.join"):
+            for k in chunks[0]:
+                axis = 1 if k == "stages" else 0
+                v = np.concatenate([c[k] for c in chunks], axis=axis)
+                out[k] = v[:, :count] if axis else v[:count]
         return out
 
     def sample_filtered(

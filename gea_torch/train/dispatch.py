@@ -49,6 +49,13 @@ runs no train step eagerly (the warm-up's is undone). On the CPU
 (`--device cpu`, the tests) the dispatcher fills the same buffers, lr
 included, and runs the same K-step body eagerly.
 
+With `gea_torch.utils.trace` on, a chunk's host time is three spans:
+`dispatch.noise` (the K draws), `dispatch.fill` (the slots' and the lr's
+copies) and `dispatch.replay` (the graph's launch, the launch counts and
+the outputs' clone). Each enqueues work, and a launch that finds the
+device's queue full waits in its span.
+None runs inside a capture.
+
 `--debug_checks` drives the checked eager step (`gea_torch.utils.debug`)
 once per step, K times per chunk as `gea` drives its checked single step,
 and stacks the metrics: an error names the step within the chunk.
@@ -76,6 +83,7 @@ import torch
 from gea_torch import ops
 from gea_torch.config import dispatch_chunk
 from gea_torch.train.state import scheduled_lrs
+from gea_torch.utils import trace
 from gea_torch.utils.debug import checked_step
 
 Metrics = Dict[str, torch.Tensor]
@@ -160,9 +168,16 @@ class StepDispatcher:
             return self.step(state, reals[0])
         if not 1 <= k <= self.k_cfg:
             raise ValueError(f"a chunk of {k} steps under --steps_per_dispatch {self.k_cfg}")
-        self._fill(state, reals, [self.step.noise(state) for _ in range(k)])
-        self._fill_lr(state, k)
-        with schedules_off(state):
+        with trace.span("dispatch.noise"):
+            noise = [self.step.noise(state) for _ in range(k)]
+        with trace.span("dispatch.fill"):
+            self._fill(state, reals, noise)
+            self._fill_lr(state, k)
+        # The draws are in their slots: free them before the replay (and a
+        # first capture), so that neither holds their memory.
+        del noise
+        # On the CPU the replay's span holds the eager body.
+        with schedules_off(state), trace.span("dispatch.replay"):
             metrics = (self._replay(state, k) if state.device.type == "cuda"
                        else self._body(state, k))
         advance_schedules(state, k)

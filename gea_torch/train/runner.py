@@ -51,6 +51,7 @@ from gea_torch.ops.layers import eval_mode
 from gea_torch.parallel import DataParallel, join, launcher_env, resolve_num_devices, spawn
 from gea_torch.parallel.mesh import tp_world
 from gea_torch.parallel.tp import TensorParallel
+from gea_torch.utils import trace
 from gea_torch.utils.checkpoint import (
     best_record,
     latest_step,
@@ -270,7 +271,10 @@ class TrainLoop:
 
     `--profile_dir` records a torch.profiler trace (CPU and CUDA) of the
     dispatches that run steps start+10..start+15, rounded out to chunk
-    ends, into <profile_dir>/trace_<first iter>-<last iter>.json.
+    ends, into <profile_dir>/trace_<first iter>-<last iter>.json, with the
+    program's spans (`gea_torch.utils.trace`) on as ranges meanwhile, so
+    that the trace names the dispatcher's `gea_torch.span::dispatch.*`
+    beside the kernels.
     `--tensorboard` writes the logged metrics as `train/<key>` and the
     meter's rates as `perf/<key>` into <run>/tb (and each FID as
     `train/fid`); where `torch.utils.tensorboard` cannot be loaded it says
@@ -363,6 +367,7 @@ class TrainLoop:
             self._profiler = torch.profiler.profile(activities=activities)
             self._profiler.start()
             self._profiled_from = it + 1
+            self._trace_was = trace.enable(True, ranges=True)
 
     def _stop_profile(self) -> None:
         if self._profiler is None:
@@ -370,6 +375,7 @@ class TrainLoop:
         if self.state.device.type == "cuda":
             torch.cuda.synchronize(self.state.device)
         self._profiler.stop()
+        trace.enable(*self._trace_was)
         os.makedirs(self.cfg.profile_dir, exist_ok=True)
         iters = f"{self._profiled_from}-{self.state.step}"
         path = os.path.join(self.cfg.profile_dir, f"trace_{iters}.json")

@@ -198,6 +198,22 @@ def test_profile_dir_leaves_a_trace(tmp_path, k, iters):
     assert any("aten::" in e.get("name", "") for e in events)
 
 
+def test_profile_dir_trace_names_the_dispatch_spans(tmp_path):
+    """While the profiler runs the program's spans are ranges: the trace
+    names each chunk's `gea_torch.span::dispatch.*` beside its ops; the
+    tracer is off again after."""
+    from gea_torch.utils import trace
+
+    prof = tmp_path / "prof"
+    cli(tmp_path, "run", "--niter", "16", "--steps_per_dispatch", "4", "--vis_interval",
+        "0", "--save_interval", "0", "--log_interval", "8", "--profile_dir", str(prof))
+    events = json.loads((prof / "trace_9-16.json").read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    for span in ("dispatch.noise", "dispatch.fill", "dispatch.replay"):
+        assert names.count("gea_torch.span::" + span) == 2, span
+    assert trace.span("x") is trace.span("y")
+
+
 def test_tensorboard_writes_the_scalars(tmp_path):
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
