@@ -28,11 +28,21 @@ current stream and copied back into pinned memory without a wait, and an
 event recorded after the copy says when it has landed: `stream` keeps up to
 `depth` batches in flight that way.
 
+What crosses to the host differs by path. `__call__`, `stream` and
+`sample` copy every output of every row back. `sample_filtered` copies
+back only each render's scores: it chooses the winners from them with
+numpy, gathers the winners' images (and stages) on the card, and copies
+the `count` winners back once, into one pinned block. The HTTP server's
+filtered path renders through its batcher and chooses on the host, by the
+same rule (`top_order`).
+
 With `gea_torch.utils.trace` on, a request's host time is split into
 spans: `serve.draw` (each batch's codes), `serve.stage_in` (pinned copies
 to the card), `serve.render` (the render's launch), `serve.stage_out` (the
-copies back and their event), `serve.join` (the batches joined and cut)
-and `serve.topk`.
+copies back and their event: on the filtered path the scores' alone),
+`serve.join` (`sample`'s batches joined and cut), `serve.topk` (a round's
+choice, and on the filtered path the enqueue of its gather) and
+`serve.gather` (the filtered winners' copy back and its event).
 
 `model.sharded()` serves the same program data-parallel
 (`DataParallelServingModel`): one replica a card, the batch split over
@@ -61,23 +71,33 @@ MANIFEST = "manifest.json"
 PLATFORMS = ("cuda", "cpu")
 
 
+def _axis(key: str) -> int:
+    """An output's batch axis: stages are (S, B, ...), the rest (B, ...)."""
+    return 1 if key == "stages" else 0
+
+
 def _take(out: Dict[str, np.ndarray], idx) -> Dict[str, np.ndarray]:
     """Select candidate indices from a render dict (stages are (S, B, ...))."""
     return {k: (v[:, idx] if k == "stages" else v[idx]) for k, v in out.items()}
 
 
 def _cat(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]):
-    return {
-        k: np.concatenate([a[k], b[k]], axis=1 if k == "stages" else 0) for k in a
-    }
+    return {k: np.concatenate([a[k], b[k]], axis=_axis(k)) for k in a}
+
+
+def top_order(scores: np.ndarray, count: int) -> np.ndarray:
+    """The rows of the `count` best scores, best first: the one choice rule
+    of every filtered path, so that ties resolve alike on all of them."""
+    return np.argsort(scores)[::-1][:count]
 
 
 def topk_rounds(draw, count: int, threshold: float = 0.0, max_rounds: int = 1):
     """Call ``draw(round)`` for fresh candidate dicts (with "scores"), keep a
     running top-``count`` by descending score, and stop once every kept
     sample clears ``threshold`` (or after ``max_rounds``). Returns
-    (best, rounds_run); ``best`` is sorted by descending score. Shared by
-    `ServingModel.sample_filtered` and the HTTP server."""
+    (best, rounds_run); ``best`` is sorted by descending score. The HTTP
+    server's filtered path, on host dicts; `ServingModel.sample_filtered`
+    makes the same choice with the images left on the device."""
     if max_rounds < 1:
         raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
     best: Optional[Dict[str, np.ndarray]] = None
@@ -86,8 +106,7 @@ def topk_rounds(draw, count: int, threshold: float = 0.0, max_rounds: int = 1):
         out = draw(r)
         with trace.span("serve.topk"):
             best = out if best is None else _cat(best, out)
-            order = np.argsort(best["scores"])[::-1][:count]
-            best = _take(best, order)
+            best = _take(best, top_order(best["scores"], count))
         rounds = r + 1
         if threshold <= 0 or (best["scores"] >= threshold).all():
             break
@@ -209,15 +228,28 @@ class _Joined:
         return a if dtype is None else a.astype(dtype)
 
 
+class _Parts:
+    """An output left on the replicas' devices: `tensors[i]` was rendered on
+    `streams[i]` (None: the current stream), `per` rows each; the batch's
+    rows run in replica order, the padding last."""
+
+    __slots__ = ("tensors", "streams", "per")
+
+    def __init__(self, tensors: list, streams: list, per: int):
+        self.tensors, self.streams, self.per = tensors, streams, per
+
+
 def _fetch(out: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-def _enqueue(fn, device: torch.device, args: List[np.ndarray]) -> Dict[str, Any]:
+def _enqueue(fn, device: torch.device, args: List[np.ndarray],
+             to_host: Optional[tuple] = None) -> Dict[str, Any]:
     """Render `args` with `fn` on `device` without waiting, on the current
     stream: on the card the inputs come in from pinned memory and the
-    outputs go back into pinned memory, with an event recorded after the
-    copy."""
+    outputs named in `to_host` (every one where None) go back into pinned
+    memory, with an event recorded after the copy; the others stay on
+    `device` as tensors."""
     cuda = device.type == "cuda"
     with torch.inference_mode():
         with trace.span("serve.stage_in"):
@@ -229,12 +261,83 @@ def _enqueue(fn, device: torch.device, args: List[np.ndarray]) -> Dict[str, Any]
         with trace.span("serve.render"):
             out = fn(*tensors)
         with trace.span("serve.stage_out"):
-            if not cuda:
-                return {k: _Fetch(v) for k, v in out.items()}
-            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
-                v, non_blocking=True) for k, v in out.items()}
-            event = torch.cuda.Event()
-            event.record()
+            sent = [k for k in out if to_host is None or k in to_host]
+            event = None
+            if cuda:
+                host = {k: torch.empty(out[k].shape, dtype=out[k].dtype, pin_memory=True)
+                        .copy_(out[k], non_blocking=True) for k in sent}
+                event = torch.cuda.Event()
+                event.record()
+            else:
+                host = {k: out[k] for k in sent}
+    return {k: _Fetch(host[k], event) if k in host else v for k, v in out.items()}
+
+
+def _on_device(out: Dict[str, Any], rows: int) -> list:
+    """A render's outputs that stayed on the device, as sources of
+    `_gather`: (tensors, rows, stream) for each device that holds some of
+    its first `rows` rows."""
+    keys = [k for k, v in out.items() if isinstance(v, (torch.Tensor, _Parts))]
+    first = out[keys[0]]
+    if isinstance(first, torch.Tensor):
+        return [({k: out[k] for k in keys}, rows, None)]
+    return [({k: out[k].tensors[i] for k in keys}, min(first.per, rows - i * first.per), s)
+            for i, s in enumerate(first.streams) if rows > i * first.per]
+
+
+def _index(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Row numbers as an index on `device`, copied in without a wait."""
+    t = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+def _gather(sources: list, order: np.ndarray, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Rows `order` of `sources` ((tensors, rows, stream) each, their rows
+    laid end to end), in that order, gathered with `index_select` on the
+    sources' devices into tensors on `device` that its current stream may
+    use. Nothing waits for the device."""
+    device = _indexed(device)
+    starts = np.cumsum([0] + [n for _, n, _ in sources])
+    which = np.searchsorted(starts, order, side="right") - 1
+    pieces, slots = [], []
+    with torch.inference_mode():
+        for j, (tensors, _, stream) in enumerate(sources):
+            slot = np.flatnonzero(which == j)
+            if not slot.size:
+                continue
+            with torch.cuda.stream(stream):  # a no-op for None
+                idx = _index(order[slot] - starts[j], next(iter(tensors.values())).device)
+                piece = {k: v.index_select(_axis(k), idx).to(device, non_blocking=True)
+                         for k, v in tensors.items()}
+            if stream is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_stream(stream)
+                for v in piece.values():
+                    v.record_stream(current)
+            pieces.append(piece)
+            slots.append(slot)
+        back = _index(np.argsort(np.concatenate(slots)), device)
+        return {k: torch.cat([p[k] for p in pieces], _axis(k)).index_select(_axis(k), back)
+                for k in pieces[0]}
+
+
+def _to_host(tensors: Dict[str, torch.Tensor], device: torch.device) -> Dict[str, _Fetch]:
+    """Copy `tensors` (on `device`) into one fresh block of host memory,
+    pinned and from torch's caching host allocator on the card, behind one
+    event; the caller owns the block."""
+    cuda = device.type == "cuda"
+    sizes = [-(-v.nbytes // 64) * 64 for v in tensors.values()]  # each part 64-byte aligned
+    block = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=cuda)
+    host, at = {}, 0
+    with torch.inference_mode():
+        for (k, v), size in zip(tensors.items(), sizes):
+            host[k] = block[at:at + v.nbytes].view(v.dtype).view(v.shape).copy_(
+                v, non_blocking=cuda)
+            at += size
+    event = None
+    if cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(_indexed(device)))
     return {k: _Fetch(v, event) for k, v in host.items()}
 
 
@@ -304,13 +407,15 @@ class ServingModel:
                              f"got {sn.shape}")
         return [z, sn]
 
-    def dispatch(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None
-                 ) -> Dict[str, Any]:
+    def dispatch(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None, *,
+                 to_host: Optional[tuple] = None) -> Dict[str, Any]:
         """Check and enqueue one render without waiting for it: returns the
         outputs as array-likes that `np.asarray` turns into numpy once their
         copy to the host has landed. The pipelining primitive of `stream`
-        and of the HTTP batcher; `__call__` is dispatch and fetch."""
-        return _enqueue(self._fn, self.device, self._inputs(z, spatial_noise))
+        and of the HTTP batcher; `__call__` is dispatch and fetch. Only the
+        outputs named in `to_host` (every one where None) are copied to the
+        host; the others stay on the device as tensors."""
+        return _enqueue(self._fn, self.device, self._inputs(z, spatial_noise), to_host)
 
     def __call__(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None
                  ) -> Dict[str, np.ndarray]:
@@ -341,18 +446,15 @@ class ServingModel:
         the CPU)."""
         return DataParallelServingModel(self, devices)
 
-    def sample(self, count: int, seed: int = 0, batch_size: int = 64
-               ) -> Dict[str, np.ndarray]:
-        """Draw z ~ N(0, 1) with numpy and render `count` samples in batches
-        through `stream`; a pinned artifact renders whole batches and the
-        result is cut to `count`."""
+    def _draws(self, count: int, seed: int, batch_size: int):
+        """(z, spatial noise or None) for `count` samples, drawn with numpy
+        from `seed` batch by batch as `gea` draws them; a pinned artifact
+        draws whole batches."""
         if count < 1:
             raise ValueError(f"count must be >= 1, got {count}")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         fixed = int(self.manifest.get("batch", 0))
-        if fixed:
-            batch_size = fixed
         rng = np.random.default_rng(seed)
 
         def gen():
@@ -364,17 +466,36 @@ class ServingModel:
                     z = rng.standard_normal((n, self.code_size)).astype(np.float32)
                     sn = (None if self.spatial_noise_shape is None else rng.standard_normal(
                         (n, *self.spatial_noise_shape)).astype(np.float32))
-                yield z if sn is None else (z, sn)
+                yield z, sn
                 done += n
 
-        chunks = list(self.stream(gen()))
+        return gen()
+
+    def sample(self, count: int, seed: int = 0, batch_size: int = 64
+               ) -> Dict[str, np.ndarray]:
+        """Draw z ~ N(0, 1) with numpy and render `count` samples in batches
+        through `stream`; a pinned artifact renders whole batches and the
+        result is cut to `count`."""
+        chunks = list(self.stream(self._draws(count, seed, batch_size)))
         out = {}
         with trace.span("serve.join"):
             for k in chunks[0]:
-                axis = 1 if k == "stages" else 0
-                v = np.concatenate([c[k] for c in chunks], axis=axis)
-                out[k] = v[:, :count] if axis else v[:count]
+                v = np.concatenate([c[k] for c in chunks], axis=_axis(k))
+                out[k] = v[:, :count] if _axis(k) else v[:count]
         return out
+
+    def _candidates(self, count: int, seed: int, batch_size: int):
+        """Render `count` candidates drawn as `sample` draws them, each batch
+        drawn while the one before renders, and wait for their scores alone:
+        returns (scores, sources of `_gather` for the other outputs)."""
+        renders, done = [], 0
+        for z, sn in self._draws(count, seed, batch_size):
+            rows = min(z.shape[0], count - done)
+            renders.append((self.dispatch(z, sn, to_host=("scores",)), rows))
+            done += rows
+        scores = np.concatenate([_fetch({"scores": out["scores"]})["scores"][:rows]
+                                 for out, rows in renders])
+        return scores, [s for out, rows in renders for s in _on_device(out, rows)]
 
     def sample_filtered(
         self,
@@ -391,7 +512,14 @@ class ServingModel:
         rounds are drawn until ``count`` clear it (at most ``max_rounds``; a
         shortfall is filled from the best rejects with a notice). The
         absolute cutoff assumes BCE-calibrated sigmoid scores: on a hinge or
-        WGAN-GP run it prints a warning (the top-k ranking holds)."""
+        WGAN-GP run it prints a warning (the top-k ranking holds).
+
+        Only the candidates' scores cross to the host, a render at a time;
+        each round's winners are chosen from them by `top_order` and
+        gathered on the device, from the round's renders and the winners
+        kept from the rounds before, and the ``count`` winners are copied
+        to the host once, into one block that the caller owns. The result
+        is the same, bit for bit, as `topk_rounds` over `sample`'s renders."""
         if "scores" not in self.manifest.get("outputs", ()):
             raise ValueError(
                 "this model carries no discriminator scores; export the run with "
@@ -411,21 +539,31 @@ class ServingModel:
                   f"d_threshold={threshold} is an arbitrary cutoff (top-k ranking is "
                   "unaffected)")
         n_cand = int(count * oversample)
-        best, rounds = topk_rounds(
-            lambda r: self.sample(n_cand, seed=seed + r, batch_size=batch_size),
-            count,
-            threshold=threshold,
-            max_rounds=max_rounds,
-        )
+        scores, best, rounds = None, None, 0
+        for r in range(1 if threshold <= 0 else max_rounds):
+            got, sources = self._candidates(n_cand, seed + r, batch_size)
+            with trace.span("serve.topk"):
+                if best is not None:  # the kept winners first, as `topk_rounds` joins them
+                    got = np.concatenate([scores, got])
+                    sources = [(best, scores.size, None)] + sources
+                order = top_order(got, count)
+                scores, best = got[order], _gather(sources, order, self.device)
+            del sources  # the round's renders go before the next round's come
+            rounds = r + 1
+            if threshold <= 0 or (scores >= threshold).all():
+                break
+        with trace.span("serve.gather"):
+            host = _to_host(best, self.device)
+        out = {**_fetch(host), "scores": scores}
         if threshold > 0:
-            cleared = int((best["scores"] >= threshold).sum())
+            cleared = int((scores >= threshold).sum())
             if cleared < count:
                 print(
                     f"[gea_torch.serve] d_threshold={threshold}: only "
                     f"{cleared}/{count} candidates cleared it after {rounds} "
                     "rounds; filling from the best rejects"
                 )
-        return best
+        return out
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -479,8 +617,8 @@ class DataParallelServingModel(ServingModel):
             return move_to_device_pass(base.exported, str(dev)).module()
         return copy.deepcopy(base._fn).to(dev)
 
-    def dispatch(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None
-                 ) -> Dict[str, Any]:
+    def dispatch(self, z: np.ndarray, spatial_noise: Optional[np.ndarray] = None, *,
+                 to_host: Optional[tuple] = None) -> Dict[str, Any]:
         args = self._inputs(z, spatial_noise)
         b, n = args[0].shape[0], len(self.replicas)
         pad = (-b) % n
@@ -491,13 +629,14 @@ class DataParallelServingModel(ServingModel):
         for i, (dev, fn, stream) in enumerate(self.replicas):
             slab = [np.ascontiguousarray(a[i * per:(i + 1) * per]) for a in args]
             if stream is None:
-                parts.append(_enqueue(fn, dev, slab))
+                parts.append(_enqueue(fn, dev, slab, to_host))
                 continue
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                parts.append(_enqueue(fn, dev, slab))
-        return {k: _Joined([p[k] for p in parts], 1 if k == "stages" else 0, b)
-                for k in parts[0]}
+                parts.append(_enqueue(fn, dev, slab, to_host))
+        streams = [s for _, _, s in self.replicas]
+        return {k: _Joined([p[k] for p in parts], _axis(k), b) if isinstance(parts[0][k], _Fetch)
+                else _Parts([p[k] for p in parts], streams, per) for k in parts[0]}
 
 
 def load(path: str, device: str | torch.device = "cuda") -> ServingModel:

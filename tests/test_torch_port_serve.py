@@ -7,6 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gea.models import Discriminator as JaxDiscriminator
 from gea.models import GeneratorLIS as JaxGeneratorLIS
@@ -18,7 +19,7 @@ from gea_torch.interop import (
     init_discriminator_params,
     init_generator_params,
 )
-from gea_torch.serve import ServingModel
+from gea_torch.serve import ServingModel, topk_rounds
 
 CFG = ModelConfig(image_size=32, code_size=16, r_iterations=2, num_features=8,
                   max_features=32, dtype="float32")
@@ -137,3 +138,64 @@ def test_threshold_rounds_keep_the_best(models):
                                 threshold=1.1, max_rounds=3)
     assert best["images"].shape[0] == 4
     assert np.all(np.diff(best["scores"]) <= 0)
+
+
+class TiedScores(torch.nn.Module):
+    """A stub serve function: images and stages from z, and scores on three
+    levels, so that most candidates tie."""
+
+    def forward(self, z):
+        images = ((z[:, :12] + 4.0) * 30.0).clamp(0, 255).to(torch.uint8).reshape(-1, 2, 2, 3)
+        return {"images": images, "stages": torch.stack([images, 255 - images]),
+                "scores": torch.round(torch.sigmoid(z[:, 0]) * 2.0) / 2.0}
+
+
+@pytest.fixture(scope="module")
+def served(models):
+    port = models[0]
+    g, d = port.exported.generator, port.exported.discriminator
+    tied = ServingModel(TiedScores(), {"code_size": CFG.code_size, "batch": 0,
+                                       "spatial_noise_shape": None, "gan_loss": "bce",
+                                       "outputs": ["images", "stages", "scores"]}, device="cpu")
+    return {"stages": port, "final": ServingModel.from_modules(g, d, all_stages=False),
+            "ties": tied, "replicas": port.sharded(["cpu", "cpu"]),
+            "pinned": ServingModel(port.exported, {**port.manifest, "batch": 4}, device="cpu")}
+
+
+@pytest.mark.parametrize("rounds", [1, 3])
+@pytest.mark.parametrize("kind", ["stages", "final", "ties", "replicas", "pinned"])
+def test_sample_filtered_equals_the_host_composition(served, kind, rounds):
+    """The winners chosen and gathered on the device are, bit for bit and in
+    order, `topk_rounds` over `sample`'s renders joined on the host: with
+    and without every stage, over one round or three (a threshold no score
+    clears), with tied scores, on two replicas (a short last batch padded
+    to an even split) and with a pinned batch (the last render cut)."""
+    model = served[kind]
+    count, seed, batch, oversample = 5, 13, 4, 3
+    threshold = 0.0 if rounds == 1 else 1.1
+    got = model.sample_filtered(count, seed=seed, batch_size=batch, oversample=oversample,
+                                threshold=threshold, max_rounds=rounds)
+    want, ran = topk_rounds(
+        lambda r: model.sample(count * oversample, seed=seed + r, batch_size=batch),
+        count, threshold=threshold, max_rounds=rounds)
+    assert ran == rounds
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
+    if kind == "ties":
+        assert np.unique(got["scores"]).size < count
+
+
+def test_dispatch_copies_only_the_named_outputs_to_the_host(served):
+    model = served["stages"]
+    z = np.random.default_rng(5).standard_normal((3, CFG.code_size)).astype(np.float32)
+    some = model.dispatch(z, to_host=("scores",))
+    every = model.dispatch(z)
+    for k in ("images", "stages"):
+        assert isinstance(some[k], torch.Tensor) and some[k].device == model.device, k
+    assert not any(isinstance(v, torch.Tensor) for v in every.values())
+    assert not isinstance(some["scores"], torch.Tensor)
+    for k, v in every.items():
+        host = np.asarray(v)
+        assert isinstance(host, np.ndarray)
+        assert np.array_equal(host, np.asarray(some[k]) if k == "scores" else some[k].numpy()), k

@@ -190,14 +190,15 @@ def serving():
 
 
 SERVE_SPANS = ("serve.draw", "serve.stage_in", "serve.render", "serve.stage_out",
-               "serve.join", "serve.topk")
+               "serve.topk", "serve.gather")
 
 
 @pytest.mark.parametrize("sharded", [False, True])
 def test_filtered_request_opens_each_serving_span(serving, ranges, sharded):
     """256 of 4 x 256 candidates in renders of 512: two draws, stagings and
-    renders, one join and one top-k, each a range of its own, and none
-    nested in another."""
+    renders, one top-k and one gather of the winners (no join: the renders
+    stay on the device), each a range of its own, and none nested in
+    another."""
     model = serving.sharded() if sharded else serving
     out = model.sample_filtered(256, seed=11, batch_size=512, oversample=4)
     assert out["images"].shape[0] == 256
@@ -205,7 +206,7 @@ def test_filtered_request_opens_each_serving_span(serving, ranges, sharded):
     assert set(t) == set(SERVE_SPANS)
     counts = {k: v.count for k, v in t.items()}
     assert counts == {"serve.draw": 2, "serve.stage_in": 2, "serve.render": 2,
-                      "serve.stage_out": 2, "serve.join": 1, "serve.topk": 1}
+                      "serve.stage_out": 2, "serve.topk": 1, "serve.gather": 1}
     assert all(v.self_seconds == v.seconds for v in t.values())
     p = trace.RANGE_PREFIX
     spans = [n for _, n in ranges if n.startswith(p)]
@@ -218,7 +219,17 @@ def test_rounds_open_a_draw_and_a_topk_each(serving):
     serving.sample_filtered(4, seed=3, batch_size=8, oversample=2, threshold=1.1,
                             max_rounds=3)
     counts = {k: v.count for k, v in trace.totals().items()}
-    assert counts["serve.topk"] == counts["serve.join"] == counts["serve.draw"] == 3
+    assert counts["serve.topk"] == counts["serve.draw"] == 3
+    assert counts["serve.gather"] == 1 and "serve.join" not in counts
+
+
+def test_sample_opens_its_join(serving):
+    """`sample` returns every row: its renders are joined on the host."""
+    trace.enable(True)
+    serving.sample(12, seed=3, batch_size=8)
+    counts = {k: v.count for k, v in trace.totals().items()}
+    assert counts["serve.join"] == 1 and counts["serve.draw"] == 2
+    assert "serve.gather" not in counts and "serve.topk" not in counts
 
 
 def test_serving_off_records_nothing(serving):
