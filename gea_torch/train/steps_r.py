@@ -34,6 +34,15 @@ where the caller gives none, the step draws them from the state's
 `torch.Generator` on the device. The step updates the state in place and
 returns its metrics as 0-d tensors on the device.
 
+With `gea_torch.utils.trace` on, R-iterative's step opens these spans:
+`riter.d` around D's half (its unroll, forwards, backward and update),
+`riter.unroll` around each unroll (2 a step, one in each half), nested in
+it `riter.link` around each link's R pass, residual add and render (T an
+unroll), and `riter.gr_backward` around the G/R loss's backward through the
+chain; it counts `riter.links` and `riter.renders` (2T and 2(T + 1) a
+step). Captured into a CUDA graph, none of them runs on replay
+(`gea_torch.utils.trace`).
+
 `norm=batch` follows `gea`. R-separate's frozen G and D run on their
 running statistics (inference mode, `state.freeze`); R normalises with
 batch statistics and updates its running ones once a step. R-iterative's
@@ -79,6 +88,7 @@ from gea_torch.train.steps import (
     to_device,
     zero_grads,
 )
+from gea_torch.utils import trace
 
 
 def _remat(fn: Callable, *modules) -> Callable:
@@ -194,12 +204,16 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
         first, next_link = render, link
         if cfg.remat and torch.is_grad_enabled():
             first, next_link = _remat(render, g), _remat(link, g, r)
-        zs, imgs = [z0], [first(z0)]
-        for _ in range(cfg.r_chain_length):
-            z_next, img_next = next_link(zs[-1], imgs[-1])
-            zs.append(z_next)
-            imgs.append(img_next)
-        return torch.stack(imgs), torch.stack(zs)
+        with trace.span("riter.unroll"):
+            zs, imgs = [z0], [first(z0)]
+            for _ in range(cfg.r_chain_length):
+                with trace.span("riter.link"):
+                    z_next, img_next = next_link(zs[-1], imgs[-1])
+                zs.append(z_next)
+                imgs.append(img_next)
+            trace.count("riter.links", cfg.r_chain_length)
+            trace.count("riter.renders", n_links)
+            return torch.stack(imgs), torch.stack(zs)
 
     def step(state: RIterativeTrainState, real, z=None, spatial_noise=None) -> Metrics:
         g, d, r = state.generator, state.discriminator, state.reverter
@@ -210,20 +224,21 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
         weights = link_w(real.device)
 
         # D on the real batch and the detached chain renders.
-        zero_grads(state.opt_d, d, dp)
-        loss_d = d_real = 0.0
-        for real_mb, z_mb, sn_mb in mbs:
-            with torch.no_grad(), frozen_stats(g, r):
-                fakes, _ = unroll(g, r, z_mb, sn_mb)
-            logits_real = d(real_mb)
-            logits_fake = d(fakes.reshape(-1, *fakes.shape[2:])).reshape(n_links, -1)
-            loss = losses.d_real_loss(logits_real) + losses.staged_loss(
-                logits_fake, weights, 0.0)
-            loss.backward()
-            loss_d = loss_d + loss.detach()
-            d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
-        mean_grads(d, accum, dp)
-        _update(state.opt_d, state.sched_d, d, dp)
+        with trace.span("riter.d"):
+            zero_grads(state.opt_d, d, dp)
+            loss_d = d_real = 0.0
+            for real_mb, z_mb, sn_mb in mbs:
+                with torch.no_grad(), frozen_stats(g, r):
+                    fakes, _ = unroll(g, r, z_mb, sn_mb)
+                logits_real = d(real_mb)
+                logits_fake = d(fakes.reshape(-1, *fakes.shape[2:])).reshape(n_links, -1)
+                loss = losses.d_real_loss(logits_real) + losses.staged_loss(
+                    logits_fake, weights, 0.0)
+                loss.backward()
+                loss_d = loss_d + loss.detach()
+                d_real = d_real + torch.sigmoid(logits_real.detach()).mean()
+            mean_grads(d, accum, dp)
+            _update(state.opt_d, state.sched_d, d, dp)
 
         # G and R together against the updated D.
         zero_grads(state.opt_g, g, dp)
@@ -236,7 +251,8 @@ def build_r_iterative_step(cfg: TrainRIterativeConfig, dp=None) -> Callable[...,
                 logits = d(images.reshape(-1, *images.shape[2:])).reshape(n_links, -1)
             adv = losses.staged_loss(logits, weights, 1.0)
             sim = losses.z_similarity_loss(zs[1:] - zs[:-1])
-            (adv + cfg.lambda_r * sim).backward(inputs=trained)
+            with trace.span("riter.gr_backward"):
+                (adv + cfg.lambda_r * sim).backward(inputs=trained)
             loss_g = loss_g + adv.detach()
             loss_sim = loss_sim + sim.detach()
         mean_grads(g, accum, dp)

@@ -18,8 +18,18 @@ host was in. The custom ops' own names (`gea_torch::<op>`) are left to them.
 Spans nest by thread: a span's parent is the span open around it on its
 thread.
 
-Spans belong in host code only: never inside what `torch.cuda.graph`
-captures or `torch.export` traces, where they would run once, at capture.
+    trace.count("riter.renders")       # or trace.count(name, n)
+
+adds to a counter's total while the tracer is on (`counters()`); off, it is
+the same one flag check as a span.
+
+A span or a counter may sit inside a train step that a CUDA graph captures
+(`torch.cuda.graph`): while the current stream is capturing, `span` returns
+the shared object that does nothing and `count` adds nothing, so the
+capture records neither and a replay, which runs no Python, runs neither.
+The tracer asks whether a capture is open only while it is on. Code that
+`torch.export` traces holds no span: a traced span would run once, at
+export.
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ _on = False
 _record_function = None  # torch's record_function while ranges are on
 _lock = threading.Lock()
 _totals: Dict[str, list] = {}  # name -> [count, ns, self ns]
+_counters: Dict[str, int] = {}  # name -> total
 _local = threading.local()  # .stack: the open spans of the thread
 
 
@@ -92,12 +103,29 @@ class _Span:
         return False
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (never before
+    CUDA is initialised, so never on a host without a card)."""
+    import torch
+
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def span(name: str):
     """A context manager timing the block as span `name` while the tracer
-    is on."""
-    if not _on:
+    is on and no graph is being captured."""
+    if not _on or _capturing():
         return _OFF
     return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to counter `name` while the tracer is on and no graph is
+    being captured."""
+    if not _on or _capturing():
+        return
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
 
 
 def enable(on: bool = True, ranges: bool = False) -> Tuple[bool, bool]:
@@ -122,7 +150,14 @@ def totals() -> Dict[str, Total]:
                 for name, (c, ns, self_ns) in _totals.items()}
 
 
+def counters() -> Dict[str, int]:
+    """{counter name: total} since the last reset."""
+    with _lock:
+        return dict(_counters)
+
+
 def reset() -> None:
     with _lock:
         _totals.clear()
+        _counters.clear()
 

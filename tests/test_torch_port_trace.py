@@ -254,3 +254,70 @@ def test_dispatcher_opens_its_spans_once_a_chunk(tmp_path, ranges):
     # Adam's step opens ranges of its own.
     assert [n for what, n in ranges if what == "enter" and n.startswith(p)] == [
         p + n for _ in range(2) for n in names]
+
+
+def test_counters_add_while_on_and_reset_with_the_spans():
+    trace.count("off")
+    assert trace.counters() == {}
+    trace.enable(True)
+    trace.count("renders")
+    trace.count("renders", 5)
+    trace.count("links", 2)
+    with trace.span("s"):
+        pass
+    assert trace.counters() == {"renders": 6, "links": 2}
+    trace.enable(False)
+    trace.count("renders", 100)
+    assert trace.counters()["renders"] == 6
+    trace.reset()
+    assert trace.counters() == {} and trace.totals() == {}
+
+
+def test_spans_and_counters_are_inert_while_a_graph_captures(monkeypatch, ranges):
+    """While the current stream captures, a span is the shared inert object
+    and a counter adds nothing (the capture query patched, as there is no
+    card here); the query is asked only while the tracer is on."""
+    monkeypatch.setattr(trace, "_capturing", lambda: True)
+    assert trace.span("a") is trace.span("b")
+    with trace.span("a"):
+        trace.count("c")
+    assert trace.totals() == {} and trace.counters() == {} and ranges == []
+    monkeypatch.setattr(trace, "_capturing", lambda: False)
+    with trace.span("a"):
+        trace.count("c")
+    assert trace.totals()["a"].count == 1 and trace.counters() == {"c": 1}
+
+    def refuse():
+        raise AssertionError("capture query asked while the tracer is off")
+
+    monkeypatch.setattr(trace, "_capturing", refuse)
+    trace.enable(False)
+    with trace.span("a"):
+        trace.count("c")
+    assert trace.counters() == {"c": 1}
+
+
+@pytest.mark.parametrize("chain", [1, 2, 3])
+def test_r_iterative_step_opens_its_spans_and_counts(ranges, chain):
+    """One eager step: `riter.d` once, holding D's unroll; `riter.unroll`
+    twice, each holding T `riter.link`; `riter.gr_backward` once; 2T links
+    and 2(T + 1) renders counted."""
+    from gea_torch.config import TrainRIterativeConfig
+    from gea_torch.train import build_r_iterative_step, create_r_iterative_state
+
+    cfg = TrainRIterativeConfig(image_size=16, code_size=8, num_features=4, max_features=16,
+                                dtype="float32", batch_size=2, r_hidden=8,
+                                r_chain_length=chain, device="cpu")
+    state = create_r_iterative_state(cfg, device="cpu")
+    step = build_r_iterative_step(cfg)
+    step(state, torch.zeros((2, 16, 16, 3)))
+    counts = {k: v.count for k, v in trace.totals().items()}
+    assert counts == {"riter.d": 1, "riter.unroll": 2, "riter.link": 2 * chain,
+                      "riter.gr_backward": 1}
+    assert trace.counters() == {"riter.links": 2 * chain, "riter.renders": 2 * (chain + 1)}
+    p = trace.RANGE_PREFIX
+    order = [(what, n[len(p):]) for what, n in ranges if n.startswith(p)]
+    links = [("enter", "riter.link"), ("exit", "riter.link")] * chain
+    unroll = [("enter", "riter.unroll"), *links, ("exit", "riter.unroll")]
+    assert order == [("enter", "riter.d"), *unroll, ("exit", "riter.d"), *unroll,
+                     ("enter", "riter.gr_backward"), ("exit", "riter.gr_backward")]
