@@ -2,7 +2,8 @@
 
 A chain of `r_iterations` LIS modules refines the code, z_{i+1} = z_i +
 MLP(z_i); every stage's code is stacked into one S*B batch and rendered by
-one conv-transpose core. Params are fp32, compute runs in `cfg.dtype`.
+one conv-transpose core (`render_final` renders the final code alone, as a
+batch of B). Params are fp32, compute runs in `cfg.dtype`.
 
 Kernels on this path (each with its plain PyTorch twin, chosen by
 `use_kernels=False`):
@@ -219,3 +220,20 @@ class GeneratorLIS(GeneratorCore):
         with eval_mode(self):
             images, zs = self(z, spatial_noise, render_all_stages=True)
         return images.float(), zs
+
+    def render_final(
+        self, z: torch.Tensor, spatial_noise: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The final stage of `render` alone, for callers that keep no other:
+        the chain runs on every code, then the core renders zs[-1] as a batch
+        of B (the spatial noise not repeated). Images (1, B, H, W, 3) in
+        fp32, zs as `render`'s."""
+        dt = self.cfg.torch_dtype
+        with eval_mode(self):
+            zs: List[torch.Tensor] = [z]
+            x = z.to(dt)
+            for m in self.lis:
+                x = m(x)
+                zs.append(x)
+            images = self.core(zs[-1].to(dt), spatial_noise)
+        return images.float().unsqueeze(0), torch.stack([t.float() for t in zs])

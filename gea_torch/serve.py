@@ -42,7 +42,11 @@ to the card), `serve.render` (the render's launch), `serve.stage_out` (the
 copies back and their event: on the filtered path the scores' alone),
 `serve.join` (`sample`'s batches joined and cut), `serve.topk` (a round's
 choice, and on the filtered path the enqueue of its gather) and
-`serve.gather` (the filtered winners' copy back and its event).
+`serve.gather` (the filtered winners' copy back and its event). Counter
+`serve.stages_rendered` adds the stages that a call of the live function
+renders: 1 without `stages` (only the final stage is rendered when no
+other is returned), S with them, and 1 more for each R-separate
+correction step (an exported program counts none).
 
 `model.sharded()` serves the same program data-parallel
 (`DataParallelServingModel`): one replica a card, the batch split over
@@ -130,7 +134,15 @@ class ServeFunction(nn.Module):
     The stages are G's LIS stages, rendered from z after `correction`'s
     R-separate steps (z <- blend(z, R(G(z))), as `gea`'s `--r_path`
     export), or with `chain_links` the links of R-iterative's chain
-    z_t = z_{t-1} + R(G(z_{t-1})) (`gea`'s `--ri_path`)."""
+    z_t = z_{t-1} + R(G(z_{t-1})) (`gea`'s `--ri_path`).
+
+    What is rendered follows the outputs: with `all_stages` G renders every
+    stage (`GeneratorLIS.render`), without it the final stage alone
+    (`render_final`: the LIS chain runs, the core draws B rows, not S x B),
+    and a correction step's render, which only feeds R, is the final stage
+    alone on both. `images` and `scores` are the same on both. The chain
+    renders each link's single stage. With the tracer on, counter
+    `serve.stages_rendered` adds the stages that a call's renders drew."""
 
     def __init__(self, generator: GeneratorLIS, discriminator: Optional[Discriminator] = None,
                  reverter: Optional[Reverter] = None, correction: Optional[dict] = None,
@@ -170,12 +182,16 @@ class ServeFunction(nn.Module):
         g = self.generator
         if self.chain_links is not None:
             images = iterative_chain(g, self.reverter, z, spatial_noise, self.chain_links)
+            drawn = images.shape[0]  # links + 1 single-stage renders
         else:
-            for _ in range(self.correction["steps"] if self.correction else 0):
-                z_hat = self.reverter(g.render(z, spatial_noise)[0][-1])
+            steps = self.correction["steps"] if self.correction else 0
+            for _ in range(steps):
+                z_hat = self.reverter(g.render_final(z, spatial_noise)[0][0])
                 z = blend_correction(z, z_hat, self.correction["strength"],
                                      self.correction["shell_renorm"])
-            images = g.render(z, spatial_noise)[0]
+            images = (g.render if self.all_stages else g.render_final)(z, spatial_noise)[0]
+            drawn = steps + images.shape[0]
+        trace.count("serve.stages_rendered", drawn)
         out = {"images": to_uint8(images[-1])}
         if self.all_stages:
             out["stages"] = to_uint8(images)

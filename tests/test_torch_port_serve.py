@@ -19,7 +19,9 @@ from gea_torch.interop import (
     init_discriminator_params,
     init_generator_params,
 )
-from gea_torch.serve import ServingModel, topk_rounds
+from gea_torch.models import Discriminator, GeneratorLIS, Reverter
+from gea_torch.serve import ServeFunction, ServingModel, topk_rounds
+from gea_torch.utils import trace
 
 CFG = ModelConfig(image_size=32, code_size=16, r_iterations=2, num_features=8,
                   max_features=32, dtype="float32")
@@ -199,3 +201,60 @@ def test_dispatch_copies_only_the_named_outputs_to_the_host(served):
         host = np.asarray(v)
         assert isinstance(host, np.ndarray)
         assert np.array_equal(host, np.asarray(some[k]) if k == "scores" else some[k].numpy()), k
+
+
+@pytest.mark.parametrize("use_kernels", [True, False], ids=["kernels", "plain"])
+@pytest.mark.parametrize("steps", [0, 2], ids=["no_correction", "r_separate2"])
+@pytest.mark.parametrize("spatial_code", [0, 4])
+@pytest.mark.parametrize("initial", [True, False], ids=["initial", "no_initial"])
+@pytest.mark.parametrize("r_iterations", [0, 2])
+def test_a_stage_less_function_renders_the_final_stage_alone(r_iterations, initial,
+                                                             spatial_code, steps, use_kernels):
+    """Without `stages` the function renders zs[-1] alone (B rows a render,
+    1 stage counted) and serves the images and scores that the every-stage
+    render (S x B rows, S stages) serves; a correction step's render is the
+    final stage alone on both."""
+    cfg = ModelConfig(image_size=32, code_size=16, r_iterations=r_iterations, num_features=8,
+                      max_features=32, spatial_code=spatial_code,
+                      include_initial_image=initial, dtype="float32")
+    torch.manual_seed(r_iterations + 2 * spatial_code + steps)
+    g = GeneratorLIS(cfg, device="cpu", use_kernels=use_kernels)
+    d = Discriminator(cfg, device="cpu", use_kernels=use_kernels)
+    r = Reverter(cfg, device="cpu", use_kernels=use_kernels) if steps else None
+    correction = dict(steps=steps, strength=0.3, shell_renorm=True) if steps else None
+    rows = []
+    core = g.core
+
+    def spy(x, sn=None):
+        rows.append(x.shape[0])
+        if sn is not None:
+            assert sn.shape[0] == x.shape[0]
+        return core(x, sn)
+
+    g.core = spy
+    b, n_stages = 5, r_iterations + 1
+    rng = np.random.default_rng(11)
+    args = [torch.from_numpy(rng.standard_normal((b, cfg.code_size)).astype(np.float32))]
+    if spatial_code:
+        args.append(torch.from_numpy(
+            rng.standard_normal(g.spatial_noise_shape(b)).astype(np.float32)))
+    was = trace.enable(True)
+    outs = {}
+    try:
+        for every in (True, False):
+            rows.clear()
+            trace.reset()
+            with torch.inference_mode():
+                outs[every] = ServeFunction(g, d, r, correction, all_stages=every)(*args)
+            final = n_stages if every else 1
+            assert rows == [b] * steps + [final * b]
+            assert trace.counters() == {"serve.stages_rendered": steps + final}
+    finally:
+        trace.enable(*was)
+        trace.reset()
+    assert sorted(outs[False]) == ["images", "scores"]
+    assert outs[True]["stages"].shape == (n_stages, b, 32, 32, 3)
+    diff = outs[False]["images"].int() - outs[True]["images"].int()
+    assert int(diff.abs().max()) <= 1
+    np.testing.assert_allclose(outs[False]["scores"].numpy(), outs[True]["scores"].numpy(),
+                               atol=1e-5, rtol=0)
