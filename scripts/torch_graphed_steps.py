@@ -5,14 +5,16 @@ for comparing two checkouts of the repo on one card.
     python scripts/torch_graphed_steps.py [--root DIR] [--label NAME] [--out FILE]
         [--dtype bfloat16|float32] [--paths g-lis,r-iterative,...]
 
-Imports `gea_torch` and `chip_smoke` from `--root` (default: this
-checkout), builds the CUDA kernels there, and for each of five paths at
-flagship width, batch 64, BCE, in bf16 or with `--dtype float32` in fp32
-(`chip_smoke.graph_trainers()`: G-LIS, R-separate against a frozen G and D
-(made in bf16: leave it out of an fp32 run), R-iterative at chain length
-2; G-LIS with `--norm batch`, as phase 17 of `chip_smoke.py` builds it;
-and the data-parallel G-LIS step at config 5, 160x160, on a world-1 NCCL
-group, as phase 16 builds it; `--paths` picks some) captures a K = 8
+Imports `gea_torch` from `--root` (default: this checkout) and the paths
+from this checkout's `tests/torch_port_card_runs.py`, builds the CUDA
+kernels there, and for each of five paths at flagship width, batch 64,
+BCE, in bf16 or with `--dtype float32` in fp32 (`graph_trainers()`:
+G-LIS, R-separate against a frozen G and D (made in bf16: leave it out of
+an fp32 run), R-iterative at chain length 2; G-LIS with `--norm batch`, as
+`tests/test_torch_port_norm_tp_card.py` builds it; and the data-parallel
+G-LIS step at config 5, 160x160, on a world-1 NCCL group, as
+`tests/test_torch_port_dp_card.py` builds it; `--paths` picks some)
+captures a K = 8
 `StepDispatcher` graph, then times REPLAYS replays with CUDA events
 (device ms a step: the span of a replay over K), takes one replay under
 torch.profiler (device busy ms a step; the time of kernels whose names
@@ -50,32 +52,38 @@ def main() -> int:
     p.add_argument("--paths", default="", help="paths to run, separated by ','")
     args = p.parse_args()
     root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path[:0] = [root, os.path.join(here, "tests")]
     import torch
 
     if not torch.cuda.is_available():
         print("torch_graphed_steps: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    import chip_smoke as cs
+    import torch_port_card_runs as cr
+    from torch.profiler import ProfilerActivity, profile
+
     from gea_torch.config import TrainGLISConfig
     from gea_torch.ops import build
-    from gea_torch.train import build_glis_train_step
+    from gea_torch.parallel import DataParallel, join
+    from gea_torch.parallel.mesh import Launch, free_port
+    from gea_torch.train import build_glis_train_step, create_glis_state
     from gea_torch.train.dispatch import StepDispatcher
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = True  # as the train steps are timed in chip_smoke.py
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as the trainers run
     build.build_all()
-    entries = {tag: (e[0], e[1], e[2], e[4]) for tag, e in cs.graph_trainers().items()}
-    bn = TrainGLISConfig.from_args(cs.BN_ARGS)
-    entries["g-lis batch norm"] = (bn.replace(steps_per_dispatch=cs.GRAPH_K), cs.bn_state,
-                                   build_glis_train_step, cs.real_batch(bn))
-    dp = cs.dp_world()
-    dp_cfg = cs.dp_config().replace(steps_per_dispatch=cs.GRAPH_K)
-    dp_params = cs.dp_params(dp_cfg)
-    entries["dp config 5"] = (dp_cfg, lambda c: cs.create_glis_state(c, *dp_params),
-                              lambda c: build_glis_train_step(c, dp=dp), cs.real_batch(dp_cfg))
+    entries = {tag: (e[0], e[1], e[2], e[4]) for tag, e in cr.graph_trainers().items()}
+    bn = TrainGLISConfig.from_args(cr.BN_ARGS)
+    entries["g-lis batch norm"] = (bn.replace(steps_per_dispatch=cr.GRAPH_K), cr.bn_state,
+                                   build_glis_train_step, cr.real_batch(bn))
+    dp = DataParallel(join(torch.device("cuda"),
+                           Launch(0, 1, 0, f"tcp://127.0.0.1:{free_port()}")))
+    dp_cfg = cr.dp_config().replace(steps_per_dispatch=cr.GRAPH_K)
+    dp_params = cr.dp_params(dp_cfg)
+    entries["dp config 5"] = (dp_cfg, lambda c: create_glis_state(c, *dp_params),
+                              lambda c: build_glis_train_step(c, dp=dp), cr.real_batch(dp_cfg))
     rows = []
     for tag, (cfg, make_state, build_step, real) in entries.items():
         if args.paths and tag not in args.paths.split(","):
@@ -97,7 +105,12 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             spans.append(start.elapsed_time(end) / k)
-        busy, kernels = cs.device_profile(lambda: dispatch(state, reals))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dispatch(state, reals)
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy = sum(ms for _, ms, _ in kernels)
         grad_ms = sum(ms for name, ms, _ in kernels if "tprelu_grad_" in name)
         seed_ms = sum(ms for name, ms, _ in kernels if "seed_bwd_" in name)
         seed_fwd_ms = sum(ms for name, ms, _ in kernels

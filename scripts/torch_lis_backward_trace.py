@@ -9,14 +9,14 @@ Builds `gea_torch/csrc/lis_bwd.cu` with -DLIS_TRACE into
 row group's cluster at its phase boundaries; `kTraceSlots` in the source)
 and runs the flagship chain (3 links, batch 64, code = hidden = 256, bf16)
 through `gea_torch.ops.lis`'s own wrapper with that build swapped in, for
-the need sets of `chip_smoke.lis_chain_needs` (G-LIS, batch norm,
-R-separate). Prints, per phase, the median over 20 calls and the row groups
-of its SM cycles and its microseconds at the SM clock (the spin kernel's,
-`chip_smoke.cycles_per_ms`), the call's device time (CUDA events) behind a
-spin, as `chip_smoke.time_ms` times it, and the time a call over 20 calls
-back to back (the host's enqueue of a call where that is longer). The
-traced build's times are the source's: the marks are one store of one
-thread between barriers. About 30 s on an H100.
+the need sets of `lis_chain_needs` (G-LIS, batch norm, R-separate; the
+cases of `tests/torch_port_card_cases.py`). Prints, per phase, the median
+over 20 calls and the row groups of its SM cycles and its microseconds at
+the SM clock (the spin kernel's, `cycles_per_ms`), the call's device time
+(CUDA events) behind a spin, as `portbench.spy.time_ms` times it, and the
+time a call over 20 calls back to back (the host's enqueue of a call where
+that is longer). The traced build's times are the source's: the marks are
+one store of one thread between barriers. About 30 s on an H100.
 """
 
 from __future__ import annotations
@@ -29,9 +29,13 @@ import sys
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+
+import torch_port_card_cases as cc  # noqa: E402
 
 from gea_torch.ops import build, lis  # noqa: E402
+from portbench.spy import time_ms  # noqa: E402
 
 CALLS = 20
 PHASES = ("operands landed", "A: dh, dh_pre", "T(dh_pre) exchange; pre, dW2",
@@ -73,27 +77,37 @@ class Traced:
         return getattr(self.base, name)
 
 
+def cycles_per_ms() -> float:
+    """The spin kernel's clock, from CUDA events around one long spin."""
+    cycles = 50_000_000
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_lis_backward_trace: needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    import chip_smoke as cs
-
-    smi = cs.nvidia_smi()
+    smi = cc.nvidia_smi()
     print(f"{smi}; torch {torch.__version__}", flush=True)
     base = lis._bwd_lib()
     lib = traced_lib()
-    per_us = cs.cycles_per_ms() / 1e3
+    per_us = cycles_per_ms() / 1e3
     links, dt = 3, torch.bfloat16
-    args = cs.lis_chain_args(64, 256, 256, links, dt, torch.Generator().manual_seed(0))
+    args = cc.lis_chain_args(64, 256, 256, links, dt, torch.Generator().manual_seed(0))
     slots = 3 + 5 * 8  # kTraceSlots
-    for what, needs in list(cs.lis_chain_needs(links).items())[:3]:
+    for what, needs in list(cc.lis_chain_needs(links).items())[:3]:
         plan = lis.backward_plan(64, 256, 256, True, needs, lis._sm_count(0),
                                  lis.resident_clusters(0, True))
         trace = torch.zeros((plan.groups, slots), dtype=torch.int64, device="cuda")
         lis._bwd_lib = lambda: Traced(base, lib, trace)
         try:
-            ms = cs.time_ms(lambda: lis.lis_chain_backward(*args, needs))
+            ms = time_ms(lambda: lis.lis_chain_backward(*args, needs))
             # Back to back, with no spin to cover the host's enqueue: the
             # host time of a call, where that is the longer.
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))

@@ -3,7 +3,7 @@ Pallas kernels run in interpret mode in bf16, on the same numpy inputs, and
 a bf16 render of the port's generator against `gea`'s.
 
 The CUDA kernels are held against these plain versions on the card
-(`chip_smoke.py`), so this pins the rounding points that the kernels must
+(`tests/test_torch_port_kernels_card.py`), so this pins the rounding points that the kernels must
 keep: products accumulated in fp32, the TPReLU in fp32, the hidden row (LIS)
 or seed map (seed) rounded to bf16 before the second product, and the
 result rounded to bf16 (LIS: before the residual add).

@@ -395,7 +395,7 @@ def kernel_calls(monkeypatch):
     ("eval_stages", (2, 1, 1)), ("eval_chain", (8, 0, 3))])
 def test_kernel_calls_per_batch(runs, kernel_calls, cli, want):
     """Kernel forwards (TPReLU, LIS, seed) per batch of each evaluator,
-    which `chip_smoke.py` asserts as launches on the card: 4 batches here.
+    which `tests/test_torch_port_trainers_card.py` asserts as launches: 4 batches here.
     At this config a G render has 1 TPReLU and 1 LIS link, D's trunk 1
     TPReLU, R 2; the real side runs none. At flagship width (3 TPReLUs a
     render and a trunk, 3 links) a batch is 3/3/1, 6/3/1, 10/6/2, 6/3/1 and

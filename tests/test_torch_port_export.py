@@ -218,8 +218,8 @@ def live_model(runs, case) -> serve.ServingModel:
 def test_program_calls_the_kernels_as_the_live_render_does(artifacts, runs, case,
                                                            kernel_calls):
     """The exported graph holds one node of each custom op per kernel
-    launch of the live render of the same function (which `chip_smoke.py`
-    counts as launches on the card), and the artifact renders what the live
+    launch of the live render of the same function (which
+    `tests/test_torch_port_trainers_card.py` counts as launches on the card), and the artifact renders what the live
     modules render."""
     model = artifacts[case][1]
     nodes = dict.fromkeys(OPS, 0)

@@ -4,8 +4,9 @@
 The random feature networks' filters are drawn with `jax.random`, which
 torch cannot redraw; the port loads them from the committed
 `gea_torch/eval/random_cnn_filters.npz`. This file also writes that file,
-and the golden `tests/torch_port_fid_golden.json` that `chip_smoke.py`
-holds the card's features against:
+and the golden `tests/torch_port_fid_golden.json` that
+`tests/test_torch_port_trainers_card.py` holds the card's features
+against:
 
     python tests/test_torch_port_fid.py --write
 
@@ -158,8 +159,8 @@ def test_features_match_gea(name, size):
 @pytest.mark.parametrize("name", NAMES)
 def test_golden_matches_the_port(name):
     """The committed golden (written from `gea`) against the port's
-    features on the CPU, at the tolerances `chip_smoke.py` holds the card
-    to: feature means and covariance trace rtol 1e-4, FID rtol 1e-3."""
+    features on the CPU, at the tolerances
+    `tests/test_torch_port_trainers_card.py` holds the card to: feature means and covariance trace rtol 1e-4, FID rtol 1e-3."""
     golden = json.loads(GOLDEN.read_text())
     assert golden["images"] == {"size": GOLDEN_SIZE, "halves": GOLDEN_HALVES}
     want = golden[name]

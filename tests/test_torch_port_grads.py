@@ -125,7 +125,8 @@ def test_tprelu_double_backward_gradgradcheck():
 
 @pytest.mark.parametrize("name", ["tprelu", "lis", "seed"])
 def test_functions_match_autograd_of_plain(rng, name):
-    """What `chip_smoke.py` checks on the card, here on the CPU in fp32:
+    """What `tests/test_torch_port_functions_card.py` checks on the card,
+    here on the CPU in fp32:
     each Function's explicit backward against autograd through its plain
     version, for a random cotangent."""
     args, extra, fn, plain, cls = {

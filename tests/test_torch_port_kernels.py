@@ -1,7 +1,8 @@
 """The port's kernels, through their plain PyTorch versions (what the
 wrappers run on a CPU tensor), against `gea`'s Pallas kernels run in
 interpret mode, on the same numpy inputs. The CUDA and Triton kernels
-themselves run only on the card (`chip_smoke.py`)."""
+themselves run only on the card
+(`tests/test_torch_port_kernels_card.py`)."""
 
 import jax.numpy as jnp
 import numpy as np

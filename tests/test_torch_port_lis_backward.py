@@ -13,7 +13,8 @@ products that take them (2^-9 of each term at most) and rounds dz, dw1 and
 dw2 to bf16, so those are held within 2^-6 of their max; db1, dslope,
 dtrans and db2, fp32 sums of unrounded terms in another order, within 1e-5
 of their max. The CPU op runs the plain version, so the two are equal bit
-for bit. The kernel itself runs only on the card (`chip_smoke.py`).
+for bit. The kernel itself runs only on the card
+(`tests/test_torch_port_kernels_card.py`).
 """
 
 import functools
@@ -313,8 +314,8 @@ NO_TPRELU = (True, True, True, False, False, True, True)  # LeakyReLU's fixed sl
 ])
 def test_backward_calls_per_step(monkeypatch, trainer, want):
     """LIS backwards per train step (2 links) and what each link of a call
-    computes (first link first), which `chip_smoke.py` asserts as launches
-    on the card: one chain call a step differentiates both links, every
+    computes (first link first), which the card modules
+    (`tests/test_torch_port_*_card.py`) assert as launches on the card: one chain call a step differentiates both links, every
     gradient but the first link's dz (its z is drawn); batch norm's links
     have no learned slope or offset; R-separate's frozen G asks for dz
     alone; R-iterative's G has no LIS link. No link is differentiated on

@@ -19,7 +19,7 @@ cotangent's elements may sit one bf16 step apart (the T(dz) rounded from
 the port's dz against the one rounded from `gea`'s). The CPU op runs the
 plain version and `LISChain` autograd's own composition, so those are
 equal bit for bit. The kernel itself runs only on the card
-(`chip_smoke.py`, `scripts/torch_lis_backward_check.py`).
+(`tests/test_torch_port_kernels_card.py`).
 """
 
 import itertools
@@ -49,7 +49,7 @@ NO_ACT = (True, True, True, False, False, True, True)  # batch norm: no learned 
 
 def chain_needs(links: int) -> dict:
     """Each path's per-link need sets, first link first (as
-    `chip_smoke.lis_chain_needs`)."""
+    `torch_port_card_cases.lis_chain_needs`)."""
     return {"g-lis": [WEIGHTS] + [ALL] * (links - 1),
             "batch-norm": [(False,) + NO_ACT[1:]] + [NO_ACT] * (links - 1),
             "r-separate": [DZ] * links, "every": [ALL] * links}
@@ -328,8 +328,8 @@ def _walk(fn, seen=None):
 
 # ------------------------------------------------------------------ the plan
 
-# The shapes `chip_smoke.py` (phases 3-5, the train steps at batch 64 and
-# their TP ranks at 32) and `scripts/torch_lis_backward_check.py` run:
+# The shapes the card modules run (the kernels' cases, the train steps at
+# batch 64 and their TP ranks at 32):
 # (batch, code, hidden).
 PLAN_SHAPES = [(64, 256, 256), (32, 256, 256), (1, 256, 256), (17, 256, 256), (30, 256, 256),
                (33, 256, 256), (128, 256, 256), (64, 256, 512), (1, 256, 512), (30, 40, 48),

@@ -7,7 +7,8 @@ by exactly one block, the blocks' slices cover hidden and code, the cluster
 size is one the launch takes, every block's shared memory fits the card,
 and in fp32 each layer's register tiles fit the block's threads. The
 launch (`csrc/lis.cu::gea_lis_forward`) takes the plan's `dims` and refuses
-any other grid or shared size; `chip_smoke.py` holds the kernel's own
+any other grid or shared size; `tests/test_torch_port_kernels_card.py` holds the kernel's
+own
 layout (`gea_lis_smem_bytes`) to the plan's bytes at every edge shape on
 the card, where both can be read."""
 
@@ -107,7 +108,8 @@ def test_flagship_plan():
     ((72, 256, 2048), [(2, 4), (1, 1)]),
 ], ids=["1024x1024", "512x2048", "256x2048"])
 def test_the_ring_cases_stream_their_weights(shape, tiles):
-    """The shapes `chip_smoke.py` runs to check the ring on the card: wider
+    """The shapes `tests/test_torch_port_kernels_card.py` runs to check the ring on the
+    card: wider
     than shared memory holds whole, so the ring is shallower than the
     chunks (at least 2 slots), and together they reach every register tile
     the kernel has."""

@@ -250,7 +250,10 @@ def test_import_loads_no_jax():
 
 
 def test_no_port_file_imports_grain_or_lmdb_at_module_level():
-    files = sorted((ROOT / "gea_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "gea_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tests").glob("test_torch_port_*_card.py"))
+             + [ROOT / "tests" / "torch_port_card_cases.py",
+                ROOT / "tests" / "torch_port_card_runs.py"])
     for path in files:
         body = ast.parse(path.read_text()).body
         for node in body:

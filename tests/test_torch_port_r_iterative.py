@@ -335,8 +335,8 @@ def kernel_calls(monkeypatch):
 @pytest.mark.parametrize("kw,want", [({}, (17, 0, 6)), ({"remat": True}, (24, 0, 9))],
                          ids=["default", "remat"])
 def test_kernel_calls_per_step(kernel_calls, kw, want):
-    """Kernel forwards per step (TPReLU, LIS, seed), which `chip_smoke.py`
-    asserts as launches on the card. At this config a render has 1 TPReLU,
+    """Kernel forwards per step (TPReLU, LIS, seed), which
+    `tests/test_torch_port_trainers_card.py` asserts as launches on the card. At this config a render has 1 TPReLU,
     R 2, D's trunk 1: two unrolls of 3 renders and 2 R's, and 3 D forwards;
     remat runs the joint unroll's first render and both links again in the
     backward. At flagship width (3 TPReLUs a render and a trunk) the

@@ -347,8 +347,8 @@ def kernel_calls(monkeypatch):
     ({"no_d": True}, (3, 1, 1)),
 ], ids=["default", "mining", "remat", "without_d"])
 def test_kernel_calls_per_step(kernel_calls, kw, want):
-    """Kernel forwards per step (TPReLU, LIS, seed), which `chip_smoke.py`
-    asserts as launches on the card. At this config a G render has 1 TPReLU
+    """Kernel forwards per step (TPReLU, LIS, seed), which
+    `tests/test_torch_port_trainers_card.py` asserts as launches on the card. At this config a G render has 1 TPReLU
     and 1 LIS link, D's trunk 1 TPReLU, R 2: frozen render + R + corrected
     render + D; mining scores the frozen render with D once more; remat
     runs the corrected render and its scoring again in the backward; with

@@ -3,7 +3,9 @@ imports on a host without CUDA, and its entry points never fall back to the
 CPU on their own."""
 
 import ast
+import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -15,8 +17,14 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "gea")
 
 
+CARD_MODULES = sorted((ROOT / "tests").glob("test_torch_port_*_card.py"))
+CARD_HELPERS = [ROOT / "tests" / "torch_port_card_cases.py",
+                ROOT / "tests" / "torch_port_card_runs.py"]
+
+
 def _port_files():
-    return sorted((ROOT / "gea_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "gea_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + CARD_MODULES
+            + CARD_HELPERS)
 
 
 def _imported_roots(path):
@@ -206,3 +214,55 @@ def test_chip_smoke_refuses_without_cuda():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("size", (80, 160))
+def test_card_cases_count_the_step_launches(size):
+    """The launches a train step makes of each kernel, summed over the
+    card cases that `chip_smoke.py` and `scripts/torch_kernel_times.py`
+    time (the forwards, TPReLU's backward, the seed's backward with every
+    gradient, and LIS's one chain call), equal the G-LIS step's launch
+    formula that the card modules assert."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_card_cases import backward_cases, cases, seed_backward_cases
+    from torch_port_card_runs import glis_launches
+
+    from gea_torch import FLAGSHIP
+
+    cfg = FLAGSHIP.replace(image_size=size, spatial_code=4) if size == 160 else FLAGSHIP
+    got = {"lis_chain_backward": 1}
+    for name, _, _, per_step, _ in cases(cfg):
+        got[name] = got.get(name, 0) + per_step
+    for what, rows in (("fused_tprelu_backward", backward_cases(cfg)),
+                       ("fused_seed_backward", seed_backward_cases(cfg))):
+        got[what] = sum(per_step for _, per_step, _ in rows)
+    want = {k: v for k, v in glis_launches(cfg)[0].items() if v}
+    assert {k: v for k, v in got.items() if v} == want
+
+
+# Runs one card module as the card runs it (no conftest), on a host whose
+# CUDA is hidden, then checks what the run left in the process.
+CARD_RUN = (
+    "import sys, pytest;"
+    "rc = pytest.main(['--noconftest', '-p', 'no:cacheprovider', '-q', '-rs', '-m', 'card',"
+    " sys.argv[1]]);"
+    "from gea_torch.ops import build;"
+    "assert build._LIBS == {} and build.BUILD_LOGS == {}, 'a kernel was built or loaded';"
+    "assert 'triton' not in sys.modules and 'jax' not in sys.modules;"
+    "assert not any(m == 'gea' or m.startswith('gea.') for m in sys.modules);"
+    "sys.exit(int(rc))"
+)
+
+
+@pytest.mark.parametrize("module", CARD_MODULES, ids=lambda p: p.name)
+def test_card_module_skips_without_cuda(module):
+    """On a host without CUDA a card module collects, skips every test and
+    builds nothing, without the suite's conftest, and imports no JAX."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    env.pop("PYTEST_XDIST_WORKER", None)
+    proc = subprocess.run([sys.executable, "-c", CARD_RUN, str(module.relative_to(ROOT))],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert re.fullmatch(r"=*\s*\d+ skipped in [0-9.]+s( \([0-9:]+\))?\s*=*", summary), summary
+    assert "needs an NVIDIA card" in proc.stdout, proc.stdout[-3000:]

@@ -14,7 +14,8 @@ The golden `tests/torch_port_render_golden.json` holds, for the flagship
 in fp32 (random weights from `gea_torch.interop.init_*_params(cfg, 0)`,
 batch 4, z from numpy), each stage's and sample's mean, std and 24 fixed
 pixels, and D's logit on every stage image, as `gea` renders them on the
-CPU; `chip_smoke.py` holds the card's fp32 render to it. Written by
+CPU; `tests/test_torch_port_trainers_card.py` holds the card's fp32
+render to it. Written by
 
     python tests/test_torch_port_samplers.py --write
 

@@ -17,7 +17,8 @@ size) in each term, and are held within 2^-7 of their max (measured:
 1.0e-3 to 3.9e-3 at the three shapes); dwc, rounded to bf16 itself, within
 one such step of its max (the fp32 sum under it runs in another order);
 dslope, dtrans and dbc, fp32 sums in another order, within 1e-5 of their
-max. The kernels themselves run only on the card (`chip_smoke.py`).
+max. The kernels themselves run only on the card
+(`tests/test_torch_port_kernels_card.py`).
 """
 
 import functools
@@ -250,8 +251,8 @@ ALL, DZ, WEIGHTS = NEEDS["all"], NEEDS["dz"], NEEDS["weights"]
     ("r-iterative", [ALL, ALL, WEIGHTS]),
 ])
 def test_backward_calls_per_step(monkeypatch, trainer, want):
-    """Seed backwards per train step and what each computes, which
-    `chip_smoke.py` asserts as launches on the card: G-LIS differentiates
+    """Seed backwards per train step and what each computes, which the
+    card modules (`tests/test_torch_port_*_card.py`) assert as launches: G-LIS differentiates
     its one render, every gradient (the stacked codes pass the LIS links);
     batch norm runs no seed kernel; R-separate's frozen G asks for dz alone;
     R-iterative's joint unroll differentiates its 3 renders, the last two

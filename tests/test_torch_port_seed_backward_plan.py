@@ -1,6 +1,6 @@
 """The host-side plan of the seed's backward kernels
 (`gea_torch.ops.seed.backward_plan`): at every shape that the card's checks
-run (`scripts/torch_seed_backward_check.py`, `chip_smoke.py`'s seed cases),
+run (`tests/test_torch_port_kernels_card.py`'s seed cases),
 in both dtypes, for every set of gradients a path asks for and at SM counts
 1, 7 and 132, each output tile and each partial slot is assigned exactly
 once, the K chunks of a tile cover its K exactly, and the reduce reads every

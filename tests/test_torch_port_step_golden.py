@@ -21,8 +21,8 @@ element by 2 * lr = 4e-4 (measured: the norm of a G bias near 5e-3 moves
 by up to 2.4e-5, step 2's loss_g by 1.4e-5 relative). So step 2's metrics
 get rtol 1e-4, and the norms rtol 1e-5 beside atol 1e-4, a quarter of one
 such flip; a missed or doubled update would move a norm by lr * sqrt(n).
-`chip_smoke.py` holds the card's eager and graphed fp32 steps against the
-golden at 2e-2 / 2%.
+`tests/test_torch_port_steps_card.py` holds the card's eager and graphed
+fp32 steps against the golden at 2e-2 / 2%.
 
 Rewrite both files with `python tests/test_torch_port_step_golden.py
 --write` (about a minute).

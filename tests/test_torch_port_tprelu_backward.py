@@ -10,8 +10,9 @@ backward of the previous layout (inlined below), and between the op's
 flag, the results are equal bit for bit: the CPU op runs the same
 operations. The double backward against autograd through the plain version
 in float64: atol 1e-10 / rtol 1e-10 (the same derivative in another order).
-The kernel itself runs only on the card (`chip_smoke.py`: dx bit for bit,
-da and db within its GRAD_TOL)."""
+The kernel itself runs only on the card
+(`tests/test_torch_port_kernels_card.py`: dx bit for bit, da and db
+within its BWD_SUM_TOL)."""
 
 import subprocess
 import sys
@@ -215,7 +216,8 @@ def _r_iterative():
 ])
 def test_backward_calls_per_step(monkeypatch, trainer, want):
     """TPReLU backwards per train step, and how many of them compute da and
-    db, which `chip_smoke.py` asserts as launches on the card. At this config
+    db, which the card modules (`tests/test_torch_port_*_card.py`) assert as
+    launches. At this config
     (a render and D's trunk have 1 TPReLU each, acts = 1; d = 2 under batch
     norm; R has 2): G-LIS 3 acts (G, D on reals and fakes, D for G's loss);
     batch norm d + 3 (d - 1), none with da/db (a fixed LeakyReLU); R-separate
